@@ -1,5 +1,5 @@
 """Card-only tests of the PyTorch port: the CUDA kernels against their plain
-PyTorch versions, and the entry points on the card.
+PyTorch versions, and the entry points and their gradients on the card.
 
 Marked ``cuda``; each test skips (inside the ``card`` fixture) where no CUDA
 card is present. This file imports neither JAX nor the JAX package, so it
@@ -9,6 +9,8 @@ also runs on a machine with the card and without JAX:
 
 Kernel and plain version agree to rel-L2 1e-5: they sum the same float32
 products in another order (the spread kernel in the order of its atomics).
+Gradients on the card agree with the same call on the CPU (the plain
+versions) to rel-L2 3e-5, the bar of the transforms against JAX.
 """
 
 import numpy as np
@@ -20,6 +22,8 @@ import torch_nfft_tpu_torch as tp
 from torch_nfft_tpu_torch import _build
 from torch_nfft_tpu_torch.ops import binned, contract
 from torch_nfft_tpu_torch.ops.tilefold import row_tile_ids, unfold_grid_to_tiles
+
+KERNELS = ("spread_tiles_dense", "gather_points", "pos_grad")
 
 pytestmark = pytest.mark.cuda
 
@@ -111,3 +115,90 @@ def test_build_is_plain_nvcc_for_sm90a(card):
     assert res.path.is_file() and "sm_90a" in " ".join(_build.NVCC_FLAGS)
     for src in _build.CSRC.glob("*.cu"):
         assert "torch/extension.h" not in src.read_text()
+
+
+def _with_empty_row(plan, dev):
+    """The plan with one empty row (row_count 0, origin 0) appended, as plan
+    stacks pad them."""
+    arrays, statics = tp.plan_to_numpy(plan)
+    S, K, dim = plan.S, plan.K, plan.dim
+    pad = {"slot_pt": np.zeros((1, K), np.int32), "origin": np.zeros((1, dim), np.int32),
+           "row_batch": np.zeros(1, np.int32), "row_count": np.zeros(1, np.int32),
+           "slot_pos": np.zeros((dim, K), np.float32),
+           "fill_keys": np.arange(S * K, (S + 1) * K, dtype=np.int32)}
+    ax = {"slot_pos": 1}
+    arrays = {k: np.concatenate([v, pad[k]], axis=ax.get(k, 0)) for k, v in arrays.items()}
+    return tp.plan_from_numpy(arrays, **statics, device=dev)
+
+
+@pytest.mark.parametrize("dim,N,m,sigma,window,n", [
+    (1, 64, 2, 2.0, "gaussian", 3000),
+    (2, 32, 3, 2.0, "es", 5000),
+    (3, 16, 2, 1.625, "es", 20000),
+    (3, 16, 4, 1.25, "kb", 8000),
+    (2, 16, 2, 2.0, "kb", 4000),
+])
+@pytest.mark.parametrize("C", [1, 3])
+def test_pos_grad_matches_plain(card, rng, dim, N, m, sigma, window, n, C):
+    B = 2
+    pos, batch = points(rng, n, dim, B)
+    plan = tp.build_plan_device(pos, batch, N=N, m=m, sigma=sigma, batch_size=B,
+                                window=window, device=card)
+    plan = _with_empty_row(plan, card)
+    tiles = unfold_grid_to_tiles(torch.randn((B, C) + (plan.M,) * dim, device=card), plan)
+    w = torch.randn((C, plan.S * plan.K), device=card)
+    tid = row_tile_ids(plan)
+    got = contract.pos_grad(plan, tiles, w, tid)
+    ref = contract.pos_grad_plain(plan, tiles, w, tid)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= 1e-5
+    assert bool((got[-1] == 0).all())  # the empty row
+    kmask = torch.arange(plan.K, device=card)[None, :] < plan.row_count[:, None]
+    assert bool((got.transpose(1, 2)[~kmask] == 0).all())  # padded slots
+
+
+def _loss_grads(fn, x, pos, w, dev):
+    """x.grad and pos.grad of <fn(x, pos), w> with x, pos as leaves on dev."""
+    xl = torch.as_tensor(x, device=dev).clone().requires_grad_()
+    pl = torch.as_tensor(pos, device=dev).clone().requires_grad_()
+    out = fn(xl, pl, dev)
+    out = torch.view_as_real(out) if out.is_complex() else out
+    (out * torch.as_tensor(w, device=dev)).sum().backward()
+    return xl.grad.cpu(), pl.grad.cpu()
+
+
+@pytest.mark.parametrize("entry", ["pair", "adjoint"])
+def test_gradients_on_the_card_match_the_cpu(card, rng, entry):
+    n, dim, N, B = 6000, 3, 16, 2
+    pos, batch = points(rng, n, dim, B)
+    x = rng.standard_normal((n, 2)).astype(np.float32)
+    kw = dict(batch_size=B, m=2, sigma=1.625, window="es")
+    if entry == "pair":
+        w = rng.standard_normal((n, 2)).astype(np.float32)
+
+        def fn(a, p, d):
+            return tp.nfft_pair_planar(a, p, batch, N=N, device=d, **kw)
+    else:
+        w = rng.standard_normal((B,) + (N,) * dim + (2, 2)).astype(np.float32)
+
+        def fn(a, p, d):
+            return tp.nfft_adjoint(a, p, batch, N=N, device=d, **kw)
+    gx, gp = _loss_grads(fn, x, pos, w, card)
+    rx, rp = _loss_grads(fn, x, pos, w, "cpu")
+    assert _rel(gx, rx) <= 3e-5 and _rel(gp, rp) <= 3e-5
+
+
+def test_training_step_launches_each_kernel_twice(card, rng):
+    n = 5000
+    pos, _ = points(rng, n, 3)
+    x = torch.from_numpy(rng.standard_normal((n, 1)).astype(np.float32)).to(card)
+    p = torch.from_numpy(pos).to(card)
+    x.requires_grad_()
+    p.requires_grad_()
+    before = {k: getattr(contract, k).launches for k in KERNELS}
+    z = tp.nfft_pair_planar(x, p, None, batch_size=1, N=16, m=2, sigma=1.625, window="es")
+    (z * torch.randn_like(z)).sum().backward()
+    torch.cuda.synchronize()
+    assert {k: getattr(contract, k).launches - before[k] for k in KERNELS} == dict.fromkeys(
+        KERNELS, 2)
+    assert x.grad.shape == (n, 1) and p.grad.shape == (n, 3)

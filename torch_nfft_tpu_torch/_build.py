@@ -33,9 +33,13 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (pointers x6, S, K, C, NT, dim, H, M, m, kind, p0, p1, p2, device, stream)
-_KERNEL_ARGTYPES = [_P] * 6 + [_I] * 9 + [_F] * 3 + [_I, _P]
-_FUNCTIONS = ("tnt_spread_tiles_dense", "tnt_gather_points")
+# (pointers, S, K, C, NT, dim, H, M, m, kind, window floats, device, stream)
+_FUNCTIONS = {
+    "tnt_spread_tiles_dense": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_I, _P],
+    "tnt_gather_points": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_I, _P],
+    # p0, p1, p2 and the derivative factor
+    "tnt_pos_grad": [_P] * 7 + [_I] * 9 + [_F] * 4 + [_I, _P],
+}
 
 
 @dataclass(frozen=True)
@@ -89,9 +93,9 @@ def build() -> BuildResult:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     lib = ctypes.CDLL(str(build().path))
-    for name in _FUNCTIONS:
+    for name, argtypes in _FUNCTIONS.items():
         fn = getattr(lib, name)
-        fn.argtypes = _KERNEL_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.tnt_error_string.argtypes = [ctypes.c_int]
     lib.tnt_error_string.restype = ctypes.c_char_p

@@ -1,10 +1,12 @@
-// Spread and gather window contractions of the binned NFFT, for Hopper.
+// Spread, gather and position-gradient window contractions of the binned
+// NFFT, for Hopper.
 //
 // Replaces the TPU kernels of the JAX package's ops/pallas/contract.py:
 //   tnt_spread_tiles_dense  <- spread_tiles_dense_pallas (kernel
 //       _spread_dense_kernel) and its row-batched twin spread_tiles_rb_pallas;
 //   tnt_gather_points       <- gather_points_pallas (kernel _gather_kernel)
-//       and its row-batched twin gather_points_rb_pallas.
+//       and its row-batched twin gather_points_rb_pallas;
+//   tnt_pos_grad            <- pos_grad_pallas (kernel _pos_grad_kernel).
 //
 // What they compute. A plan row s holds row_count[s] <= K points of one
 // tile (origin o_s, halo edge H = T + 2m + 1). Point k has, per axis d, a
@@ -49,6 +51,22 @@
 //   shared-memory atomic contention. chip_smoke.py computes both bounds
 //   from its run's plan (bounds()) and prints them beside the times.
 //
+// Position gradient (the position cotangent of both spread and gather).
+// For each filled slot k of row s, with D_d = M phi'(t) the derivative
+// window on axis d and w the per-point weights (the values x for the
+// spread's backward, the point cotangent for the gather's):
+//   dpos[s, d, k] = sum_c w[c, k] sum_cells T[c, cells] D_d prod_{e!=d} A_e
+// The kernel takes the gather's design: one block per row, one thread per
+// point, A and D built once per axis in registers, the row's tile read
+// through __ldg. The three axes share one pass over the L^dim support: the
+// innermost sums s = sum_w A_2 T and d = sum_w D_2 T (2 multiply-adds per
+// cell), then per (u, v) A_1 s, D_1 s, A_1 d, and per u D_0 (A_1 s),
+// A_0 (D_1 s), A_0 (A_1 d). Padded slots are written as 0. At the 3D
+// headline it reads the same tiles and coordinates as the gather, plus the
+// n weights, and writes the (S, 3, K) output (~0.24 GB): ~4 flops per cell
+// and channel against the gather's 2, so it is bound by operations
+// (chip_smoke.py:bounds).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (torch_nfft_tpu_torch/_build.py). Plain C interface:
 // every function returns the cudaError_t of its launch.
@@ -92,6 +110,53 @@ __device__ __forceinline__ float phi(const Window& w, float t) {
   return bessel_i0(w.p0 * s) * w.p2;
 }
 
+// Modified Bessel I1 for x >= 0, Abramowitz-Stegun 9.8.3/9.8.4.
+__device__ __forceinline__ float bessel_i1(float x) {
+  if (x < 3.75f) {
+    float y = x / 3.75f;
+    y = y * y;
+    return x * (0.5f + y * (0.87890594f + y * (0.51498869f + y * (
+        0.15084934f + y * (0.02658733f + y * (0.00301532f + y * 0.00032411f))))));
+  }
+  const float z = 3.75f / x;
+  const float inner = 0.02282967f + z * (-0.02895312f + z * (0.01787654f - z * 0.00420059f));
+  const float p = 0.39894228f + z * (-0.03988024f + z * (-0.00362018f + z * (
+      0.00163801f + z * (-0.01031555f + z * inner))));
+  return expf(x) * rsqrtf(x) * p;
+}
+
+// phi(t) and d phi / d pos = c t phi (gaussian), c t / s phi (es),
+// c t / s I1(beta s) / I0(beta) (kb), with c = dcoef
+// (ops/window.py:window_deriv_param) and 1/s clamped at s = 1e-6.
+__device__ __forceinline__ void phi_and_deriv(const Window& w, float dcoef,
+                                              float t, float* val,
+                                              float* der) {
+  const float t2 = __fmul_rn(t, t);
+  if (w.kind == 0) {
+    const float v = expf(-t2 * w.p0) * w.p1;
+    *val = v;
+    *der = dcoef * t * v;
+    return;
+  }
+  const float s2 = __fsub_rn(1.0f, __fmul_rn(t2, w.p1));
+  if (!(s2 > 0.0f)) {
+    *val = 0.0f;
+    *der = 0.0f;
+    return;
+  }
+  const float s = sqrtf(s2);
+  const float q = dcoef * t / fmaxf(s, 1e-6f);
+  if (w.kind == 1) {
+    const float v = expf(w.p0 * (s - 1.0f));
+    *val = v;
+    *der = q * v;
+    return;
+  }
+  const float bs = w.p0 * s;
+  *val = bessel_i0(bs) * w.p2;
+  *der = q * bessel_i1(bs) * w.p2;
+}
+
 // Window values of one coordinate on its L cells; returns the offset o of
 // the first cell inside the row's tile. The _rn intrinsics keep the window
 // argument free of fused multiply-adds, so it rounds exactly as the plain
@@ -106,6 +171,24 @@ __device__ __forceinline__ int axis_window(float p, int org, int M, int m,
   int o = (s - org) % M;
   if (o < 0) o += M;
   for (int l = 0; l < L; ++l) v[l] = phi(w, __fadd_rn(frac, static_cast<float>(m - l)));
+  return o;
+}
+
+// axis_window with the derivative windows dv beside the values v.
+__device__ __forceinline__ int axis_window_deriv(float p, int org, int M,
+                                                 int m, int L, const Window& w,
+                                                 float dcoef, float* v,
+                                                 float* dv) {
+  const float scaled = __fmul_rn(p, static_cast<float>(M));
+  const float fl = floorf(scaled);
+  const float frac = __fsub_rn(scaled, fl);
+  int s = (static_cast<int>(fl) - m) % M;
+  if (s < 0) s += M;
+  int o = (s - org) % M;
+  if (o < 0) o += M;
+  for (int l = 0; l < L; ++l)
+    phi_and_deriv(w, dcoef, __fadd_rn(frac, static_cast<float>(m - l)), v + l,
+                  dv + l);
   return o;
 }
 
@@ -219,6 +302,63 @@ __global__ void __launch_bounds__(kThreads) gather_kernel(
   }
 }
 
+__global__ void __launch_bounds__(kThreads) pos_grad_kernel(
+    const float* __restrict__ tiles, const float* __restrict__ wts,
+    const float* __restrict__ slot_pos, const int* __restrict__ row_count,
+    const int* __restrict__ origin, const int* __restrict__ tile_index,
+    float* __restrict__ dpos, int S, int K, int C, int NT, int dim, int H,
+    int M, int m, Window w, float dcoef) {
+  const int s = blockIdx.x;
+  const int tile = tile_index[s];
+  const int cnt = (tile >= 0 && tile < NT) ? row_count[s] : 0;
+  const Geometry g(dim, H, m);
+  const size_t SK = static_cast<size_t>(S) * K;
+  float* out = dpos + static_cast<size_t>(s) * dim * K;
+  const float* tl = tiles + static_cast<size_t>(cnt > 0 ? tile : 0) * C * g.cells;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    if (k >= cnt) {
+      for (int d = 0; d < dim; ++d) out[d * K + k] = 0.0f;
+      continue;
+    }
+    const size_t j = static_cast<size_t>(s) * K + k;
+    int o[3] = {0, 0, 0};
+    float v[3][kMaxL], dv[3][kMaxL];
+    v[1][0] = v[2][0] = 1.0f;  // absent axes: value 1, derivative 0
+    dv[1][0] = dv[2][0] = 0.0f;
+    for (int d = 0; d < dim; ++d)
+      o[d] = axis_window_deriv(slot_pos[d * SK + j], origin[s * dim + d], M, m,
+                               g.L, w, dcoef, v[d], dv[d]);
+    float grad[3] = {0.0f, 0.0f, 0.0f};
+    for (int c = 0; c < C; ++c) {
+      const float* a = tl + c * g.cells;
+      float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f;
+      for (int l0 = 0; l0 < g.L && o[0] + l0 < g.H; ++l0) {
+        float sv = 0.0f, sd1 = 0.0f, sd2 = 0.0f;
+        for (int l1 = 0; l1 < g.L1 && o[1] + l1 < g.H1; ++l1) {
+          const float* r = a + ((o[0] + l0) * g.H1 + o[1] + l1) * g.H2 + o[2];
+          float s2 = 0.0f, d2 = 0.0f;
+          for (int l2 = 0; l2 < g.L2 && o[2] + l2 < g.H2; ++l2) {
+            const float tv = __ldg(r + l2);
+            s2 += v[2][l2] * tv;
+            d2 += dv[2][l2] * tv;
+          }
+          sv += v[1][l1] * s2;
+          sd1 += dv[1][l1] * s2;
+          sd2 += v[1][l1] * d2;
+        }
+        acc0 += dv[0][l0] * sv;
+        acc1 += v[0][l0] * sd1;
+        acc2 += v[0][l0] * sd2;
+      }
+      const float wc = wts[c * SK + j];
+      grad[0] += wc * acc0;
+      grad[1] += wc * acc1;
+      grad[2] += wc * acc2;
+    }
+    for (int d = 0; d < dim; ++d) out[d * K + k] = grad[d];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -258,6 +398,19 @@ int tnt_gather_points(const float* tiles, const float* slot_pos,
   gather_kernel<<<S, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       tiles, slot_pos, row_count, origin, tile_index, y, S, K, C, NT, dim, H,
       M, m, Window{kind, p0, p1, p2});
+  return static_cast<int>(cudaGetLastError());
+}
+
+int tnt_pos_grad(const float* tiles, const float* wts, const float* slot_pos,
+                 const int* row_count, const int* origin,
+                 const int* tile_index, float* dpos, int S, int K, int C,
+                 int NT, int dim, int H, int M, int m, int kind, float p0,
+                 float p1, float p2, float dcoef, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess || S == 0) return static_cast<int>(err);
+  pos_grad_kernel<<<S, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      tiles, wts, slot_pos, row_count, origin, tile_index, dpos, S, K, C, NT,
+      dim, H, M, m, Window{kind, p0, p1, p2}, dcoef);
   return static_cast<int>(cudaGetLastError());
 }
 

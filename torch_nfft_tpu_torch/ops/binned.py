@@ -10,6 +10,13 @@ tile (H = T + 2m + 1) and accumulates it into a dense tile array; the fold
 (ops/tilefold.py) overlap-adds the tiles onto the grid. The gather runs the
 same steps backwards.
 
+Both directions are differentiable in the values and in the point
+positions (``_Spread``, ``_Gather``): each value cotangent runs the other
+direction's kernel, and each position cotangent the derivative-window
+kernel ``pos_grad`` on the unfolded tiles, as the JAX package's fused
+backward does. Positions are never read for the forward: the plan's
+``slot_pos`` is, and ``pos`` is the input that receives the gradient.
+
 The T/K heuristics are copied from the JAX package for parity; they encode
 TPU limits and are not tuned for the GPU.
 """
@@ -23,7 +30,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .contract import gather_points, spread_tiles_dense
+from .contract import gather_points, pos_grad, spread_tiles_dense
 from .tilefold import (
     fold_tiles_to_grid,
     row_tile_ids,
@@ -365,18 +372,94 @@ def run_stages(stages: tuple, v):
     return v
 
 
-def spread_binned(plan: BinnedPlan, x: torch.Tensor) -> torch.Tensor:
-    """Spread x (n, C) onto the oversampled grid, (batch_size, C, M^dim)."""
+def _pos_cotangent(plan: BinnedPlan, tiles, w_slot, pos) -> torch.Tensor:
+    """(n, dim) position cotangent, on ``pos``'s device and in its dtype,
+    from the dense tiles and the slot-ordered point weights."""
+    dp = pos_grad(plan, tiles, w_slot, row_tile_ids(plan))  # (S, dim, K)
+    dp = unslot_values(plan, dp.transpose(1, 2).reshape(-1, plan.dim))
+    return dp.to(pos)
+
+
+class _Spread(torch.autograd.Function):
+    """x (n, C), pos (n, dim) or None -> grid (batch_size, C, M^dim).
+    Backward: dx = gather(unfold(g_bar)), dpos = pos_grad(unfold(g_bar),
+    w = x), the tiles unfolded once for both."""
+
+    @staticmethod
+    def forward(ctx, plan, x, pos):
+        stages = spread_stages(plan)
+        vals = run_stages(stages[:1], x)  # slot-ordered (C, S*K)
+        ctx.plan = plan
+        ctx.save_for_backward(vals if ctx.needs_input_grad[2] else None, pos)
+        return run_stages(stages[1:], vals)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_bar):
+        plan = ctx.plan
+        vals, pos = ctx.saved_tensors
+        stages = gather_stages(plan)
+        tiles = run_stages(stages[:1], g_bar)
+        dx = dpos = None
+        if ctx.needs_input_grad[1]:
+            dx = run_stages(stages[1:], tiles)
+        if ctx.needs_input_grad[2]:
+            dpos = _pos_cotangent(plan, tiles, vals, pos)
+        return None, dx, dpos
+
+
+class _Gather(torch.autograd.Function):
+    """grid (batch_size, C, M^dim), pos (n, dim) or None -> (n, C).
+    Backward: dg = spread(y_bar), dpos = pos_grad(unfold(g), w = y_bar),
+    y_bar put in slot order once for both."""
+
+    @staticmethod
+    def forward(ctx, plan, g, pos):
+        ctx.plan = plan
+        ctx.save_for_backward(g if ctx.needs_input_grad[2] else None, pos)
+        return run_stages(gather_stages(plan), g)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, y_bar):
+        plan = ctx.plan
+        g, pos = ctx.saved_tensors
+        stages = spread_stages(plan)
+        w_slot = run_stages(stages[:1], y_bar)  # slot-ordered (C, S*K)
+        dg = dpos = None
+        if ctx.needs_input_grad[1]:
+            dg = run_stages(stages[1:], w_slot)
+        if ctx.needs_input_grad[2]:
+            tiles = run_stages(gather_stages(plan)[:1], g)
+            dpos = _pos_cotangent(plan, tiles, w_slot, pos)
+        return None, dg, dpos
+
+
+def _check_pos(plan: BinnedPlan, pos) -> None:
+    if pos is not None and tuple(pos.shape) != (plan.n, plan.dim):
+        raise ValueError(f"pos has shape {tuple(pos.shape)}; the plan was built "
+                         f"for ({plan.n}, {plan.dim})")
+
+
+def spread_binned(plan: BinnedPlan, x: torch.Tensor,
+                  pos: torch.Tensor | None = None) -> torch.Tensor:
+    """Spread x (n, C) onto the oversampled grid, (batch_size, C, M^dim).
+    Differentiable in x and, when given, in ``pos`` (the plan's points,
+    (n, dim); the forward reads the plan's copy)."""
     check_points(plan, x)
-    return run_stages(spread_stages(plan), x)
+    _check_pos(plan, pos)
+    return _Spread.apply(plan, x, pos)
 
 
-def gather_binned(plan: BinnedPlan, g: torch.Tensor) -> torch.Tensor:
+def gather_binned(plan: BinnedPlan, g: torch.Tensor,
+                  pos: torch.Tensor | None = None) -> torch.Tensor:
     """Gather the grid (batch_size, C, M^dim) back to the points, (n, C):
-    the transpose of :func:`spread_binned`."""
+    the transpose of :func:`spread_binned`, differentiable in g and, when
+    given, in ``pos``."""
     _check_values(plan, g, "the grid")
     if g.ndim != 2 + plan.dim or g.shape[0] != plan.batch_size or any(
             s != plan.M for s in g.shape[2:]):
         raise ValueError(f"the grid has shape {tuple(g.shape)}, the plan needs "
                          f"({plan.batch_size}, C) + {(plan.M,) * plan.dim}")
-    return run_stages(gather_stages(plan), g)
+    _check_pos(plan, pos)
+    return _Gather.apply(plan, g, pos)

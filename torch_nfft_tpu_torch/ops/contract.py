@@ -7,13 +7,21 @@ restricted to each point's 2m+2 window cells:
 
     spread:  tile[u, v, w] += sum_k x[k] A_0[u, k] A_1[v, k] A_2[w, k]
     gather:  y[k] = sum_{u,v,w} A_0[u, k] A_1[v, k] A_2[w, k] tile[u, v, w]
+    pos_grad: dpos[d, k] = sum_c w[c, k] sum_{u,v,w} tile[c, u, v, w]
+              * D_d[., k] prod_{e != d} A_e[., k]
+
+with D_d = M * phi'(t) the derivative windows (d t / d pos = M; the floor
+in t is piecewise constant). ``pos_grad`` is the position cotangent of
+both the spread (tiles of the grid cotangent, w the values) and the gather
+(tiles of the primal grid, w the point cotangent).
 
 ``spread_tiles_dense`` replaces the JAX package's TPU kernel
 ``ops/pallas/contract.py:spread_tiles_dense_pallas`` (and
 its row-batched twin ``spread_tiles_rb_pallas``, which computes the same
 function); ``gather_points`` replaces ``gather_points_pallas`` (and
-``gather_points_rb_pallas``). The kernels are in ``csrc/contract.cu``; the
-design and the bound on the H100 are in the note there.
+``gather_points_rb_pallas``); ``pos_grad`` replaces ``pos_grad_pallas``.
+The kernels are in ``csrc/contract.cu``; the design and the bound on the
+H100 are in the note there.
 
 Each wrapper launches its kernel for CUDA tensors, or raises; it takes the
 plain version only for CPU tensors. ``launches`` on each wrapper counts the
@@ -25,13 +33,20 @@ from __future__ import annotations
 import torch
 
 from .._build import check, library
-from .window import window_params, window_value_fn
+from .window import (
+    window_deriv_param,
+    window_params,
+    window_value_and_deriv_fn,
+    window_value_fn,
+)
 
 __all__ = [
     "spread_tiles_dense",
     "gather_points",
+    "pos_grad",
     "spread_tiles_dense_plain",
     "gather_points_plain",
+    "pos_grad_plain",
 ]
 
 _MAX_L = 20  # window cells per axis the kernels hold: 2m + 2 <= 20
@@ -62,13 +77,36 @@ def _row_chunks(S: int, K: int, H: int, dim: int, C: int):
     return [(r0, min(S, r0 + R)) for r0 in range(0, S, R)]
 
 
-def _chunk_inputs(plan, r0: int, r1: int):
+def _chunk_inputs(plan, r0: int, r1: int, phi=None):
+    """Windows of rows [r0, r1) (from ``phi``, the window values by
+    default) and the mask of their filled slots, (R, K)."""
     K, dim = plan.K, plan.dim
+    if phi is None:
+        phi = window_value_fn(plan.m, plan.sigma, plan.window)
     pd = plan.slot_pos[:, r0 * K: r1 * K].reshape(dim, r1 - r0, K)
     A = _row_windows(pd.permute(1, 2, 0), plan.origin[r0:r1], plan.M,
-                     plan.m, plan.H, window_value_fn(plan.m, plan.sigma, plan.window))
+                     plan.m, plan.H, phi)
     kmask = torch.arange(K, device=pd.device)[None, :] < plan.row_count[r0:r1, None]
     return A, kmask
+
+
+def _row_tiles(plan, tiles, tile_index, r0: int, r1: int):
+    """The tiles rows [r0, r1) read, (R, C, H, ..., H)."""
+    tl = tiles[tile_index[r0:r1].to(torch.int64)]
+    return tl.reshape((r1 - r0, tiles.shape[1]) + (plan.H,) * plan.dim)
+
+
+def _contract_rows(W, tl, dim: int):
+    """(R, K, C): each point's sum over its row's tile ``tl`` (R, C, H^dim)
+    weighted by prod_d W[:, :, d] (W is (R, K, dim, H))."""
+    if dim == 1:
+        return torch.einsum("rku,rcu->rkc", W[:, :, 0], tl)
+    if dim == 2:
+        t1 = torch.einsum("rku,rcuv->rkcv", W[:, :, 0], tl)
+        return torch.einsum("rkv,rkcv->rkc", W[:, :, 1], t1)
+    t1 = torch.einsum("rku,rcuvw->rkcvw", W[:, :, 0], tl)
+    t2 = torch.einsum("rkv,rkcvw->rkcw", W[:, :, 1], t1)
+    return torch.einsum("rkw,rkcw->rkc", W[:, :, 2], t2)
 
 
 def spread_tiles_dense_plain(plan, vals: torch.Tensor, tile_index: torch.Tensor,
@@ -105,19 +143,31 @@ def gather_points_plain(plan, tiles: torch.Tensor,
     y = torch.empty((S, C, K), dtype=torch.float32, device=tiles.device)
     for r0, r1 in _row_chunks(S, K, H, dim, C):
         A, kmask = _chunk_inputs(plan, r0, r1)
-        tl = tiles[tile_index[r0:r1].to(torch.int64)]
-        tl = tl.reshape((r1 - r0, C) + (H,) * dim)
-        if dim == 1:
-            yk = torch.einsum("rku,rcu->rkc", A[:, :, 0], tl)
-        elif dim == 2:
-            t1 = torch.einsum("rku,rcuv->rkcv", A[:, :, 0], tl)
-            yk = torch.einsum("rkv,rkcv->rkc", A[:, :, 1], t1)
-        else:
-            t1 = torch.einsum("rku,rcuvw->rkcvw", A[:, :, 0], tl)
-            t2 = torch.einsum("rkv,rkcvw->rkcw", A[:, :, 1], t1)
-            yk = torch.einsum("rkw,rkcw->rkc", A[:, :, 2], t2)
+        yk = _contract_rows(A, _row_tiles(plan, tiles, tile_index, r0, r1), dim)
         y[r0:r1] = (yk * kmask[..., None]).permute(0, 2, 1)
     return y
+
+
+def pos_grad_plain(plan, tiles: torch.Tensor, w_slot: torch.Tensor,
+                   tile_index: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`pos_grad`, chunked over rows: per axis d, a
+    gather with the derivative window on axis d, weighted by w and summed
+    over the channels."""
+    S, K = plan.slot_pt.shape
+    dim, H = plan.dim, plan.H
+    C = tiles.shape[1]
+    pair = window_value_and_deriv_fn(plan.m, plan.sigma, plan.window, M=plan.M)
+    out = torch.empty((S, dim, K), dtype=torch.float32, device=tiles.device)
+    for r0, r1 in _row_chunks(S, K, H, dim, C):
+        A, kmask = _chunk_inputs(plan, r0, r1)
+        D, _ = _chunk_inputs(plan, r0, r1, lambda t: pair(t)[1])
+        tl = _row_tiles(plan, tiles, tile_index, r0, r1)
+        ws = w_slot[:, r0 * K: r1 * K].reshape(C, r1 - r0, K).permute(1, 2, 0)
+        ws = ws * kmask[..., None]  # (R, K, C)
+        for d in range(dim):
+            W = torch.cat([A[:, :, :d], D[:, :, d:d + 1], A[:, :, d + 1:]], dim=2)
+            out[r0:r1, d] = (_contract_rows(W, tl, dim) * ws).sum(-1)
+    return out
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -149,6 +199,15 @@ def _route(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"unsupported device {t.device}")
+
+
+def _check_tiles(plan, tiles: torch.Tensor, tile_index: torch.Tensor) -> None:
+    H, dim = plan.H, plan.dim
+    _check_plan_tensors(plan, tiles, tile_index)
+    _require(tiles.dtype == torch.float32 and tiles.is_contiguous(),
+             "tiles must be contiguous float32")
+    _require(tiles.ndim == 4 and tuple(tiles.shape[2:]) == (H, H ** (dim - 1)),
+             f"tiles must be (NT, C, {H}, {H ** (dim - 1)})")
 
 
 def _kernel_args(plan, t: torch.Tensor):
@@ -191,12 +250,7 @@ def gather_points(plan, tiles: torch.Tensor, tile_index: torch.Tensor) -> torch.
     """Dense tiles (NT, C, H, H^{dim-1}) -> slot values (S, C, K); row s
     reads tile ``tile_index[s]``, empty slots are 0."""
     S, K = plan.slot_pt.shape
-    H, dim = plan.H, plan.dim
-    _check_plan_tensors(plan, tiles, tile_index)
-    _require(tiles.dtype == torch.float32 and tiles.is_contiguous(),
-             "tiles must be contiguous float32")
-    _require(tiles.ndim == 4 and tuple(tiles.shape[2:]) == (H, H ** (dim - 1)),
-             f"tiles must be (NT, C, {H}, {H ** (dim - 1)})")
+    _check_tiles(plan, tiles, tile_index)
     NT, C = tiles.shape[:2]
     if not _route(tiles):
         return gather_points_plain(plan, tiles, tile_index)
@@ -210,3 +264,33 @@ def gather_points(plan, tiles: torch.Tensor, tile_index: torch.Tensor) -> torch.
 
 
 gather_points.launches = 0
+
+
+def pos_grad(plan, tiles: torch.Tensor, w_slot: torch.Tensor,
+             tile_index: torch.Tensor) -> torch.Tensor:
+    """Dense tiles (NT, C, H, H^{dim-1}) and slot-ordered weights (C, S*K)
+    -> slot-ordered position cotangent (S, dim, K); row s reads tile
+    ``tile_index[s]``, empty slots are 0."""
+    S, K = plan.slot_pt.shape
+    _check_tiles(plan, tiles, tile_index)
+    NT, C = tiles.shape[:2]
+    _require(w_slot.device == tiles.device, f"w_slot is on {w_slot.device}, "
+             f"tiles on {tiles.device}")
+    _require(w_slot.dtype == torch.float32 and w_slot.is_contiguous(),
+             "w_slot must be contiguous float32")
+    _require(tuple(w_slot.shape) == (C, S * K), f"w_slot must be ({C}, {S * K})")
+    if not _route(tiles):
+        return pos_grad_plain(plan, tiles, w_slot, tile_index)
+    out = torch.empty((S, plan.dim, K), dtype=torch.float32, device=tiles.device)
+    dim, H, M, m, kind, p0, p1, p2, device, stream = _kernel_args(plan, tiles)
+    check(library().tnt_pos_grad(
+        tiles.data_ptr(), w_slot.data_ptr(), plan.slot_pos.data_ptr(),
+        plan.row_count.data_ptr(), plan.origin.data_ptr(), tile_index.data_ptr(),
+        out.data_ptr(), S, K, C, NT, dim, H, M, m, kind, p0, p1, p2,
+        window_deriv_param(plan.m, plan.sigma, plan.window, M=plan.M),
+        device, stream))
+    pos_grad.launches += 1
+    return out
+
+
+pos_grad.launches = 0

@@ -7,6 +7,9 @@ two real planes. They run the binned engine (ops/binned.py) around the
 ``torch.fft`` spectral stage (ops/fft.py). With ``plan=None`` a plan is built
 for the points; pass one to reuse it across calls.
 
+Each entry point is differentiable in its values and, when ``pos`` is a
+tensor that requires grad, in the point positions (ops/binned.py).
+
 Every entry point runs on the CUDA card unless ``device="cpu"`` is given,
 and raises when no card is there and no device was asked for.
 """
@@ -19,7 +22,6 @@ from .._device import resolve_device
 from .binned import (
     BinnedPlan,
     build_plan_device,
-    check_points,
     gather_binned,
     gather_stages,
     run_stages,
@@ -30,7 +32,7 @@ from .fft import spectral_adjoint, spectral_forward
 from .window import DEFAULT_SIGMA, DEFAULT_WINDOW
 
 __all__ = ["nfft_adjoint_planar", "nfft_forward_planar", "nfft_pair_planar",
-           "pair_stages"]
+           "pair_stages", "grad_pos", "setup_plan", "shape_of"]
 
 
 def _check_window_match(window, plan, *, m, M, sigma):
@@ -64,16 +66,24 @@ def _check_window_match(window, plan, *, m, M, sigma):
         )
 
 
-def _shape(a) -> tuple:
+def shape_of(a) -> tuple:
     return tuple(a.shape) if hasattr(a, "shape") else tuple(torch.as_tensor(a).shape)
 
 
-def _setup(pos, batch, plan, *, batch_size, N, m, sigma, window, device):
+def grad_pos(pos):
+    """The input that receives the position gradient: ``pos`` when it is a
+    tensor that requires grad, else None (no position gradient)."""
+    return pos if isinstance(pos, torch.Tensor) and pos.requires_grad else None
+
+
+def setup_plan(pos, batch, plan, *, batch_size, N, m, sigma, window, device):
     """Resolve the device and return a plan for (pos, batch) that matches the
     transform's geometry."""
     dev = resolve_device(device)
     M = int(round(sigma * N))
     if plan is None:
+        if isinstance(pos, torch.Tensor):
+            pos = pos.detach()
         plan = build_plan_device(pos, batch, N=N, m=m, sigma=sigma,
                                  batch_size=batch_size, window=window, device=dev)
     if not isinstance(plan, BinnedPlan):
@@ -81,8 +91,8 @@ def _setup(pos, batch, plan, *, batch_size, N, m, sigma, window, device):
     _check_window_match(window, plan, m=m, M=M, sigma=sigma)
     if plan.device != dev:
         raise ValueError(f"the plan lives on {plan.device}, the transform runs on {dev}")
-    if _shape(pos) != (plan.n, plan.dim):
-        raise ValueError(f"pos has shape {_shape(pos)}; the plan was built "
+    if shape_of(pos) != (plan.n, plan.dim):
+        raise ValueError(f"pos has shape {shape_of(pos)}; the plan was built "
                          f"for ({plan.n}, {plan.dim})")
     if batch_size != plan.batch_size:
         raise ValueError(f"batch_size={batch_size} but the plan was built for "
@@ -99,9 +109,9 @@ def nfft_adjoint_planar(x, pos, batch=None, plan=None, *, batch_size: int,
                         window: str = DEFAULT_WINDOW, device=None):
     """Adjoint NFFT of real samples x (n, C): returns (yr, yi), each
     (batch_size, (N,)*dim, C), y[b, k] = sum_i x_i exp(+2 pi i k.pos_i)."""
-    dev, plan = _setup(pos, batch, plan, batch_size=batch_size, N=N, m=m,
-                       sigma=sigma, window=window, device=device)
-    g = spread_binned(plan, _real(x, dev))
+    dev, plan = setup_plan(pos, batch, plan, batch_size=batch_size, N=N, m=m,
+                            sigma=sigma, window=window, device=device)
+    g = spread_binned(plan, _real(x, dev), grad_pos(pos))
     y = spectral_adjoint(g, plan.dim, N, m, sigma, window).movedim(1, -1)
     return y.real.contiguous(), y.imag.contiguous()
 
@@ -114,9 +124,9 @@ def nfft_forward_planar(xr, xi, pos, batch=None, plan=None, *, batch_size: int,
     xi may be None: returns (yr, yi), each (n, C),
     y_i = sum_k x[batch_i, k] exp(-2 pi i k.pos_i). With ``real_output``
     only the real plane is gathered and the result is (yr, None)."""
-    N = _shape(xr)[1]
-    dev, plan = _setup(pos, batch, plan, batch_size=batch_size, N=N, m=m,
-                       sigma=sigma, window=window, device=device)
+    N = shape_of(xr)[1]
+    dev, plan = setup_plan(pos, batch, plan, batch_size=batch_size, N=N, m=m,
+                            sigma=sigma, window=window, device=device)
     if plan.dim != dim:
         raise ValueError(f"dim={dim} but the plan was built for dim={plan.dim}")
     z = _real(xr, dev)
@@ -124,24 +134,33 @@ def nfft_forward_planar(xr, xi, pos, batch=None, plan=None, *, batch_size: int,
         z = torch.complex(z, _real(xi, dev))
     z = z.to(torch.complex64).movedim(-1, 1)
     g = spectral_forward(z, dim, plan.M, m, sigma, window)  # (B, C, M^dim)
+    p = grad_pos(pos)
     if real_output:
-        return gather_binned(plan, g.real.contiguous()), None
+        return gather_binned(plan, g.real.contiguous(), p), None
     C = z.shape[1]
-    y = gather_binned(plan, torch.cat([g.real, g.imag], dim=1))
+    y = gather_binned(plan, torch.cat([g.real, g.imag], dim=1), p)
     return y[:, :C], y[:, C:]
+
+
+def _spectral_stages(plan: BinnedPlan, *, N: int, m: int, sigma: float,
+                     window: str) -> tuple:
+    dim, M = plan.dim, plan.M
+    return (
+        ("spectral adjoint", lambda g: spectral_adjoint(g, dim, N, m, sigma, window)),
+        ("spectral forward",
+         lambda y: spectral_forward(y, dim, M, m, sigma, window).real.contiguous()),
+    )
 
 
 def pair_stages(plan: BinnedPlan, *, N: int, m: int, sigma: float,
                 window: str) -> tuple:
-    """The pair as (name, function) stages in order: the spread stages, the
-    two spectral stages, the gather stages. :func:`nfft_pair_planar` runs
-    them; chip_smoke.py times them one by one."""
-    dim, M = plan.dim, plan.M
-    return spread_stages(plan) + (
-        ("spectral adjoint", lambda g: spectral_adjoint(g, dim, N, m, sigma, window)),
-        ("spectral forward",
-         lambda y: spectral_forward(y, dim, M, m, sigma, window).real.contiguous()),
-    ) + gather_stages(plan)
+    """The pair's forward as (name, function) stages in order: the spread
+    stages, the two spectral stages, the gather stages.
+    :func:`nfft_pair_planar` runs them (the spread and gather stages inside
+    their autograd Functions); chip_smoke.py times them one by one."""
+    return (spread_stages(plan)
+            + _spectral_stages(plan, N=N, m=m, sigma=sigma, window=window)
+            + gather_stages(plan))
 
 
 def nfft_pair_planar(x, pos, batch=None, plan=None, *, batch_size: int, N: int,
@@ -150,8 +169,9 @@ def nfft_pair_planar(x, pos, batch=None, plan=None, *, batch_size: int, N: int,
     """Adjoint followed by a real-output forward on the same points:
     x (n, C) real -> (n, C) real, equal to
     ``nfft_forward_planar(*nfft_adjoint_planar(...), real_output=True)[0]``."""
-    dev, plan = _setup(pos, batch, plan, batch_size=batch_size, N=N, m=m,
-                       sigma=sigma, window=window, device=device)
-    x = _real(x, dev)
-    check_points(plan, x)
-    return run_stages(pair_stages(plan, N=N, m=m, sigma=sigma, window=window), x)
+    dev, plan = setup_plan(pos, batch, plan, batch_size=batch_size, N=N, m=m,
+                            sigma=sigma, window=window, device=device)
+    p = grad_pos(pos)
+    g = spread_binned(plan, _real(x, dev), p)
+    y = run_stages(_spectral_stages(plan, N=N, m=m, sigma=sigma, window=window), g)
+    return gather_binned(plan, y, p)

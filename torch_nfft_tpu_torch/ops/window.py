@@ -13,7 +13,9 @@ scaled argument t = M*x - cell, M = sigma*N the oversampled grid size:
 The inverse window Fourier coefficients come from a float64 Gauss-Legendre
 quadrature on the host (closed form for the gaussian). The CUDA kernels
 (``csrc/contract.cu``) evaluate the same float32 expressions from the
-parameters of :func:`window_params`.
+parameters of :func:`window_params`, and the derivative d phi / d pos =
+M * phi'(t) (t = M*pos - cell, so d t / d pos = M) from
+:func:`window_deriv_param`.
 """
 
 from __future__ import annotations
@@ -34,7 +36,9 @@ __all__ = [
     "es_beta",
     "kb_beta",
     "window_value_fn",
+    "window_value_and_deriv_fn",
     "window_params",
+    "window_deriv_param",
     "phi_hat_inv_np",
     "phi_hat_inv_centered",
     "window_index_offsets",
@@ -99,6 +103,24 @@ def _i0(x: torch.Tensor) -> torch.Tensor:
     return torch.where(small, p_small, big)
 
 
+def _i1(x: torch.Tensor) -> torch.Tensor:
+    """Modified Bessel I1 for x >= 0 in float32, Abramowitz-Stegun
+    9.8.3/9.8.4 (|rel err| < 3e-7); the CUDA kernel uses the same
+    polynomials."""
+    small = x < 3.75
+    y = torch.where(small, x / 3.75, 0.0)
+    y = y * y
+    p_small = x * (0.5 + y * (0.87890594 + y * (0.51498869 + y * (
+        0.15084934 + y * (0.02658733 + y * (0.00301532 + y * 0.00032411))))))
+    ax = torch.clamp(x, min=3.75)
+    z = 3.75 / ax
+    inner = 0.02282967 + z * (-0.02895312 + z * (0.01787654 - z * 0.00420059))
+    p_big = 0.39894228 + z * (-0.03988024 + z * (-0.00362018 + z * (
+        0.00163801 + z * (-0.01031555 + z * inner))))
+    big = torch.exp(ax) * torch.rsqrt(ax) * p_big
+    return torch.where(small, p_small, big)
+
+
 def window_value_fn(m: int, sigma: float = DEFAULT_SIGMA,
                     window: str = DEFAULT_WINDOW):
     """phi as a function of float32 tensors of the scaled argument t."""
@@ -135,6 +157,60 @@ def window_value_fn(m: int, sigma: float = DEFAULT_SIGMA,
         return torch.where(inside, torch.exp(beta * (s - 1.0)), 0.0)
 
     return phi_es
+
+
+def window_value_and_deriv_fn(m: int, sigma: float = DEFAULT_SIGMA,
+                              window: str = DEFAULT_WINDOW, *, M: int):
+    """(phi(t), d phi / d pos) as one function of float32 tensors of t.
+
+    With c = :func:`window_deriv_param`: gaussian c*t*phi; es c*t/s*phi;
+    kb c*t/s*I1(beta*s)/I0(beta), s = sqrt(1 - (t/(m+1))^2) with 1/s
+    clamped at s = 1e-6 (the window vanishes at its support edge)."""
+    phi = window_value_fn(m, sigma, window)
+    c = window_deriv_param(m, sigma, window, M=M)
+    if window == "gaussian":
+        def pair_gauss(t):
+            vals = phi(t)
+            return vals, (c * t) * vals
+
+        return pair_gauss
+
+    inv_w2 = 1.0 / ((m + 1.0) * (m + 1.0))
+
+    def support(t):
+        s2 = 1.0 - (t * t) * inv_w2
+        inside = s2 > 0.0
+        return inside, torch.sqrt(torch.where(inside, s2, 1.0))
+
+    if window == "kb":
+        beta = kb_beta(m, sigma)
+        inv_i0b = 1.0 / float(np.i0(np.float64(beta)))
+
+        def pair_kb(t):
+            inside, s = support(t)
+            d = c * t / torch.clamp(s, min=1e-6) * _i1(beta * s) * inv_i0b
+            return phi(t), torch.where(inside, d, 0.0)
+
+        return pair_kb
+
+    def pair_es(t):
+        _, s = support(t)
+        vals = phi(t)
+        return vals, c * t / torch.clamp(s, min=1e-6) * vals
+
+    return pair_es
+
+
+def window_deriv_param(m: int, sigma: float = DEFAULT_SIGMA,
+                       window: str = DEFAULT_WINDOW, *, M: int) -> float:
+    """The factor c of the window derivative, d phi / d pos = c * t * ...
+    (:func:`window_value_and_deriv_fn`): -2*inv_b*M for the gaussian,
+    -beta*M/(m+1)^2 for es and kb."""
+    check_window(window)
+    if window == "gaussian":
+        return -2.0 * window_inv_b(m, sigma) * M
+    beta = es_beta(m, sigma) if window == "es" else kb_beta(m, sigma)
+    return -beta * M * (1.0 / ((m + 1.0) * (m + 1.0)))
 
 
 def window_params(m: int, sigma: float = DEFAULT_SIGMA,
