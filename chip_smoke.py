@@ -2,9 +2,13 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``torch_nfft_tpu_torch/csrc`` with nvcc, holds
-each kernel against its plain PyTorch version at the headline shapes (the
-position-gradient kernel with both of its weightings), runs the NDFT
+Builds the CUDA kernels from ``torch_nfft_tpu_torch/csrc`` with nvcc (one
+process per source) and, beside them, the host C++ plan builder and Benes
+router with g++. Builds the headline plan on the device and on the host
+(checked against each other field by field), routes the host plan's Benes
+tables cold, holds each kernel against its plain PyTorch version at the
+headline shapes (the position-gradient kernel with both of its weightings;
+the permutation kernels bit for bit, also at q = 20), runs the NDFT
 accuracy gates, then runs the headline adjoint+forward pair (3D, N=256,
 n=2^24 points in [-1/4, 1/4)^3, es window, m=2, sigma=1.625) through the
 port's public entry points, checks the kernels were launched on that path
@@ -13,8 +17,12 @@ headline training step: forward and backward of L = <pair(x, pos), w> with
 gradients for x and all positions, its launches (2 of each kernel) and
 x.grad against pair(w) (the pair's operator is symmetric); and the same
 loss at a small size on the card against the CPU's plain chain, for
-pos.grad. Last it times each kernel with CUDA events, times the pair stage
-by stage (the stages ``nfft_pair_planar`` runs) and reads the device's
+pos.grad. Then the same pair and training step on the Benes route (the JAX
+package's default headline route: ``with_benes_tables``), held against the
+sort route's, and the slot-space Benes route at n = 2^20. Last it times
+each kernel with CUDA events beside its bound, its plain version and one
+``index_select`` of the same function, times the pair stage by stage on
+both routes (the stages ``nfft_pair_planar`` runs) and reads the device's
 busy share of three traced pairs and three traced steps with
 ``torch.profiler``.
 
@@ -27,34 +35,56 @@ exits with code 2 and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 import torch_nfft_tpu_torch as tp
-from torch_nfft_tpu_torch import _build
-from torch_nfft_tpu_torch.ops import contract
-from torch_nfft_tpu_torch.ops.binned import dense_tile_ids, run_stages, slot_values
+from torch_nfft_tpu_torch import _build, _native
+from torch_nfft_tpu_torch.ops import benes, contract, ragged
+from torch_nfft_tpu_torch.ops.binned import (
+    dense_tile_ids,
+    run_stages,
+    slot_values,
+    unslot_values,
+)
 from torch_nfft_tpu_torch.ops.planar import pair_stages
 from torch_nfft_tpu_torch.ops.tilefold import row_tile_ids, unfold_grid_to_tiles
 
-# headline configuration of the JAX bench (bench.py: BENCH_BENES=0 route)
+# headline configuration of the JAX bench (bench.py); the sort route is its
+# BENCH_BENES=0 route, the Benes route its default
 N_LOG2, N, DIM, M_CUT, SIGMA, WINDOW = 24, 256, 3, 2, 1.625, "es"
+# the permutation kernels' checks on random permutations of 2^Q_CHECK, and
+# the slot-space Benes route (a 2^25 network at the headline) at n = 2^SLOT_LOG2
+Q_CHECK, SLOT_LOG2 = 20, 20
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and float32 outside the
 # tensor cores; the kernels do float32 arithmetic on the CUDA cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
+# kernel wrapper name -> (module holding its launch counter, the TPU kernel
+# it replaces, its CUDA source)
+CONTRACT_CU = "torch_nfft_tpu_torch/csrc/contract.cu"
+PERMUTE_CU = "torch_nfft_tpu_torch/csrc/permute.cu"
 KERNELS = {
-    "spread_tiles_dense": "torch_nfft_tpu/ops/pallas/contract.py:369",
-    "gather_points": "torch_nfft_tpu/ops/pallas/contract.py:662",
-    "pos_grad": "torch_nfft_tpu/ops/pallas/contract.py:809",
+    "spread_tiles_dense": (contract, "torch_nfft_tpu/ops/pallas/contract.py:369", CONTRACT_CU),
+    "gather_points": (contract, "torch_nfft_tpu/ops/pallas/contract.py:662", CONTRACT_CU),
+    "pos_grad": (contract, "torch_nfft_tpu/ops/pallas/contract.py:809", CONTRACT_CU),
+    "expand_rows": (ragged, "torch_nfft_tpu/ops/pallas/ragged.py:78", PERMUTE_CU),
+    "compact_rows": (ragged, "torch_nfft_tpu/ops/pallas/ragged.py:162", PERMUTE_CU),
+    # the cross-block stages (_cross_stage_pallas, _outer_fused) of apply_benes
+    "benes_stage": (benes, "torch_nfft_tpu/ops/pallas/benes.py:268", PERMUTE_CU),
+    # the fused stages (_apply_benes_super's _fused_stages_kernel) of apply_benes
+    "benes_local": (benes, "torch_nfft_tpu/ops/pallas/benes.py:539", PERMUTE_CU),
 }
-SOURCE = "torch_nfft_tpu_torch/csrc/contract.cu"
+SORT_PATH = ("spread_tiles_dense", "gather_points", "pos_grad")
 
 
 class Phase:
@@ -105,12 +135,12 @@ def headline_data(n: int, dev, seed: int = 7):
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        getattr(contract, name).launches = 0
+    for name, (mod, _, _) in KERNELS.items():
+        getattr(mod, name).launches = 0
 
 
 def read_launches() -> dict:
-    return {name: getattr(contract, name).launches for name in KERNELS}
+    return {name: getattr(mod, name).launches for name, (mod, _, _) in KERNELS.items()}
 
 
 def train_step(x, pos, w, plan, *, N: int, device=None):
@@ -250,6 +280,45 @@ def device_busy(pair, reps: int = 3):
     return busy_ms, wall_ms, sorted(kernels, key=_device_us, reverse=True)
 
 
+def permute_bounds(C: int, n: int, S: int, K: int, q: int, s: int, size: int) -> dict:
+    """Least ms of each permutation kernel: the bytes it must move (inputs
+    read once, outputs written once) over the HBM rate; they do no
+    arithmetic. The ragged passes read or write the n filled lanes of each
+    column and the whole padded side; a Benes stage reads and writes the
+    (C, 2^q) array and its 2^q/2 pair bits; the local pass does so once for
+    its 2s-1 stages."""
+    bits = (1 << q) // 16  # 2^q / 2 pair bits per stage
+    work = {
+        "expand_rows": 4 * C * n + 8 * S + 4 * C * S * K,
+        "compact_rows": 4 * C * n + 8 * S + 4 * C * size,
+        "benes_stage": 2 * 4 * C * (1 << q) + bits,
+        "benes_local": 2 * 4 * C * (1 << q) + (2 * min(s, q) - 1) * bits,
+    }
+    return {k: (b / PEAK_BYTES_PER_S * 1e3, "bytes") for k, b in work.items()}
+
+
+def source_map(fn, length: int, dev) -> torch.Tensor:
+    """int64 source index of every output word of the word permutation
+    ``fn`` (1 + the index, 0 where fn writes a zero), from its run on an
+    int32 ramp 1..length: one ``index_select`` with this map computes fn."""
+    ramp = torch.arange(1, length + 1, dtype=torch.int32, device=dev)
+    return fn(ramp).reshape(-1).long()
+
+
+def check_host_plan(ph, pd) -> None:
+    """The host plan against the device plan: every table equal, slot_pt and
+    slot_pos on the filled slots (padded slots differ by construction)."""
+    filled = (torch.arange(pd.K, device=pd.device)[None] < pd.row_count[:, None]).reshape(-1)
+    assert torch.equal(ph.slot_pt.reshape(-1)[filled], pd.slot_pt.reshape(-1)[filled]), \
+        "host and device slot_pt differ"
+    assert torch.equal(ph.slot_pos[:, filled], pd.slot_pos[:, filled]), \
+        "host and device slot_pos differ"
+    for name in ("origin", "row_batch", "fill_keys", "row_count"):
+        assert torch.equal(getattr(ph, name), getattr(pd, name)), f"host and device {name} differ"
+    for name in ("n", "T", "K", "S_occ", "active"):
+        assert getattr(ph, name) == getattr(pd, name), f"host and device {name} differ"
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -272,18 +341,24 @@ def main() -> int:
         print(card)
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
-              f"count {torch.cuda.device_count()}", flush=True)
+              f"count {torch.cuda.device_count()} host cores {os.cpu_count()}", flush=True)
 
     with Phase("1 build"):
-        res = _build.build()
+        with ThreadPoolExecutor(2) as pool:  # nvcc and g++ side by side
+            cuda_job = pool.submit(_build.build)
+            host_job = pool.submit(_native.build_native)
+            res, (host_so, host_s) = cuda_job.result(), host_job.result()
         _build.library()
-        print(f"nvcc build: {res.seconds:.2f} s -> {res.path.name}")
+        _native.native_library()
+        print(f"nvcc build: {res.seconds:.2f} s -> {res.path.name}; "
+              f"g++ build: {host_s:.2f} s -> {host_so.name}")
         for line in res.log.splitlines():
             if "ptxas" in line and ("registers" in line or "Compiling" in line
                                     or "spill" in line or "smem" in line):
                 print("  " + line.strip())
 
     pos, x = headline_data(n, dev)
+    pos_np = pos.cpu().numpy()
 
     with Phase("2 plan"):
         t0 = time.perf_counter()
@@ -293,6 +368,40 @@ def main() -> int:
         t_plan = time.perf_counter() - t0
         print(f"plan built in {t_plan:.3f} s: rows={plan.S} K={plan.K} "
               f"T={plan.T} H={plan.H} NT={plan.NT} M={plan.M}")
+
+    with Phase("2b host plan"):
+        t0 = time.perf_counter()
+        plan_h = tp.build_plan(pos_np, None, N=N, m=M_CUT, sigma=SIGMA,
+                               batch_size=1, window=WINDOW)
+        torch.cuda.synchronize()
+        t_host = time.perf_counter() - t0
+        check_host_plan(plan_h, plan)
+        print(f"host plan built in {t_host:.3f} s (native counting sort, slot_pos "
+              f"gathered on the card); equals the device plan on every table "
+              f"(slot_pt, slot_pos on the {n} filled slots); pos_fp={plan_h.pos_fp} "
+              f"S_occ={plan_h.S_occ}")
+
+    with Phase("2c Benes routing"):
+        os.environ.pop(benes.CACHE_ENV, None)  # cold: no routing cache
+        t0 = time.perf_counter()
+        plan_b = plan_h.with_benes_tables()
+        torch.cuda.synchronize()
+        t_route = time.perf_counter() - t0
+        bt = plan_b.benes
+        print(f"compact rank network routed cold in {t_route:.3f} s: q={bt.q} "
+              f"({2 * bt.q - 1} stages), pair bits {bt.pair_bits.nbytes / 1e6:.2f} MB "
+              f"(host cores {os.cpu_count()})")
+        # a device plan takes the rank from the host positions, checked
+        # against the plan's fingerprint; the warning branch reads fill_keys
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            rank = benes._plan_rank(plan, pos_np)
+            t_rank = time.perf_counter() - t0
+        took_warning = any("disagrees" in str(w.message) for w in caught)
+        assert np.array_equal(rank, benes._plan_rank(plan_h)), "device and host ranks differ"
+        print(f"device plan's rank from host positions in {t_rank:.3f} s: "
+              f"warning branch {'TAKEN' if took_warning else 'not taken'}")
 
     err = {}
     with Phase("3 kernels vs plain"):
@@ -336,22 +445,94 @@ def main() -> int:
             print(f"{name}: kernel vs plain max_abs={mx:.3e} rel_l2={rl:.3e}")
             assert rl <= 1e-5, f"{name} disagrees with its plain version: {rl:.3e}"
 
+    with Phase("3b permutation kernels vs plain (bitwise)"):
+        perm_err = dict.fromkeys(("expand_rows", "compact_rows", "benes_stage",
+                                  "benes_local"), 0.0)
+
+        def same(name, got, ref):
+            ok = torch.equal(got, ref)
+            if got.dtype == torch.float32 and got.shape == ref.shape:
+                perm_err[name] = max(perm_err[name], float((got - ref).abs().max()))
+            assert ok, f"{name} differs from its plain version"
+
+        def network_cases(tables, vals_c):
+            q, s = tables.q, benes.LOCAL_LOG2
+            for reverse in (False, True):
+                same("benes_local", benes.benes_local(vals_c.clone(), tables, s, reverse),
+                     benes.benes_local_plain(vals_c, tables, s, reverse))
+                for j in list(range(q - min(s, q))) + list(range(q + min(s, q) - 1, 2 * q - 1)):
+                    row = tables.bits[2 * q - 2 - j if reverse else j]
+                    same("benes_stage", benes.benes_stage(vals_c.clone(), tables, j, reverse),
+                         benes.benes_stage_plain(vals_c, row, benes.stage_distances(q)[j]))
+                same("benes_stage", benes.apply_benes(vals_c, tables, reverse),
+                     benes.apply_benes_plain(vals_c, tables, reverse))
+
+        rng = np.random.default_rng(21)
+        q20 = Q_CHECK
+        perm20 = rng.permutation(1 << q20).astype(np.int32)
+        t20 = benes.tables_from_pair_bits(_native.benes_route(perm20), 1 << q20, device=dev)
+        for C in (1, 3):
+            v20 = torch.from_numpy(rng.standard_normal((C, 1 << q20)).astype(np.float32)).to(dev)
+            network_cases(t20, v20)
+            network_cases(t20, v20.view(torch.int32))
+            want = torch.empty_like(v20)
+            want[:, torch.from_numpy(perm20).long().to(dev)] = v20
+            same("benes_stage", benes.apply_benes(v20, t20), want)
+            cnt = torch.from_numpy(rng.integers(0, 129, size=12000).astype(np.int32)).to(dev)
+            rs20 = ragged.row_start_from_counts(cnt)
+            n20 = int(cnt.sum())
+            st = torch.from_numpy(rng.standard_normal((C, n20 + 256)).astype(np.float32)).to(dev)
+            same("expand_rows", ragged.expand_rows(st, rs20, cnt, 128),
+                 ragged.expand_rows_plain(st, rs20, cnt, 128))
+            pd = torch.from_numpy(rng.standard_normal((C, 12000, 128)).astype(np.float32)).to(dev)
+            same("compact_rows", ragged.compact_rows(pd, rs20, cnt, n20),
+                 ragged.compact_rows_plain(pd, rs20, cnt, n20, -(-n20 // 128) * 128))
+        del t20, v20, want, st, pd
+        print(f"q={q20}, C=1 and 3, float32 and int32: every stage, the local pass and "
+              f"the network (both directions), expand and compact: bitwise equal")
+        # the headline: the network, the ragged passes on the plan's rows
+        rs_h = ragged.row_start_from_counts(plan.row_count)
+        xb = torch.zeros((1, bt.n), device=dev)
+        xb[:, :n] = x.T
+        network_cases(bt, xb)
+        net_out = benes.apply_benes(xb, bt)
+        need = ((n - 1) // plan.K + 2) * plan.K
+        stream_h = torch.nn.functional.pad(net_out, (0, max(0, need - bt.n)))
+        same("expand_rows", ragged.expand_rows(stream_h, rs_h, plan.row_count, plan.K),
+             ragged.expand_rows_plain(stream_h, rs_h, plan.row_count, plan.K))
+        rows_h = vals.reshape(1, plan.S, plan.K)
+        same("compact_rows", ragged.compact_rows(rows_h, rs_h, plan.row_count, n, size=bt.n),
+             ragged.compact_rows_plain(rows_h, rs_h, plan.row_count, n, bt.n))
+        sv_b = slot_values(plan_b, x)
+        assert torch.equal(sv_b, vals), "Benes slot_values differ from the sort route's"
+        assert torch.equal(unslot_values(plan_b, vals.T), x), "Benes unslot_values != x"
+        print(f"headline (q={bt.q}, C=1): network, expand, compact bitwise equal to plain; "
+              "Benes slot_values == sort slot_values and unslot_values(slot) == x, bitwise")
+        del xb, net_out, stream_h, sv_b
+
     with Phase("4 accuracy gates"):
         g2 = gate(2, 16, dev)
         g3 = gate(3, 32, dev)
         print(f"gate 2D N=16 rel_l2={g2:.3e}; gate 3D N=32 rel_l2={g3:.3e}")
         assert g2 < 1e-3 and g3 < 1e-3, "accuracy gate failed"
 
-    with Phase("5 headline pair"):
-        reset_launches()
-        times = []
+    def pair_on(p):
+        return tp.nfft_pair_planar(x, pos, None, p, batch_size=1, N=N, m=M_CUT,
+                                   sigma=SIGMA, window=WINDOW)
+
+    def timed_pairs(p):
+        times, z = [], None
         for _ in range(4):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            z = tp.nfft_pair_planar(x, pos, None, plan, batch_size=1, N=N,
-                                    m=M_CUT, sigma=SIGMA, window=WINDOW)
+            z = pair_on(p)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+        return z, times
+
+    with Phase("5 headline pair"):
+        reset_launches()
+        z, times = timed_pairs(plan)
         launches_pair = read_launches()
         t_pair = float(np.median(times[1:]))
         print(f"pair s: first {times[0]:.4f}, then {[round(t, 4) for t in times[1:]]}; "
@@ -364,6 +545,17 @@ def main() -> int:
         print(f"headline rel_l2 at 96 sampled frequencies: {rel_h:.3e}")
         assert rel_h < 1e-3, "headline accuracy check failed"
 
+    def run_steps(p, xl, pl, w, reps=3):
+        times, split = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev = train_step(xl, pl, w, p, N=N)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            split.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+        return times, np.median(np.array(split), axis=0)
+
     with Phase("5b headline training step"):
         xl = x.clone().requires_grad_()
         pl = pos.clone().requires_grad_()
@@ -374,20 +566,12 @@ def main() -> int:
         train_step(xl, pl, w, plan, N=N)
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t0
-        launches = read_launches()
-        print(f"launches in one training step: {launches}")
-        assert launches == {name: 2 for name in KERNELS}, \
-            f"a training step must launch each kernel twice: {launches}"
-        times, split = [], []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ev = train_step(xl, pl, w, plan, N=N)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            split.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+        launches_step = read_launches()
+        print(f"launches in one training step: {launches_step}")
+        assert launches_step == {name: 2 if name in SORT_PATH else 0 for name in KERNELS}, \
+            f"a sort-route training step must launch each kernel twice: {launches_step}"
+        times, (fwd_ms, bwd_ms) = run_steps(plan, xl, pl, w)
         t_step = float(np.median(times))
-        fwd_ms, bwd_ms = np.median(np.array(split), axis=0)
         print(f"training step s: first {t_first:.4f}, then {[round(t, 4) for t in times]}; "
               f"median {t_step:.4f} s/step = {n / t_step / 1e6:.2f} M points/s "
               f"(CUDA events: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms)")
@@ -401,6 +585,7 @@ def main() -> int:
         print(f"pos.grad: rms {float(pl.grad.square().mean().sqrt()):.4e}, "
               f"max abs {float(pl.grad.abs().max()):.4e}")
         del zw
+        sort_grads = (xl.grad.clone(), pl.grad.clone())
 
     with Phase("5c small position gradients, card vs CPU"):
         grads = []
@@ -418,58 +603,186 @@ def main() -> int:
               f"pos.grad rel_l2={rel_sp:.3e}")
         assert rel_sx <= 3e-5 and rel_sp <= 3e-5, "card and CPU gradients disagree"
 
+    with Phase("5d headline pair, Benes route"):
+        reset_launches()
+        z_b, times = timed_pairs(plan_b)
+        launches_bpair = read_launches()
+        t_bpair = float(np.median(times[1:]))
+        print(f"Benes-route pair s: first {times[0]:.4f}, then "
+              f"{[round(t, 4) for t in times[1:]]}; median {t_bpair:.4f} s/pair = "
+              f"{n / t_bpair / 1e6:.2f} M points/s (sort route {t_pair:.4f})")
+        print(f"launches on the Benes-route pair path (4 pairs): {launches_bpair}")
+        missing = [k for k in KERNELS if k != "pos_grad" and launches_bpair[k] == 0]
+        assert not missing, f"not launched on the Benes-route pair: {missing}"
+        rel_b = rel_l2(z_b, z)
+        print(f"Benes-route pair vs sort-route pair: rel_l2={rel_b:.3e}")
+        assert rel_b <= 1e-6, f"the Benes-route pair disagrees: {rel_b:.3e}"
+        del z_b
+
+    with Phase("5e headline training step, Benes route"):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(xl, pl, w, plan_b, N=N)
+        torch.cuda.synchronize()
+        t_bfirst = time.perf_counter() - t0
+        launches_bstep = read_launches()
+        print(f"launches in one Benes-route training step: {launches_bstep}")
+        missing = [k for k in KERNELS if launches_bstep[k] == 0]
+        assert not missing, f"not launched in the Benes-route training step: {missing}"
+        rel_bx = rel_l2(xl.grad, sort_grads[0])
+        rel_bp = rel_l2(pl.grad, sort_grads[1])
+        times, (bfwd_ms, bbwd_ms) = run_steps(plan_b, xl, pl, w)
+        t_bstep = float(np.median(times))
+        print(f"Benes-route training step s: first {t_bfirst:.4f}, then "
+              f"{[round(t, 4) for t in times]}; median {t_bstep:.4f} s/step = "
+              f"{n / t_bstep / 1e6:.2f} M points/s (forward {bfwd_ms:.3f} ms, backward "
+              f"{bbwd_ms:.3f} ms; sort route {t_step:.4f} s)")
+        print(f"Benes vs sort route: x.grad rel_l2={rel_bx:.3e}, pos.grad rel_l2={rel_bp:.3e}")
+        assert rel_bx <= 1e-6, f"Benes-route x.grad disagrees: {rel_bx:.3e}"
+
+    with Phase(f"5f slot-space Benes route at n=2^{SLOT_LOG2}"):
+        ns = 1 << SLOT_LOG2
+        ps, xs = headline_data(ns, dev, seed=23)
+        ps_np = ps.cpu().numpy()
+        plan_s = tp.build_plan(ps_np, None, N=N, m=M_CUT, sigma=SIGMA, batch_size=1,
+                               window=WINDOW)
+        t0 = time.perf_counter()
+        plan_ss = plan_s.with_benes_tables(compact=False)
+        t_route_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plan_sc = plan_s.with_benes_tables()
+        t_route_c = time.perf_counter() - t0
+        print(f"n=2^{SLOT_LOG2}: S*K={plan_s.S * plan_s.K}; slot-space network q={plan_ss.benes.q} "
+              f"routed in {t_route_s:.3f} s, compact q={plan_sc.benes.q} in {t_route_c:.3f} s")
+        xs2 = torch.cat([xs, -xs], dim=1)
+        zs = tp.nfft_pair_planar(xs2, ps, None, plan_s, batch_size=1, N=N, m=M_CUT,
+                                 sigma=SIGMA, window=WINDOW)
+        for label, pb in (("slot space", plan_ss), ("compact", plan_sc)):
+            assert torch.equal(slot_values(pb, xs2), slot_values(plan_s, xs2)), label
+            zb = tp.nfft_pair_planar(xs2, ps, None, pb, batch_size=1, N=N, m=M_CUT,
+                                     sigma=SIGMA, window=WINDOW)
+            r = rel_l2(zb, zs)
+            print(f"n=2^{SLOT_LOG2}, C=2, {label}: slot_values bitwise equal, pair rel_l2={r:.3e}")
+            assert r <= 1e-6, f"{label} Benes pair disagrees: {r:.3e}"
+        del plan_s, plan_ss, plan_sc, zs, xs2
+
     with Phase("6 kernel timing"):
         C = 1
         tiles_read = int(torch.unique(tid).numel())
         (b_spread, by_spread), (b_gather, by_gather), (b_pg, by_pg) = \
             bounds(plan, C, tiles_read)
+        s_loc = benes.LOCAL_LOG2
+        pb_bounds = permute_bounds(C, n, plan.S, plan.K, bt.q, s_loc, bt.n)
+        # inputs of the permutation kernels at the headline, and the index
+        # maps of one index_select computing the same function
+        rs_h = ragged.row_start_from_counts(plan.row_count)
+        need = ((n - 1) // plan.K + 2) * plan.K
+        stream_h = torch.zeros((1, max(need, bt.n)), device=dev)
+        stream_h[:, :n] = torch.randn((1, n), device=dev, generator=gen)
+        stream_h = stream_h[:, :need]
+        rows_h = slot_values(plan, x).reshape(1, plan.S, plan.K)
+        v_h = torch.randn((1, bt.n), device=dev, generator=gen)
+        work = v_h.clone()
+        map_e = source_map(lambda r: ragged.expand_rows(
+            torch.nn.functional.pad(r[:n], (0, need - n))[None], rs_h, plan.row_count,
+            plan.K), n, dev)
+        ext_e = torch.cat([torch.zeros((1, 1), device=dev), stream_h[:, :n]], 1)
+        map_c = source_map(lambda r: ragged.compact_rows(
+            r.reshape(1, plan.S, plan.K), rs_h, plan.row_count, n, size=bt.n),
+            plan.S * plan.K, dev)
+        ext_c = torch.cat([torch.zeros((1, 1), device=dev), rows_h.reshape(1, -1)], 1)
+        q, j0 = bt.q, 0
+        row0 = bt.bits[0]
+        map_s = source_map(lambda r: benes.benes_stage(
+            r[None].contiguous(), bt, j0), bt.n, dev) - 1
+        map_l = source_map(lambda r: benes.benes_local(
+            r[None].contiguous(), bt, s_loc), bt.n, dev) - 1
+        map_f = source_map(lambda r: benes.apply_benes(r[None], bt), bt.n, dev) - 1
         rows = [
             ("spread_tiles_dense",
              lambda: contract.spread_tiles_dense(plan, vals, tid_spread, plan.NT),
              lambda: contract.spread_tiles_dense_plain(plan, vals, tid_spread, plan.NT),
-             b_spread, by_spread),
+             None, b_spread, by_spread),
             ("gather_points",
              lambda: contract.gather_points(plan, tiles, tid),
              lambda: contract.gather_points_plain(plan, tiles, tid),
-             b_gather, by_gather),
+             None, b_gather, by_gather),
             ("pos_grad",
              lambda: contract.pos_grad(plan, tiles, vals, tid),
              lambda: contract.pos_grad_plain(plan, tiles, vals, tid),
-             b_pg, by_pg),
+             None, b_pg, by_pg),
+            ("expand_rows",
+             lambda: ragged.expand_rows(stream_h, rs_h, plan.row_count, plan.K),
+             lambda: ragged.expand_rows_plain(stream_h, rs_h, plan.row_count, plan.K),
+             lambda: ext_e.index_select(1, map_e), *pb_bounds["expand_rows"]),
+            ("compact_rows",
+             lambda: ragged.compact_rows(rows_h, rs_h, plan.row_count, n, size=bt.n),
+             lambda: ragged.compact_rows_plain(rows_h, rs_h, plan.row_count, n, bt.n),
+             lambda: ext_c.index_select(1, map_c), *pb_bounds["compact_rows"]),
+            ("benes_stage",  # the outermost stage, distance 2^(q-1)
+             lambda: benes.benes_stage(work, bt, j0),
+             lambda: benes.benes_stage_plain(v_h, row0, q - 1),
+             lambda: v_h.index_select(1, map_s), *pb_bounds["benes_stage"]),
+            ("benes_local",
+             lambda: benes.benes_local(work, bt, s_loc),
+             lambda: benes.benes_local_plain(v_h, bt, s_loc),
+             lambda: v_h.index_select(1, map_l), *pb_bounds["benes_local"]),
         ]
+        max_err = {**{k: v[0] for k, v in err.items()}, **perm_err}
         report = []
-        for name, kern, plain, b_ms, b_by in rows:
+        for name, kern, plain, lib, b_ms, b_by in rows:
             ms = time_ms(kern, 10)
             plain_ms = time_ms(plain, 2)
-            print(f"{name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
-                  f"by {b_by}, {b_ms / ms:.1%} of bound)")
+            lib_ms = time_ms(lib, 10) if lib is not None else None
+            lib_txt = f", index_select {lib_ms:.4f} ms" if lib is not None else ""
+            print(f"{name}: {ms:.4f} ms (plain {plain_ms:.3f} ms{lib_txt}, bound "
+                  f"{b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of bound)")
             report.append({
-                "name": name, "route": "cuda", "source": SOURCE,
-                "replaces": KERNELS[name], "launches": launches[name],
-                "launches_pair": launches_pair[name],
-                "max_abs_err": err[name][0], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "name": name, "route": "cuda", "source": KERNELS[name][2],
+                "replaces": KERNELS[name][1], "launches": launches_bstep[name],
+                "launches_pair": launches_pair[name] // 4,
+                "launches_step": launches_step[name],
+                "launches_benes_pair": launches_bpair[name] // 4,
+                "launches_benes_step": launches_bstep[name],
+                "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             })
+        # the whole network and both slot permutations per route
+        net_f = time_ms(lambda: benes.apply_benes(v_h, bt), 10)
+        net_r = time_ms(lambda: benes.apply_benes(v_h, bt, reverse=True), 10)
+        net_lib = time_ms(lambda: v_h.index_select(1, map_f), 10)
+        n_outer = 2 * (q - min(s_loc, q))
+        net_bound = (n_outer * pb_bounds["benes_stage"][0] + pb_bounds["benes_local"][0])
+        print(f"whole network (q={q}, {n_outer} stage launches + 1 local pass): forward "
+              f"{net_f:.4f} ms, reverse {net_r:.4f} ms (index_select {net_lib:.4f} ms, "
+              f"bound {net_bound:.4f} ms)")
+        for label, p in (("sort", plan), ("Benes", plan_b)):
+            sv = time_ms(lambda: slot_values(p, x), 10)
+            flat = vals.T.contiguous()
+            us = time_ms(lambda: unslot_values(p, flat), 10)
+            print(f"{label} route: slot_values {sv:.4f} ms, unslot_values {us:.4f} ms, "
+                  f"both {sv + us:.4f} ms")
+        del stream_h, rows_h, v_h, work, map_e, map_c, map_s, map_l, map_f, ext_e, ext_c
 
     with Phase("7 stages and device busy share"):
-        stages = pair_stages(plan, N=N, m=M_CUT, sigma=SIGMA, window=WINDOW)
-        med = stage_ms(stages, x)
-        print("headline pair by stage, ms (CUDA events, median of 5):")
-        for (name, _), ms in zip(stages, med):
-            print(f"  {name:18s} {ms:9.3f} ms  {ms / med.sum():6.1%}")
-        print(f"  {'sum':18s} {med.sum():9.3f} ms")
         reps = 3
-        busy_ms, wall_ms, kernels = device_busy(
-            lambda: tp.nfft_pair_planar(x, pos, None, plan, batch_size=1, N=N,
-                                        m=M_CUT, sigma=SIGMA, window=WINDOW), reps)
-        if busy_ms == 0.0:
-            print("profiler: no device time recorded")
-        else:
-            print(f"profiler: {reps} pairs in {wall_ms:.3f} ms wall, device busy "
-                  f"{busy_ms:.3f} ms = {busy_ms / wall_ms:.1%}")
-            for e in kernels[:12]:
-                print(f"  {_device_us(e) / 1e3 / reps:9.3f} ms/pair  "
-                      f"x{e.count // reps:<4d} {e.key[:90]}")
+        for label, p in (("sort", plan), ("Benes", plan_b)):
+            stages = pair_stages(p, N=N, m=M_CUT, sigma=SIGMA, window=WINDOW)
+            med = stage_ms(stages, x)
+            print(f"headline pair by stage, {label} route, ms (CUDA events, median of 5):")
+            for (name, _), ms in zip(stages, med):
+                print(f"  {name:18s} {ms:9.3f} ms  {ms / med.sum():6.1%}")
+            print(f"  {'sum':18s} {med.sum():9.3f} ms")
+            busy_ms, wall_ms, kernels = device_busy(lambda: pair_on(p), reps)
+            if busy_ms == 0.0:
+                print("profiler: no device time recorded")
+            else:
+                print(f"profiler: {reps} {label}-route pairs in {wall_ms:.3f} ms wall, "
+                      f"device busy {busy_ms:.3f} ms = {busy_ms / wall_ms:.1%}")
+                for e in kernels[:12]:
+                    print(f"  {_device_us(e) / 1e3 / reps:9.3f} ms/pair  "
+                          f"x{e.count // reps:<4d} {e.key[:90]}")
         busy_ms, wall_ms, kernels = device_busy(
             lambda: train_step(xl, pl, w, plan, N=N), reps)
         if busy_ms > 0.0:

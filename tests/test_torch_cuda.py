@@ -9,9 +9,13 @@ also runs on a machine with the card and without JAX:
 
 Kernel and plain version agree to rel-L2 1e-5: they sum the same float32
 products in another order (the spread kernel in the order of its atomics).
+The permutation kernels (ragged rows, Benes network) move words and agree
+with their plain versions bit for bit.
 Gradients on the card agree with the same call on the CPU (the plain
 versions) to rel-L2 3e-5, the bar of the transforms against JAX.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -19,8 +23,8 @@ import torch
 from _torch_port import points
 
 import torch_nfft_tpu_torch as tp
-from torch_nfft_tpu_torch import _build
-from torch_nfft_tpu_torch.ops import binned, contract
+from torch_nfft_tpu_torch import _build, _native
+from torch_nfft_tpu_torch.ops import benes, binned, contract, ragged
 from torch_nfft_tpu_torch.ops.tilefold import row_tile_ids, unfold_grid_to_tiles
 
 KERNELS = ("spread_tiles_dense", "gather_points", "pos_grad")
@@ -202,3 +206,127 @@ def test_training_step_launches_each_kernel_twice(card, rng):
     assert {k: getattr(contract, k).launches - before[k] for k in KERNELS} == dict.fromkeys(
         KERNELS, 2)
     assert x.grad.shape == (n, 1) and p.grad.shape == (n, 3)
+
+
+# ---------------------------------------------------------------------------
+# The permutation kernels: ragged row passes and the Benes network. They move
+# 32-bit words, so kernel and plain version agree bit for bit.
+# ---------------------------------------------------------------------------
+
+PERMUTE = ("expand_rows", "compact_rows", "benes_stage", "benes_local")
+
+
+def _permute_launches():
+    return {"expand_rows": ragged.expand_rows.launches,
+            "compact_rows": ragged.compact_rows.launches,
+            "benes_stage": benes.benes_stage.launches,
+            "benes_local": benes.benes_local.launches}
+
+
+def _payload(rng, shape, dtype, dev):
+    if dtype == torch.int32:
+        a = rng.integers(-(1 << 30), 1 << 30, size=shape).astype(np.int32)
+    else:
+        a = rng.standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(a).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("dq", [-2, 0, 3])
+def test_benes_kernels_match_plain(card, rng, dq, C, dtype):
+    """q below, at and above the local block 2^s: every stage kernel, the
+    local pass and the whole network, both directions."""
+    s = benes.LOCAL_LOG2
+    q = s + dq
+    perm = rng.permutation(1 << q).astype(np.int32)
+    tables = benes.tables_from_pair_bits(_native.benes_route(perm), 1 << q, device=card)
+    x = _payload(rng, (C, 1 << q), dtype, card)
+    for reverse in (False, True):
+        got = benes.apply_benes(x, tables, reverse)
+        assert torch.equal(got, benes.apply_benes_plain(x, tables, reverse))
+        local = benes.benes_local(x.clone(), tables, s, reverse)
+        assert torch.equal(local, benes.benes_local_plain(x, tables, s, reverse))
+        for j in list(range(q - min(s, q))) + list(range(q + min(s, q) - 1, 2 * q - 1)):
+            st = benes.benes_stage(x.clone(), tables, j, reverse)
+            row = tables.bits[2 * q - 2 - j if reverse else j]
+            ref = benes.benes_stage_plain(x, row, benes.stage_distances(q)[j])
+            assert torch.equal(st, ref), j
+    want = torch.empty_like(x)
+    want[:, torch.from_numpy(perm).long().to(card)] = x
+    assert torch.equal(benes.apply_benes(x, tables), want)
+    assert torch.equal(benes.apply_benes(want, tables, reverse=True), x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("C", [1, 3])
+def test_ragged_kernels_match_plain(card, rng, C, dtype):
+    S, K = 300, 128
+    counts = rng.integers(0, K + 1, size=S).astype(np.int32)
+    counts[::7] = 0  # rows with no points, as device plans have
+    n = int(counts.sum())
+    cnt = torch.from_numpy(counts).to(card)
+    rs = ragged.row_start_from_counts(cnt)
+    stream = _payload(rng, (C, n + 3 * K), dtype, card)
+    got = ragged.expand_rows(stream, rs, cnt, K)
+    assert torch.equal(got, ragged.expand_rows_plain(stream, rs, cnt, K))
+    assert bool((got[:, counts == 0] == 0).all())
+    assert torch.equal(ragged.expand_rows(stream[:, : n + K], rs, cnt, K), got)  # strided
+    padded = _payload(rng, (C, S, K), dtype, card)
+    for size in (None, n + 5 * K):
+        out = ragged.compact_rows(padded, rs, cnt, n, size=size)
+        ref = ragged.compact_rows_plain(padded, rs, cnt, n, out.shape[1])
+        assert torch.equal(out, ref) and bool((out[:, n:] == 0).all())
+    strided = padded.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+    assert torch.equal(ragged.compact_rows(strided, rs, cnt, n),
+                       ragged.compact_rows_plain(padded, rs, cnt, n, -(-n // K) * K))
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_benes_pair_on_the_card_matches_the_sort_pair(card, rng, compact):
+    """A device plan with an empty row, upgraded with Benes tables from the
+    host positions: slot_values is bit for bit the sort route's, and the
+    pair agrees with the sort route's to rel-L2 1e-6 (the spread kernel's
+    atomics reorder float sums). The network is deeper than the local
+    block, so both Benes kernels run."""
+    n, B = 40000, 2
+    pos, batch = points(rng, n, 3, B)
+    x = rng.standard_normal((n, 2)).astype(np.float32)
+    kw = dict(batch_size=B, N=16, m=2, sigma=1.625, window="es")
+    plan = _with_empty_row(tp.build_plan_device(pos, batch, device=card, **kw), card)
+    plan_b = plan.with_benes_tables(compact=compact, pos=pos, batch=batch)
+    assert plan_b.benes.q > benes.LOCAL_LOG2
+    xt = torch.from_numpy(x).to(card)
+    assert torch.equal(binned.slot_values(plan_b, xt), binned.slot_values(plan, xt))
+    before = _permute_launches()
+    z_b = tp.nfft_pair_planar(x, pos, batch, plan_b, **kw)
+    after = _permute_launches()
+    z = tp.nfft_pair_planar(x, pos, batch, plan, **kw)
+    assert _rel(z_b, z) <= 1e-6
+    used = ("benes_stage", "benes_local") + (("expand_rows", "compact_rows") if compact else ())
+    for name in used:
+        assert after[name] > before[name], name
+
+
+def test_benes_training_step_launches_every_kernel(card, rng):
+    n = 40000
+    pos, _ = points(rng, n, 3)
+    plan = tp.build_plan(pos, N=16, m=2, sigma=1.625, window="es").with_benes_tables()
+    assert plan.device == card and plan.benes.q > benes.LOCAL_LOG2
+    x = torch.from_numpy(rng.standard_normal((n, 1)).astype(np.float32)).to(card)
+    p = torch.from_numpy(pos).to(card)
+    x.requires_grad_()
+    p.requires_grad_()
+    before = {**{k: getattr(contract, k).launches for k in KERNELS}, **_permute_launches()}
+    z = tp.nfft_pair_planar(x, p, None, plan, batch_size=1, N=16, m=2, sigma=1.625,
+                            window="es")
+    (z * torch.ones_like(z)).sum().backward()
+    torch.cuda.synchronize()
+    after = {**{k: getattr(contract, k).launches for k in KERNELS}, **_permute_launches()}
+    assert all(after[k] > before[k] for k in KERNELS + PERMUTE), (before, after)
+    gx, gp = x.grad.clone(), p.grad.clone()
+    x.grad = p.grad = None
+    z = tp.nfft_pair_planar(x, p, None, dataclasses.replace(plan, benes=None), batch_size=1,
+                            N=16, m=2, sigma=1.625, window="es")
+    (z * torch.ones_like(z)).sum().backward()
+    assert _rel(gx, x.grad) <= 1e-6 and _rel(gp, p.grad) <= 1e-6

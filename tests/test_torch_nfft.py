@@ -164,3 +164,29 @@ def test_entry_points_raise_without_a_card(rng, monkeypatch):
         tp.nfft_adjoint(x, pos, N=8, m=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tp.nfft_forward(np.zeros((1, 8, 8, 1), np.float32), pos, m=2)
+
+
+def test_plan_for_other_points_raises(rng):
+    """ROADMAP.md C1: a host plan carries the bin-id fingerprint of its
+    points. NumPy positions that bin differently raise in both packages; the
+    plan's own points still give JAX's result."""
+    A, _ = points(rng, 200, 2)
+    B, _ = points(rng, 200, 2)
+    jplan = jbinned.build_plan(A, N=16, m=3, sigma=2, window="es", K=128)
+    plan = port_plan(jplan)
+    assert plan.pos_fp == jplan.pos_fp is not None
+    kw = dict(m=3, sigma=2.0, window="es")
+    x = _values(rng, (200, 2), True)
+    s = _values(rng, (1, 16, 16, 2), True)
+    for pkg, p, xa, sa, extra in ((tn, jplan, jnp.asarray(x), jnp.asarray(s), {}),
+                                  (tp, plan, x, s, dict(device="cpu"))):
+        with pytest.raises(ValueError, match="fingerprint"):
+            pkg.nfft_adjoint(xa, B, N=16, plan=p, **kw, **extra)
+        with pytest.raises(ValueError, match="fingerprint"):
+            pkg.nfft_forward(sa, B, plan=p, **kw, **extra)
+    ref = tn.nfft_adjoint(jnp.asarray(x), A, N=16, plan=jplan, **kw)
+    got = tp.nfft_adjoint(x, A, N=16, plan=plan, device="cpu", **kw)
+    assert rel_l2(got.numpy(), np.asarray(ref)) <= REL
+    ref = tn.nfft_forward(jnp.asarray(s), A, plan=jplan, **kw)
+    got = tp.nfft_forward(s, A, plan=plan, device="cpu", **kw)
+    assert rel_l2(got.numpy(), np.asarray(ref)) <= REL

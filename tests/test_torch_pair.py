@@ -183,3 +183,37 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_planar_entry_points_take_a_strategy(rng):
+    """ROADMAP.md C2: the three planar entry points take ``strategy`` as the
+    JAX functions do. "binned" runs the default engine; the unported
+    strategies raise as nfft_adjoint does; an unknown name is an error."""
+    pos, batch, x, jplan, plan, kw = _case(rng, 2, 16, 2, 2, 3, 2.0, "es")
+    N = 16
+    spec = rng.standard_normal((2, N, N, 2)).astype(np.float32)
+    calls = {
+        "pair": lambda **s: tp.nfft_pair_planar(x, pos, batch, plan, N=N, device="cpu",
+                                                **kw, **s),
+        "adjoint": lambda **s: tp.nfft_adjoint_planar(x, pos, batch, plan, N=N,
+                                                      device="cpu", **kw, **s),
+        "forward": lambda **s: tp.nfft_forward_planar(spec, spec, pos, batch, plan, dim=2,
+                                                      device="cpu", **kw, **s),
+    }
+    for name, call in calls.items():
+        base = call()
+        got = call(strategy="binned")
+        for a, b in zip(base if isinstance(base, tuple) else (base,),
+                        got if isinstance(got, tuple) else (got,)):
+            assert torch.equal(a, b), name
+        for strategy in ("scatter", "matmul"):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                call(strategy=strategy)
+        with pytest.raises(ValueError, match="unknown strategy"):
+            call(strategy="fast")
+    z = tp.nfft_pair_planar(x[:, :1], pos, None, batch_size=1, N=16, m=3,
+                            strategy="binned", device="cpu")
+    ref = jplanar.nfft_pair_planar(jnp.asarray(x[:, :1]), jnp.asarray(pos),
+                                   jnp.zeros(len(pos), jnp.int32), batch_size=1, N=16,
+                                   m=3, strategy="binned")
+    assert rel_l2(z.numpy(), np.asarray(ref)) <= REL

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` for sm_90a into one shared library with
+``nvcc`` compiles every ``csrc/*.cu`` for sm_90a (one ``nvcc -c`` per source,
+all started together), then links the objects into one shared library with
 a plain C interface, at first CUDA use, into ``torch_nfft_tpu_torch/_build/``
 (named by a hash of the sources and flags, so an edited source rebuilds).
 ``ctypes`` loads it: pointers and the stream pass as ``c_void_p``. The C
@@ -21,7 +22,7 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "BuildResult", "build", "library", "check"]
+__all__ = ["NVCC_FLAGS", "LINK_FLAGS", "BuildResult", "build", "library", "check"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -29,16 +30,25 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (pointers, S, K, C, NT, dim, H, M, m, kind, window floats, device, stream)
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 _FUNCTIONS = {
+    # (pointers, S, K, C, NT, dim, H, M, m, kind, window floats, device, stream)
     "tnt_spread_tiles_dense": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_I, _P],
     "tnt_gather_points": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_I, _P],
     # p0, p1, p2 and the derivative factor
     "tnt_pos_grad": [_P] * 7 + [_I] * 9 + [_F] * 4 + [_I, _P],
+    # stream, row_start, row_count, out, ld, L, S, K, C, device, stream
+    "tnt_expand_rows": [_P] * 4 + [_L] * 2 + [_I] * 4 + [_P],
+    # padded, row_start, row_count, out, 3 strides, size, n, S, K, C, device, stream
+    "tnt_compact_rows": [_P] * 4 + [_L] * 5 + [_I] * 4 + [_P],
+    # v, stage bits, n, C, d, device, stream
+    "tnt_benes_stage": [_P] * 2 + [_L] + [_I] * 3 + [_P],
+    # v, bits, n, C, q, s, reverse, device, stream
+    "tnt_benes_local": [_P] * 2 + [_L] + [_I] * 5 + [_P],
 }
 
 
@@ -64,29 +74,51 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def output_path(build_dir: Path, stem: str, flags, files) -> Path:
+    """``build_dir/<stem>_<hash>.so``, the hash over the flags and the
+    files' names and contents: an edited source or flag builds anew."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in files:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return build_dir / f"{stem}_{h.hexdigest()[:16]}.so"
+
+
 @functools.lru_cache(maxsize=None)
 def build() -> BuildResult:
     """Compile the kernels once per source hash; returns where they are."""
     sources = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources + sorted(CSRC.glob("*.cuh")):
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    out = BUILD_DIR / f"libtnt_kernels_{h.hexdigest()[:16]}.so"
+    out = output_path(BUILD_DIR, "libtnt_kernels", NVCC_FLAGS + LINK_FLAGS,
+                      sources + sorted(CSRC.glob("*.cuh")))
     if out.exists():
         return BuildResult(out, 0.0, "")
     BUILD_DIR.mkdir(exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
-    return BuildResult(out, seconds, log)
+    try:
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for c in cmds]
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+        cmds.append([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)])
+        link = subprocess.run(cmds[-1], capture_output=True, text=True, timeout=900)
+        logs.append(link.stdout + link.stderr)
+        codes = [p.returncode for p in procs] + [link.returncode]
+        log = "".join(logs)
+        bad = [i for i, c in enumerate(codes) if c != 0]
+        if bad:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({codes[bad[0]]}):\n"
+                               f"{' '.join(cmds[bad[0]])}\n{log}")
+        os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return BuildResult(out, time.perf_counter() - t0, log)
 
 
 @functools.lru_cache(maxsize=None)

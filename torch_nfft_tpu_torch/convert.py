@@ -2,7 +2,11 @@
 
 ``plan_from_numpy`` builds the port's :class:`BinnedPlan` from the fields of
 a JAX ``BinnedPlan`` (or any plan) passed as numpy arrays, so that both
-packages run the same plan. ``plan_to_numpy`` is its inverse.
+packages run the same plan: the device arrays of :data:`PLAN_ARRAYS`, and
+the statics of :data:`PLAN_STATICS` with the host builder's bin-id
+fingerprint ``pos_fp``, sorted ``order``, ``row_start`` and ``S_occ``.
+``plan_to_numpy`` is its inverse (Benes tables are not carried: route them
+again with ``with_benes_tables``).
 """
 
 from __future__ import annotations
@@ -25,15 +29,17 @@ PLAN_ARRAYS = {
     "row_count": torch.int32,
 }
 PLAN_STATICS = ("n", "dim", "N", "m", "sigma", "T", "K", "batch_size",
-                "window", "active")
+                "window", "active", "pos_fp", "order", "row_start", "S_occ")
 
 
 def plan_from_numpy(arrays: dict, *, n: int, dim: int, N: int, m: int,
                     sigma: float, T: int, K: int, batch_size: int,
-                    window: str = "gaussian", active=None,
+                    window: str = "gaussian", active=None, pos_fp=None,
+                    order=None, row_start=None, S_occ=None,
                     device=None) -> BinnedPlan:
     """A plan on ``device`` (the card unless "cpu" is asked for) from numpy
-    arrays named as in :data:`PLAN_ARRAYS`; shapes are checked."""
+    arrays named as in :data:`PLAN_ARRAYS`; shapes are checked. ``order``
+    and ``row_start`` stay on the host."""
     dev = resolve_device(device)
     missing = set(PLAN_ARRAYS) - set(arrays)
     if missing:
@@ -50,12 +56,19 @@ def plan_from_numpy(arrays: dict, *, n: int, dim: int, N: int, m: int,
     for name, shape in expect.items():
         if tuple(t[name].shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t[name].shape)}, expected {shape}")
+    host = {}
+    for name, a, size in (("order", order, n), ("row_start", row_start, S)):
+        if a is not None:
+            host[name] = np.array(a, dtype=np.int32)
+            if host[name].shape != (size,):
+                raise ValueError(f"{name} has shape {host[name].shape}, expected ({size},)")
     if active is not None:
         active = tuple(tuple(int(v) for v in run) for run in active)
     return BinnedPlan(
         **t, n=int(n), dim=int(dim), N=int(N), m=int(m), sigma=float(sigma),
         T=int(T), K=int(K), batch_size=int(batch_size), window=str(window),
-        active=active,
+        active=active, pos_fp=None if pos_fp is None else int(pos_fp),
+        S_occ=None if S_occ is None else int(S_occ), **host,
     )
 
 

@@ -1,14 +1,22 @@
 """Binned spread/gather: plan the point-to-tile assignment once, then run the
 window contractions tile by tile.
 
-Counterpart of the JAX package's ``ops/binned.py`` on its sort route (no Benes
-tables). Each point's window starts at cell s = (floor(M*pos) - m) mod M; the
+Counterpart of the JAX package's ``ops/binned.py``. Each point's window starts at cell s = (floor(M*pos) - m) mod M; the
 grid is cut into tiles of T cells per axis and each point joins the tile that
 contains s. Points are sorted by (batch, tile) and packed into rows of at
 most K points of one tile. Per row, the spread kernel forms the H^dim halo
 tile (H = T + 2m + 1) and accumulates it into a dense tile array; the fold
 (ops/tilefold.py) overlap-adds the tiles onto the grid. The gather runs the
 same steps backwards.
+
+Plans come from the host builder :func:`build_plan` (the native counting
+sort of ``csrc/plan_builder.cpp``; it also keeps the sorted ``order``,
+``row_start`` and the bin-id fingerprint ``pos_fp``) or from
+:func:`build_plan_device` (every O(n) step on the device). The user <-> slot
+permutations run as an ``index_copy_``/``index_select`` through the plan's
+point -> slot map (the sort route), or, once ``with_benes_tables`` has
+routed them, through the Benes network (ops/benes.py) and the ragged row
+passes (ops/ragged.py), as the JAX package's default headline does.
 
 Both directions are differentiable in the values and in the point
 positions (``_Spread``, ``_Gather``): each value cotangent runs the other
@@ -24,13 +32,16 @@ TPU limits and are not tuned for the GPU.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from .._native import plan_tables
+from .benes import apply_benes_, plan_benes_tables
 from .contract import gather_points, pos_grad, spread_tiles_dense
+from .ragged import compact_rows, expand_rows, row_start_from_counts
 from .tilefold import (
     fold_tiles_to_grid,
     row_tile_ids,
@@ -41,7 +52,13 @@ from .window import check_window
 
 __all__ = [
     "BinnedPlan",
+    "build_plan",
     "build_plan_device",
+    "position_fingerprint",
+    "plan_tables_np",
+    "to_slot_order",
+    "from_slot_order",
+    "plan_slot_pos_user",
     "default_tile",
     "spread_binned",
     "gather_binned",
@@ -79,6 +96,19 @@ class BinnedPlan:
     # its +1 neighbour, or None when every axis is full (kept for parity
     # with the JAX plan; the port folds the full grid)
     active: tuple | None = None
+    # bin-id fingerprint of the point set (position_fingerprint), set by the
+    # host builder and checked against NumPy positions by the entry points;
+    # None for device plans
+    pos_fp: int | None = None
+    # host-side sorted layout (NumPy, host builder only): point ids in
+    # (batch, tile) order, and each row's start in that order
+    order: np.ndarray | None = None
+    row_start: np.ndarray | None = None
+    # occupied (batch, tile) groups among the filled rows
+    S_occ: int | None = None
+    # routed Benes tables of the user <-> slot permutation
+    # (with_benes_tables), or None for the sort route
+    benes: object = None
 
     @property
     def M(self) -> int:
@@ -105,6 +135,43 @@ class BinnedPlan:
     def inv_slot(self) -> torch.Tensor:
         """(n,) int32 flat slot id per user point."""
         return self.fill_keys[: self.n]
+
+    def with_benes_tables(self, block_log2: int = 18, compact: bool = True,
+                          pos=None, batch=None) -> "BinnedPlan":
+        """A copy of this plan whose user <-> slot permutations run through
+        routed Benes tables (ops/benes.py): one host routing, then every
+        transform applies them on the plan's device. ``compact`` (default)
+        routes the n-point rank space and pads it into the slot rows with
+        the ragged passes; ``compact=False`` routes the padded slot space.
+        For device plans pass the host ``pos`` (and ``batch``): the rank is
+        then derived on the host and checked against the plan.
+        ``block_log2`` keeps the JAX signature: it sets the TPU kernels'
+        mask layout, which the CUDA kernels do not have, and is unused."""
+        del block_log2
+        return replace(self, benes=plan_benes_tables(
+            self, compact=compact, pos=pos, batch=batch))
+
+
+def _count_row_groups(origin_np, row_batch_np, row_count_np) -> int:
+    """Number of occupied (batch, tile) groups among the filled rows: rows
+    are grouped by (batch, tile) in plan order, so a group starts wherever
+    the key differs from the previous row's."""
+    valid = np.asarray(row_count_np) > 0
+    key = np.concatenate([np.asarray(row_batch_np)[:, None], np.asarray(origin_np)],
+                         axis=1)
+    if key.shape[0] == 0:
+        return 0
+    d = np.any(key[1:] != key[:-1], axis=1)
+    first = np.concatenate([[True], d]) & valid
+    return int(first.sum())
+
+
+def position_fingerprint(pos, M: int, m: int) -> int:
+    """Exact fingerprint of the binning geometry: the sum of all window-start
+    cell ids. Two point sets that bin alike run alike under a plan."""
+    pos = np.asarray(pos, dtype=np.float32)
+    s_mod = (np.floor(pos * M).astype(np.int64) - m) % M
+    return int(s_mod.sum())
 
 
 def _min_cyclic_run(cover, nb: int):
@@ -296,6 +363,130 @@ def _finish_plan(pos, order, counts_np, n, dim, N, m, sigma, T, nb, K,
         n=n, dim=dim, N=N, m=m, sigma=float(sigma), T=int(T), K=int(K),
         batch_size=int(batch_size), window=str(window),
         active=_active_runs(origin, T, M, dim) if M % T == 0 else None,
+        S_occ=len(uniq),
+    )
+
+
+def host_array(a, dtype) -> np.ndarray:
+    """``a`` (a tensor on any device, or array-like) as a contiguous host
+    array of ``dtype``."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.ascontiguousarray(a, dtype=dtype)
+
+
+def _bin_ids_np(pos, batch, *, M: int, m: int, t: int, nb: int) -> np.ndarray:
+    """(n,) int64 bin id per point: batch, then the window-start tile per axis."""
+    b = ((np.floor(pos * M).astype(np.int64) - m) % M) // t
+    ids = np.asarray(batch, dtype=np.int64)
+    for d in range(pos.shape[1]):
+        ids = ids * nb + b[:, d]
+    return ids
+
+
+def plan_tables_np(pos, batch, M, m, T, nb, K, batch_size, pick_K=None):
+    """NumPy version of the native :func:`_native.plan_tables` (the JAX
+    package's reference path): the same tables from a stable argsort. They
+    agree on every filled slot; in a padded slot ``slot_pt`` repeats
+    ``order[min(row_start + k, n - 1)]``, as the device builder does, where
+    the native builder writes 0."""
+    n, dim = pos.shape
+    bin_id = _bin_ids_np(pos, np.zeros(n) if batch is None else batch, M=M, m=m,
+                         t=T, nb=nb)
+    order = np.argsort(bin_id, kind="stable")
+    uniq, start_idx, counts = np.unique(bin_id[order], return_index=True,
+                                        return_counts=True)
+    if K is None:
+        dense = np.zeros(int(batch_size) * nb**dim, np.int64)
+        dense[uniq] = counts
+        K = int(pick_K(dense))
+    rows_per_bin = -(-counts // K)
+    S = int(rows_per_bin.sum())
+    row_bin = np.repeat(np.arange(len(uniq)), rows_per_bin)
+    row_rank = np.arange(S) - np.repeat(
+        np.concatenate([[0], np.cumsum(rows_per_bin)[:-1]]), rows_per_bin)
+    row_start = start_idx[row_bin] + row_rank * K
+    row_count = np.minimum(counts[row_bin] - row_rank * K, K)
+    k_ar = np.arange(K)[None, :]
+    slot_pt = order[np.minimum(row_start[:, None] + k_ar, n - 1)].astype(np.int32)
+    slot_valid = (k_ar < row_count[:, None]).astype(np.float32)
+    bid = uniq[row_bin]
+    origin = np.empty((S, dim), np.int32)
+    for d in range(dim - 1, -1, -1):
+        origin[:, d] = (bid % nb) * T
+        bid = bid // nb
+    valid = slot_valid.reshape(-1) > 0
+    inv_slot = np.empty((n,), np.int32)
+    inv_slot[slot_pt.reshape(-1)[valid]] = np.flatnonzero(valid)
+    tables = (slot_pt, slot_valid, origin, bid.astype(np.int32), inv_slot,
+              order.astype(np.int32), row_start.astype(np.int32),
+              row_count.astype(np.int32))
+    return tables, int(K)
+
+
+def build_plan(pos, batch=None, *, N: int, m: int, sigma: float = 2.0,
+               batch_size: int | None = None, T: int | None = None,
+               K: int | None = None, window: str = "gaussian",
+               device=None) -> BinnedPlan:
+    """Build a :class:`BinnedPlan` on the host with the native counting sort
+    (csrc/plan_builder.cpp), then move its tables to ``device`` (the CUDA
+    card unless ``device="cpu"``; ``slot_pos`` is gathered there). The plan
+    keeps the host ``order`` and ``row_start`` and the bin-id fingerprint
+    ``pos_fp`` of its points; it equals the JAX package's ``build_plan``
+    field by field."""
+    check_window(window)
+    dev = resolve_device(device)
+    # bin in float32, as the kernels evaluate the windows
+    pos = host_array(pos, np.float32)
+    n, dim = pos.shape
+    if batch is None:
+        batch = np.zeros((n,), np.int64)
+        batch_size = 1 if batch_size is None else batch_size
+    batch = host_array(batch, np.int64)
+    if batch_size is None:
+        batch_size = int(batch[-1]) + 1
+    M = int(round(sigma * N))
+    if T is None:
+        T = default_tile(dim, m, M)
+        if dim == 3 and M % 32 == 0 and M > 32:
+            # density probe of build_plan_device: sparse sets take T=32,
+            # dense sets T=8 when its row count stays inside the row budget
+            ids16 = _bin_ids_np(pos, batch, M=M, m=m, t=16, nb=M // 16)
+            occ16 = n / max(1, np.unique(ids16).size)
+            if occ16 < 64:
+                T = 32
+            elif occ16 >= 1024 and K is None and 2 * m + 1 <= 8 and M % 8 == 0:
+                ids8 = _bin_ids_np(pos, batch, M=M, m=m, t=8, nb=M // 8)
+                cnt8 = np.unique(ids8, return_counts=True)[1].astype(np.int64)
+                if int(np.sum(-(-cnt8 // _choose_K(cnt8, n)))) <= 56000:
+                    T = 8
+    T = min(T, M)
+    nb = -(-M // T)
+
+    def pick_K(counts):
+        return _choose_K(counts[counts > 0].astype(np.int64), n)
+
+    (slot_pt, slot_valid, origin, row_batch, inv_slot, order, row_start,
+     row_count), K = plan_tables(pos, batch.astype(np.int32), M, m, T, nb,
+                                 None if K is None else int(K), batch_size,
+                                 pick_K=pick_K)
+    slot_pt_t = torch.from_numpy(slot_pt).to(dev)
+    slot_pos = torch.from_numpy(pos).to(dev)[slot_pt_t.reshape(-1).long()].T
+    flat_ids = np.arange(slot_pt.size, dtype=np.int32)
+    fill_keys = np.concatenate([inv_slot, flat_ids[slot_valid.reshape(-1) <= 0]])
+    return BinnedPlan(
+        slot_pt=slot_pt_t,
+        slot_pos=slot_pos.contiguous(),
+        origin=torch.from_numpy(origin).to(dev),
+        row_batch=torch.from_numpy(row_batch).to(dev),
+        fill_keys=torch.from_numpy(fill_keys).to(dev),
+        row_count=torch.from_numpy(row_count).to(dev),
+        n=n, dim=dim, N=N, m=m, sigma=float(sigma), T=int(T), K=int(K),
+        batch_size=int(batch_size), window=str(window),
+        active=_active_runs(origin, T, M, dim) if M % T == 0 else None,
+        pos_fp=position_fingerprint(pos, M, m),
+        order=order, row_start=row_start,
+        S_occ=_count_row_groups(origin, row_batch, row_count),
     )
 
 
@@ -306,17 +497,68 @@ def _finish_plan(pos, order, counts_np, n, dim, N, m, sigma, T, nb, K,
 
 def slot_values(plan: BinnedPlan, x: torch.Tensor) -> torch.Tensor:
     """(n, C) user-order values -> (C, S*K) slot order, empty slots zero.
-    A scatter through the plan's point->slot map (the sort route of the JAX
-    package sorts by the same keys)."""
+
+    Sort route: a scatter through the plan's point -> slot map. Benes route
+    (``plan.benes``): all C columns through the network at once, then, for
+    compact tables, the ragged expansion of the rank stream into the rows
+    (the JAX package's ``ops/pallas/contract.py:_slot_values``)."""
     S, K = plan.slot_pt.shape
-    vals = x.new_zeros((S * K, x.shape[1]))
-    vals.index_copy_(0, plan.inv_slot.to(torch.int64), x)
-    return vals.T.contiguous()
+    bt = plan.benes
+    if bt is None:
+        vals = x.new_zeros((S * K, x.shape[1]))
+        vals.index_copy_(0, plan.inv_slot.to(torch.int64), x)
+        return vals.T.contiguous()
+    n, C = x.shape
+    v = x.new_zeros((C, bt.n))  # the padding enters the network as zeros
+    v[:, :n] = x.T
+    out = apply_benes_(v, bt)
+    if not bt.compact:
+        return out[:, : S * K].contiguous()
+    need = ((n - 1) // K + 2) * K  # the expansion's input length
+    out = out[:, :need] if bt.n >= need else torch.nn.functional.pad(
+        out, (0, need - bt.n))
+    rs = row_start_from_counts(plan.row_count)
+    return expand_rows(out, rs, plan.row_count, K).reshape(C, S * K)
 
 
 def unslot_values(plan: BinnedPlan, out_flat: torch.Tensor) -> torch.Tensor:
-    """(S*K, C) slot-order values -> (n, C) user order (empty slots drop)."""
-    return out_flat.index_select(0, plan.inv_slot)
+    """(S*K, C) slot-order values -> (n, C) user order (empty slots drop):
+    the transpose of :func:`slot_values`. On the Benes route the rows are
+    compacted into the rank stream (compact tables) or zero-padded (slot
+    space) to the network's length, and the network runs in reverse."""
+    bt = plan.benes
+    if bt is None:
+        return out_flat.index_select(0, plan.inv_slot)
+    S, K = plan.slot_pt.shape
+    n, C = plan.n, out_flat.shape[1]
+    if bt.compact:
+        rs = row_start_from_counts(plan.row_count)
+        v = compact_rows(out_flat.T.reshape(C, S, K), rs, plan.row_count, n,
+                         size=bt.n)
+    else:
+        v = out_flat.new_zeros((C, bt.n))
+        v[:, : S * K] = out_flat.T
+    return apply_benes_(v, bt, reverse=True)[:, :n].T.contiguous()
+
+
+def to_slot_order(plan: BinnedPlan, x: torch.Tensor) -> torch.Tensor:
+    """(n, C) user-order values -> (C, S*K) slot-layout values, empty slots
+    zero: the plan's own execution order, on its permutation route."""
+    _check_values(plan, x, "x")
+    return slot_values(plan, x)
+
+
+def from_slot_order(plan: BinnedPlan, v: torch.Tensor) -> torch.Tensor:
+    """(C, S*K) slot-layout values -> (n, C) user order: the inverse of
+    :func:`to_slot_order` on its image (empty slots drop)."""
+    _check_values(plan, v, "v")
+    return unslot_values(plan, v.T)
+
+
+def plan_slot_pos_user(plan: BinnedPlan) -> torch.Tensor:
+    """(n, dim) float32 user-order positions from the plan's slot-ordered
+    coordinates: exactly the coordinates the plan binned."""
+    return unslot_values(plan, plan.slot_pos.T)
 
 
 def dense_tile_ids(plan: BinnedPlan) -> torch.Tensor:

@@ -16,33 +16,61 @@ mix, and they are recombined on the grid.
 Both are differentiable in x and, when ``pos`` is a tensor that requires
 grad, in the positions. Only the binned strategy is ported: ``"auto"`` and
 ``"binned"`` run it; ``"scatter"`` and ``"matmul"`` raise. With
-``plan=None`` a plan is built per call (the JAX package's plan cache is not
-ported). Each call runs on the CUDA card unless ``device="cpu"`` is given.
+``plan=None`` the host plan (``build_plan``) is built on the first call for
+a point set and kept in a least-recently-used cache of four plans keyed by
+the content of (pos, batch) and the geometry, as the JAX package does;
+:func:`clear_plan_cache` empties it. Each call runs on the CUDA card unless
+``device="cpu"`` is given.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
+from collections import OrderedDict
 
+import numpy as np
 import torch
 
-from .binned import gather_binned, spread_binned
+from .._device import resolve_device
+from .binned import build_plan, gather_binned, host_array, spread_binned
 from .fft import spectral_adjoint, spectral_forward
-from .planar import grad_pos, setup_plan, shape_of
+from .planar import check_strategy, grad_pos, setup_plan, shape_of
 from .window import DEFAULT_SIGMA, DEFAULT_WINDOW
 
-__all__ = ["nfft_adjoint", "nfft_forward"]
+__all__ = ["nfft_adjoint", "nfft_forward", "clear_plan_cache"]
 
-_STRATEGIES = ("auto", "binned")
+# plans built by the entry points, least recently used first
+_PLAN_CACHE: OrderedDict = OrderedDict()
+_PLAN_CACHE_MAX = 4
 
 
-def _check_strategy(strategy: str) -> None:
-    if strategy in ("scatter", "matmul"):
-        raise NotImplementedError(
-            f"strategy={strategy!r} is not ported yet (ROADMAP.md, item A4); "
-            "use strategy='binned' or 'auto'")
-    if strategy not in _STRATEGIES:
-        raise ValueError(f"unknown strategy {strategy!r}; supported: {_STRATEGIES}")
+def clear_plan_cache() -> None:
+    """Drop every cached plan (frees its device tensors)."""
+    _PLAN_CACHE.clear()
+
+
+def _cached_plan(pos, batch, *, N, m, sigma, batch_size, window, device):
+    """The host plan of (pos, batch) for this geometry on ``device``, from
+    the cache when the same content was planned before. The key hashes the
+    float32 positions and the batch vector, read on the host."""
+    dev = resolve_device(device)
+    p = host_array(pos, np.float32)
+    h = hashlib.blake2b(p.tobytes(), digest_size=16)
+    b = None if batch is None else host_array(batch, np.int32)
+    if b is not None:
+        h.update(b.tobytes())
+    key = (h.digest(), p.shape, N, m, float(sigma), batch_size, window, str(dev))
+    plan = _PLAN_CACHE.get(key)
+    if plan is None:
+        plan = build_plan(p, b, N=N, m=m, sigma=sigma, batch_size=batch_size,
+                          window=window, device=dev)
+        _PLAN_CACHE[key] = plan
+        while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
+            _PLAN_CACHE.popitem(last=False)
+    else:
+        _PLAN_CACHE.move_to_end(key)
+    return plan
 
 
 def _normalize_batch(batch, batch_size):
@@ -69,10 +97,13 @@ def nfft_adjoint(x, pos, batch=None, bandwidth=16, cutoff=3, real_output=False, 
     """Adjoint NFFT: x (n, *cols) real or complex -> (batch_size, N, ..., N,
     *cols) complex64 (float32, the real part, with ``real_output``).
     ``N``/``m`` are aliases of ``bandwidth``/``cutoff``."""
-    _check_strategy(strategy)
+    check_strategy(strategy)
     N = int(bandwidth if N is None else N)
     m = int(cutoff if m is None else m)
     batch, batch_size = _normalize_batch(batch, batch_size)
+    if plan is None:
+        plan = _cached_plan(pos, batch, N=N, m=m, sigma=sigma, batch_size=batch_size,
+                            window=window, device=device)
     dev, plan = setup_plan(pos, batch, plan, batch_size=batch_size, N=N, m=m,
                             sigma=float(sigma), window=window, device=device)
     x = _tensor(x, dev)
@@ -94,7 +125,7 @@ def nfft_forward(x, pos, batch=None, cutoff=3, real_output=False, *,
     """Forward NFFT: x (batch_size, N, ..., N, *cols) real or complex, with
     ``pos.shape[1]`` spatial axes -> (n, *cols) complex64 (float32, the
     real part, with ``real_output``)."""
-    _check_strategy(strategy)
+    check_strategy(strategy)
     m = int(cutoff if m is None else m)
     n, dim = shape_of(pos)
     batch, batch_size = _normalize_batch(batch, batch_size)
@@ -102,6 +133,9 @@ def nfft_forward(x, pos, batch=None, cutoff=3, real_output=False, *,
     if xs[0] != batch_size:
         raise ValueError(f"x.shape[0] = {xs[0]} must equal batch_size = {batch_size}")
     N = xs[1]
+    if plan is None:
+        plan = _cached_plan(pos, batch, N=N, m=m, sigma=sigma, batch_size=batch_size,
+                            window=window, device=device)
     dev, plan = setup_plan(pos, batch, plan, batch_size=batch_size, N=N, m=m,
                             sigma=float(sigma), window=window, device=device)
     x = _tensor(x, dev)

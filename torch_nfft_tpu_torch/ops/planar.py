@@ -8,7 +8,12 @@ two real planes. They run the binned engine (ops/binned.py) around the
 for the points; pass one to reuse it across calls.
 
 Each entry point is differentiable in its values and, when ``pos`` is a
-tensor that requires grad, in the point positions (ops/binned.py).
+tensor that requires grad, in the point positions (ops/binned.py). Each
+takes ``strategy`` as the JAX functions do: ``"auto"`` and ``"binned"`` run
+the binned engine, the only one ported; ``"scatter"`` and ``"matmul"``
+raise. A plan passed in is checked against the transform's geometry and,
+for NumPy positions, against the bin-id fingerprint of the points it was
+built for (host plans carry one).
 
 Every entry point runs on the CUDA card unless ``device="cpu"`` is given,
 and raises when no card is there and no device was asked for.
@@ -16,6 +21,7 @@ and raises when no card is there and no device was asked for.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
@@ -24,6 +30,7 @@ from .binned import (
     build_plan_device,
     gather_binned,
     gather_stages,
+    position_fingerprint,
     run_stages,
     spread_binned,
     spread_stages,
@@ -32,7 +39,19 @@ from .fft import spectral_adjoint, spectral_forward
 from .window import DEFAULT_SIGMA, DEFAULT_WINDOW
 
 __all__ = ["nfft_adjoint_planar", "nfft_forward_planar", "nfft_pair_planar",
-           "pair_stages", "grad_pos", "setup_plan", "shape_of"]
+           "pair_stages", "grad_pos", "setup_plan", "shape_of", "check_strategy"]
+
+_STRATEGIES = ("auto", "binned")
+
+
+def check_strategy(strategy: str) -> None:
+    """Accept the strategies the port runs; the unported ones raise."""
+    if strategy in ("scatter", "matmul"):
+        raise NotImplementedError(
+            f"strategy={strategy!r} is not ported yet (ROADMAP.md, item A3); "
+            "use strategy='binned' or 'auto'")
+    if strategy not in _STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r}; supported: {_STRATEGIES}")
 
 
 def _check_window_match(window, plan, *, m, M, sigma):
@@ -97,6 +116,12 @@ def setup_plan(pos, batch, plan, *, batch_size, N, m, sigma, window, device):
     if batch_size != plan.batch_size:
         raise ValueError(f"batch_size={batch_size} but the plan was built for "
                          f"batch_size={plan.batch_size}")
+    if isinstance(pos, np.ndarray) and plan.pos_fp is not None \
+            and position_fingerprint(pos, plan.M, plan.m) != plan.pos_fp:
+        raise ValueError(
+            "plan does not match these positions (bin-id fingerprint differs) "
+            "— plans are tied to the exact point set they were built on; "
+            "rebuild with build_plan(pos, ...)")
     return dev, plan
 
 
@@ -106,9 +131,11 @@ def _real(a, dev) -> torch.Tensor:
 
 def nfft_adjoint_planar(x, pos, batch=None, plan=None, *, batch_size: int,
                         N: int, m: int, sigma: float = DEFAULT_SIGMA,
-                        window: str = DEFAULT_WINDOW, device=None):
+                        strategy: str = "auto", window: str = DEFAULT_WINDOW,
+                        device=None):
     """Adjoint NFFT of real samples x (n, C): returns (yr, yi), each
     (batch_size, (N,)*dim, C), y[b, k] = sum_i x_i exp(+2 pi i k.pos_i)."""
+    check_strategy(strategy)
     dev, plan = setup_plan(pos, batch, plan, batch_size=batch_size, N=N, m=m,
                             sigma=sigma, window=window, device=device)
     g = spread_binned(plan, _real(x, dev), grad_pos(pos))
@@ -118,12 +145,13 @@ def nfft_adjoint_planar(x, pos, batch=None, plan=None, *, batch_size: int,
 
 def nfft_forward_planar(xr, xi, pos, batch=None, plan=None, *, batch_size: int,
                         dim: int, m: int, sigma: float = DEFAULT_SIGMA,
-                        real_output: bool = False,
+                        strategy: str = "auto", real_output: bool = False,
                         window: str = DEFAULT_WINDOW, device=None):
     """Forward NFFT of a planar spectrum xr/xi (batch_size, (N,)*dim, C),
     xi may be None: returns (yr, yi), each (n, C),
     y_i = sum_k x[batch_i, k] exp(-2 pi i k.pos_i). With ``real_output``
     only the real plane is gathered and the result is (yr, None)."""
+    check_strategy(strategy)
     N = shape_of(xr)[1]
     dev, plan = setup_plan(pos, batch, plan, batch_size=batch_size, N=N, m=m,
                             sigma=sigma, window=window, device=device)
@@ -164,11 +192,12 @@ def pair_stages(plan: BinnedPlan, *, N: int, m: int, sigma: float,
 
 
 def nfft_pair_planar(x, pos, batch=None, plan=None, *, batch_size: int, N: int,
-                     m: int, sigma: float = DEFAULT_SIGMA,
+                     m: int, sigma: float = DEFAULT_SIGMA, strategy: str = "auto",
                      window: str = DEFAULT_WINDOW, device=None) -> torch.Tensor:
     """Adjoint followed by a real-output forward on the same points:
     x (n, C) real -> (n, C) real, equal to
     ``nfft_forward_planar(*nfft_adjoint_planar(...), real_output=True)[0]``."""
+    check_strategy(strategy)
     dev, plan = setup_plan(pos, batch, plan, batch_size=batch_size, N=N, m=m,
                             sigma=sigma, window=window, device=device)
     p = grad_pos(pos)
