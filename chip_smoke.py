@@ -19,11 +19,18 @@ x.grad against pair(w) (the pair's operator is symmetric); and the same
 loss at a small size on the card against the CPU's plain chain, for
 pos.grad. Then the same pair and training step on the Benes route (the JAX
 package's default headline route: ``with_benes_tables``), held against the
-sort route's, and the slot-space Benes route at n = 2^20. Last it times
-each kernel with CUDA events beside its bound, its plain version and one
-``index_select`` of the same function, times the pair stage by stage on
-both routes (the stages ``nfft_pair_planar`` runs) and reads the device's
-busy share of three traced pairs and three traced steps with
+sort route's, and the slot-space Benes route at n = 2^20. Then the headline
+pair and training step at C = 8 columns, where the dense tile array (9.9
+GB) exceeds the memory budget of ``use_fold`` and the flat-grid route runs
+(per-row tiles from the B7 kernel ``spread_tiles``): held column by column
+against the one-column dense pair and by the sampled-frequency check, and
+the flat route forced at C = 1 against the dense route. The bitonic sort's
+three kernels (B8) run through ``sort_pairs``/``apply_permutation`` at 2^24
+and are held against the plain network bit for bit. Last it times each
+kernel with CUDA events beside its bound, its plain version and one PyTorch
+call of the same function where there is one, times the pair stage by
+stage on every route (the stages ``nfft_pair_planar`` runs) and reads the
+device's busy share of three traced pairs and three traced steps with
 ``torch.profiler``.
 
 Every phase prints its seconds; any failure exits non-zero. The line before
@@ -34,6 +41,7 @@ exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -47,13 +55,14 @@ import torch
 
 import torch_nfft_tpu_torch as tp
 from torch_nfft_tpu_torch import _build, _native
-from torch_nfft_tpu_torch.ops import benes, contract, ragged
+from torch_nfft_tpu_torch.ops import benes, binned, bitonic, contract, ragged
 from torch_nfft_tpu_torch.ops.binned import (
     dense_tile_ids,
     run_stages,
     slot_values,
     unslot_values,
 )
+from torch_nfft_tpu_torch.ops.tilefold import FOLD_BUDGET, tile_array_bytes
 from torch_nfft_tpu_torch.ops.planar import pair_stages
 from torch_nfft_tpu_torch.ops.tilefold import row_tile_ids, unfold_grid_to_tiles
 
@@ -63,6 +72,11 @@ N_LOG2, N, DIM, M_CUT, SIGMA, WINDOW = 24, 256, 3, 2, 1.625, "es"
 # the permutation kernels' checks on random permutations of 2^Q_CHECK, and
 # the slot-space Benes route (a 2^25 network at the headline) at n = 2^SLOT_LOG2
 Q_CHECK, SLOT_LOG2 = 20, 20
+# columns of the flat-grid cells: the dense tile array of 8 columns (9.9 GB)
+# exceeds use_fold's budget, that of one column (1.2 GB) does not
+C_WIDE = 8
+# the bitonic sort's ties-and-extremes check at 2^TIES_LOG2 keys
+TIES_LOG2 = 20
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and float32 outside the
 # tensor cores; the kernels do float32 arithmetic on the CUDA cores
@@ -73,6 +87,8 @@ PEAK_F32_FLOPS = 67e12
 # it replaces, its CUDA source)
 CONTRACT_CU = "torch_nfft_tpu_torch/csrc/contract.cu"
 PERMUTE_CU = "torch_nfft_tpu_torch/csrc/permute.cu"
+BITONIC_CU = "torch_nfft_tpu_torch/csrc/bitonic.cu"
+JAX_BITONIC = "torch_nfft_tpu/ops/pallas/bitonic.py"
 KERNELS = {
     "spread_tiles_dense": (contract, "torch_nfft_tpu/ops/pallas/contract.py:369", CONTRACT_CU),
     "gather_points": (contract, "torch_nfft_tpu/ops/pallas/contract.py:662", CONTRACT_CU),
@@ -83,8 +99,18 @@ KERNELS = {
     "benes_stage": (benes, "torch_nfft_tpu/ops/pallas/benes.py:268", PERMUTE_CU),
     # the fused stages (_apply_benes_super's _fused_stages_kernel) of apply_benes
     "benes_local": (benes, "torch_nfft_tpu/ops/pallas/benes.py:539", PERMUTE_CU),
+    # the per-row spread of the flat-grid route
+    "spread_tiles": (contract, "torch_nfft_tpu/ops/pallas/contract.py:626", CONTRACT_CU),
+    # sort_pairs's local rounds (_local_sort_loop_kernel, pallas_call :361/:373),
+    # its cross stages (_cross_stage) and its merges (pallas_call :393)
+    "bitonic_local_sort": (bitonic, f"{JAX_BITONIC}:224", BITONIC_CU),
+    "bitonic_cross_stage": (bitonic, f"{JAX_BITONIC}:285", BITONIC_CU),
+    "bitonic_local_merge": (bitonic, f"{JAX_BITONIC}:248", BITONIC_CU),
 }
 SORT_PATH = ("spread_tiles_dense", "gather_points", "pos_grad")
+BENES_PATH = SORT_PATH + ("expand_rows", "compact_rows", "benes_stage", "benes_local")
+FLAT_PATH = ("spread_tiles", "gather_points", "pos_grad")
+BITONIC = ("bitonic_local_sort", "bitonic_cross_stage", "bitonic_local_merge")
 
 
 class Phase:
@@ -176,9 +202,9 @@ def gate(dim: int, Ng: int, dev) -> float:
     return rel_l2(got, ref)
 
 
-def sampled_frequency_check(plan, pos, x, dev, n_freq: int = 96) -> float:
-    """The headline adjoint at ``n_freq`` random frequencies against the
-    direct sum over all points. The phase k.pos splits pos into a part with
+def sampled_frequency_check(plan, pos, x, dev, n_freq: int = 96, col: int = 0) -> float:
+    """Column ``col`` of the headline adjoint of x at ``n_freq`` random
+    frequencies against the direct sum over all points. The phase k.pos splits pos into a part with
     12 fractional bits (k*p_hi is exact in float32 for |k| <= 2^11, and so is
     its reduction mod 1) plus a small remainder, so the angle is good to
     ~1e-7 rad (the method of bench.py:_headline_accuracy)."""
@@ -187,7 +213,7 @@ def sampled_frequency_check(plan, pos, x, dev, n_freq: int = 96) -> float:
     yr, yi = tp.nfft_adjoint_planar(x, pos, None, plan, batch_size=1, N=N,
                                     m=M_CUT, sigma=SIGMA, window=WINDOW,
                                     device=dev)
-    idx = (0,) + tuple(torch.as_tensor(k[:, d] + N // 2, device=dev) for d in range(DIM)) + (0,)
+    idx = (0,) + tuple(torch.as_tensor(k[:, d] + N // 2, device=dev) for d in range(DIM)) + (col,)
     got = torch.complex(yr[idx], yi[idx]).to(torch.complex128)
     kf = torch.as_tensor(k, dtype=torch.float32, device=dev)
     acc_r = torch.zeros(n_freq, dtype=torch.float64, device=dev)
@@ -195,7 +221,7 @@ def sampled_frequency_check(plan, pos, x, dev, n_freq: int = 96) -> float:
     chunk = 1 << 21
     for c0 in range(0, pos.shape[0], chunk):
         p = pos[c0:c0 + chunk]
-        w = x[c0:c0 + chunk, 0]
+        w = x[c0:c0 + chunk, col]
         p_hi = torch.round(p * 4096.0) / 4096.0
         p_lo = p - p_hi
         ph_hi = p_hi @ kf.T  # sums of exact products: exact in float32
@@ -207,7 +233,8 @@ def sampled_frequency_check(plan, pos, x, dev, n_freq: int = 96) -> float:
 
 
 def bounds(plan, C: int, tiles_read: int):
-    """(spread, gather, pos_grad) least times in ms and what bounds each:
+    """(spread, gather, pos_grad, per-row spread) least times in ms and what
+    bounds each:
     the bytes each must move (inputs read once, outputs written once) over
     the HBM rate, against its float32 operations over the float32 peak.
     Counts what this plan's data needs: the values, weights and coordinates
@@ -228,6 +255,8 @@ def bounds(plan, C: int, tiles_read: int):
         (4 * C * n + coords + tables + 4 * plan.NT * C * cells, flops),
         (tiles + coords + tables + 4 * C * S * K, flops),
         (tiles + 4 * C * n + coords + tables + 4 * S * dim * K, flops_pg),
+        # per-row tiles: no tile ids; every row's whole tile is written
+        (4 * C * n + coords + 4 * S * (1 + dim) + 4 * S * C * cells, flops),
     )
     out = []
     for b, f in work:
@@ -295,6 +324,58 @@ def permute_bounds(C: int, n: int, S: int, K: int, q: int, s: int, size: int) ->
         "benes_local": 2 * 4 * C * (1 << q) + (2 * min(s, q) - 1) * bits,
     }
     return {k: (b / PEAK_BYTES_PER_S * 1e3, "bytes") for k, b in work.items()}
+
+
+def moved(k_in, v_in, k_out, v_out) -> int:
+    """Elements whose key or value word changed between input and output."""
+    return int(((k_in != k_out) | (v_in.view(torch.int32) != v_out.view(torch.int32))).sum())
+
+
+def sort_bounds(Q: int, b: int, moves: dict) -> dict:
+    """Least ms of the bitonic kernels and the whole sort on Q = 2^q int32
+    keys and 32-bit values: the bytes this run's data needs (every key read,
+    and for each of the ``moves[name]`` elements that change, its value read
+    and its key and value written) over the HBM rate, against one comparison
+    per pair and stage over the float32 peak (the CUDA cores' 32-bit rate)."""
+    q = Q.bit_length() - 1
+    stages = {"bitonic_local_sort": b * (b + 1) // 2, "bitonic_cross_stage": 1,
+              "bitonic_local_merge": b, "sort_pairs": q * (q + 1) // 2}
+    out = {}
+    for name, st in stages.items():
+        t_bytes = (4 * Q + 12 * moves[name]) / PEAK_BYTES_PER_S * 1e3
+        t_ops = (Q // 2) * st / PEAK_F32_FLOPS * 1e3
+        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def with_empty_row(plan):
+    """The plan with one empty row (row_count 0, origin 0) appended, as plan
+    stacks pad them."""
+    S, K, dim, dev = plan.S, plan.K, plan.dim, plan.device
+    cat = torch.cat
+    return dataclasses.replace(
+        plan,
+        slot_pt=cat([plan.slot_pt, plan.slot_pt.new_zeros((1, K))]),
+        slot_pos=cat([plan.slot_pos, plan.slot_pos.new_zeros((dim, K))], 1),
+        origin=cat([plan.origin, plan.origin.new_zeros((1, dim))]),
+        row_batch=cat([plan.row_batch, plan.row_batch.new_zeros(1)]),
+        row_count=cat([plan.row_count, plan.row_count.new_zeros(1)]),
+        fill_keys=cat([plan.fill_keys, torch.arange(S * K, (S + 1) * K, dtype=torch.int32,
+                                                    device=dev)]),
+        order=None, row_start=None, benes=None)
+
+
+def time_on_copy(fn, srcs, reps: int) -> float:
+    """Mean ms of the in-place ``fn(*bufs)`` on fresh copies ``bufs`` of
+    ``srcs``: the time of copy and call, less the time of the copy."""
+    bufs = [t.clone() for t in srcs]
+
+    def copy():
+        for b, t in zip(bufs, srcs):
+            b.copy_(t)
+
+    t_copy = time_ms(copy, reps)
+    return time_ms(lambda: (copy(), fn(*bufs)), reps) - t_copy
 
 
 def source_map(fn, length: int, dev) -> torch.Tensor:
@@ -510,22 +591,109 @@ def main() -> int:
               "Benes slot_values == sort slot_values and unslot_values(slot) == x, bitwise")
         del xb, net_out, stream_h, sv_b
 
+    x8 = torch.randn((n, C_WIDE), device=dev, generator=gen)
+    with Phase("3c per-row spread kernel (B7) vs plain"):
+        plan_e = with_empty_row(plan)
+        errs = []
+        for xc in (x, x8):
+            v_e = slot_values(plan_e, xc)
+            t_k = contract.spread_tiles(plan_e, v_e)
+            t_p = contract.spread_tiles_plain(plan_e, v_e)
+            errs.append((float((t_k - t_p).abs().max()), rel_l2(t_k, t_p)))
+            empty_zero = bool((t_k[-1] == 0).all())
+            print(f"spread_tiles C={xc.shape[1]} (headline plan + one empty row): kernel vs "
+                  f"plain max_abs={errs[-1][0]:.3e} rel_l2={errs[-1][1]:.3e}; "
+                  f"empty row exactly zero: {empty_zero}")
+            assert errs[-1][1] <= 1e-5, f"spread_tiles disagrees: {errs[-1][1]:.3e}"
+            assert empty_zero, "the empty row's tile is not zero"
+            del v_e, t_k, t_p
+        err["spread_tiles"] = tuple(map(max, zip(*errs)))
+        del plan_e
+
+    with Phase("3d bitonic sort kernels vs plain (bitwise)"):
+        b_loc = bitonic.LOCAL_LOG2
+        rng3 = np.random.default_rng(31)
+
+        def same_sort(label, got, want):
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+                f"{label}: the kernels differ from the plain network"
+
+        # the B8 entry points at 2^24, counts from zero: the kernels' own path
+        dest = torch.from_numpy(rng3.permutation(n).astype(np.int32)).to(dev)
+        vals_s = torch.randn(n, device=dev, generator=gen)
+        reset_launches()
+        sk, sv = bitonic.sort_pairs(dest, vals_s)
+        perm_out = bitonic.apply_permutation(dest, vals_s)
+        torch.cuda.synchronize()
+        launches_sort = read_launches()
+        print(f"launches of sort_pairs + apply_permutation at 2^{N_LOG2}: "
+              f"{ {k: launches_sort[k] for k in BITONIC} }")
+        assert all(launches_sort[k] > 0 for k in BITONIC), launches_sort
+        same_sort("2^24 permutation", (sk, sv), bitonic.sort_pairs_plain(dest, vals_s))
+        assert torch.equal(sk, torch.sort(dest).values), "keys are not sorted"
+        assert torch.equal(perm_out, torch.empty_like(vals_s).index_copy_(
+            0, dest.long(), vals_s)), "apply_permutation != index_copy_"
+        del sk, sv, perm_out
+        # many ties and the int32 extremes
+        i32 = np.iinfo(np.int32)
+        ext = np.array([i32.min, i32.min + 1, -1, 0, 1, i32.max - 1, i32.max], np.int64)
+        nt = 1 << TIES_LOG2
+        keys_t = np.where(rng3.random(nt) < 0.5, rng3.choice(ext, nt),
+                          rng3.integers(-100, 100, nt)).astype(np.int32)
+        k_t = torch.from_numpy(keys_t).to(dev)
+        for v_t in (torch.randn(nt, device=dev, generator=gen),
+                    torch.randint(i32.min, i32.max, (nt,), dtype=torch.int32, device=dev,
+                                  generator=gen)):
+            got = bitonic.sort_pairs(k_t, v_t)
+            same_sort(f"2^{TIES_LOG2} ties and extremes, {v_t.dtype}", got,
+                      bitonic.sort_pairs_plain(k_t, v_t))
+            assert torch.equal(got[0], torch.sort(k_t).values)
+        # each kernel on its own, q around the card's block 2^b
+        for q in (b_loc - 1, b_loc, b_loc + 3):
+            Q = 1 << q
+            k_q = torch.from_numpy(rng3.integers(-40, 40, Q).astype(np.int32)).to(dev)
+            for v_q in (torch.randn(Q, device=dev, generator=gen),
+                        torch.randint(-1000, 1000, (Q,), dtype=torch.int32, device=dev,
+                                      generator=gen)):
+                same_sort(f"q={q}", bitonic.sort_pairs(k_q, v_q),
+                          bitonic.sort_pairs_plain(k_q, v_q))
+                bb = min(q, b_loc)
+                ks, vs = bitonic.bitonic_local_sort(k_q.clone(), v_q.clone(), bb)
+                same_sort(f"local sort q={q}", (ks, vs),
+                          bitonic.bitonic_local_sort_plain(k_q, v_q, bb))
+                for jj in range(bb + 1, q + 1):
+                    for d in range(jj - 1, bb - 1, -1):
+                        kc, vc = bitonic.bitonic_cross_stage(ks.clone(), vs.clone(), jj, d)
+                        same_sort(f"cross stage q={q} jj={jj} d={d}", (kc, vc),
+                                  bitonic.bitonic_cross_stage_plain(ks, vs, jj, d))
+                        ks, vs = kc, vc
+                    km, vm = bitonic.bitonic_local_merge(ks.clone(), vs.clone(), jj, bb)
+                    same_sort(f"local merge q={q} jj={jj}", (km, vm),
+                              bitonic.bitonic_local_merge_plain(ks, vs, jj, bb))
+                    ks, vs = km, vm
+        print(f"sort_pairs and apply_permutation at 2^{N_LOG2} (float32 values), "
+              f"2^{TIES_LOG2} ties and int32 extremes (float32, int32 values), and each "
+              f"kernel at q={b_loc - 1}, {b_loc}, {b_loc + 3} (block 2^{b_loc}): bitwise "
+              "equal to the plain network; keys equal torch.sort")
+        perm_err.update(dict.fromkeys(BITONIC, 0.0))  # bitwise equal
+        del k_t, keys_t
+
     with Phase("4 accuracy gates"):
         g2 = gate(2, 16, dev)
         g3 = gate(3, 32, dev)
         print(f"gate 2D N=16 rel_l2={g2:.3e}; gate 3D N=32 rel_l2={g3:.3e}")
         assert g2 < 1e-3 and g3 < 1e-3, "accuracy gate failed"
 
-    def pair_on(p):
-        return tp.nfft_pair_planar(x, pos, None, p, batch_size=1, N=N, m=M_CUT,
+    def pair_on(p, xv=x):
+        return tp.nfft_pair_planar(xv, pos, None, p, batch_size=1, N=N, m=M_CUT,
                                    sigma=SIGMA, window=WINDOW)
 
-    def timed_pairs(p):
+    def timed_pairs(p, xv=x):
         times, z = [], None
         for _ in range(4):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            z = pair_on(p)
+            z = pair_on(p, xv)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         return z, times
@@ -612,7 +780,7 @@ def main() -> int:
               f"{[round(t, 4) for t in times[1:]]}; median {t_bpair:.4f} s/pair = "
               f"{n / t_bpair / 1e6:.2f} M points/s (sort route {t_pair:.4f})")
         print(f"launches on the Benes-route pair path (4 pairs): {launches_bpair}")
-        missing = [k for k in KERNELS if k != "pos_grad" and launches_bpair[k] == 0]
+        missing = [k for k in BENES_PATH if k != "pos_grad" and launches_bpair[k] == 0]
         assert not missing, f"not launched on the Benes-route pair: {missing}"
         rel_b = rel_l2(z_b, z)
         print(f"Benes-route pair vs sort-route pair: rel_l2={rel_b:.3e}")
@@ -628,7 +796,7 @@ def main() -> int:
         t_bfirst = time.perf_counter() - t0
         launches_bstep = read_launches()
         print(f"launches in one Benes-route training step: {launches_bstep}")
-        missing = [k for k in KERNELS if launches_bstep[k] == 0]
+        missing = [k for k in BENES_PATH if launches_bstep[k] == 0]
         assert not missing, f"not launched in the Benes-route training step: {missing}"
         rel_bx = rel_l2(xl.grad, sort_grads[0])
         rel_bp = rel_l2(pl.grad, sort_grads[1])
@@ -667,11 +835,103 @@ def main() -> int:
             assert r <= 1e-6, f"{label} Benes pair disagrees: {r:.3e}"
         del plan_s, plan_ss, plan_sc, zs, xs2
 
+    with Phase(f"5g headline pair at C={C_WIDE}, flat-grid route"):
+        dense_bytes = {C: tile_array_bytes(plan, C, 4, 1) for C in (1, C_WIDE)}
+        print(f"dense tile array: {dense_bytes[1] / 1e9:.3f} GB at C=1, "
+              f"{dense_bytes[C_WIDE] / 1e9:.3f} GB at C={C_WIDE}; budget "
+              f"{FOLD_BUDGET / 1e9:.3f} GB")
+        assert binned.use_fold(plan, 1, 4, 1) and not binned.use_fold(plan, C_WIDE, 4, 1)
+        reset_launches()
+        z8, times = timed_pairs(plan, x8)
+        launches_fpair = read_launches()
+        t_fpair = float(np.median(times[1:]))
+        print(f"C={C_WIDE} pair s: first {times[0]:.4f}, then {[round(t, 4) for t in times[1:]]}; "
+              f"median {t_fpair:.4f} s/pair = {C_WIDE * n / t_fpair / 1e6:.2f} M column-points/s "
+              f"(one column, dense route: {t_pair:.4f} s/pair = {n / t_pair / 1e6:.2f} M)")
+        print(f"launches on the C={C_WIDE} pair path (4 pairs): {launches_fpair}")
+        assert launches_fpair["spread_tiles"] > 0 and launches_fpair["gather_points"] > 0 \
+            and launches_fpair["spread_tiles_dense"] == 0, \
+            f"the C={C_WIDE} pair did not take the flat route: {launches_fpair}"
+        assert tuple(z8.shape) == (n, C_WIDE) and bool(torch.isfinite(z8).all()), "bad pair output"
+        worst = 0.0
+        for c in range(C_WIDE):
+            worst = max(worst, rel_l2(z8[:, c:c + 1], pair_on(plan, x8[:, c:c + 1].contiguous())))
+        print(f"each column vs the one-column dense-route pair: worst rel_l2={worst:.3e}")
+        assert worst <= 1e-5, f"the flat-route pair disagrees: {worst:.3e}"
+        rel_h8 = sampled_frequency_check(plan, pos, x8, dev, col=0)
+        print(f"C={C_WIDE} adjoint (flat route), column 0 at 96 sampled frequencies: "
+              f"rel_l2={rel_h8:.3e}")
+        assert rel_h8 < 1e-3, "headline accuracy check failed on the flat route"
+        del z8
+
+    peak_before = torch.cuda.max_memory_allocated()
+    with Phase(f"5h headline training step at C={C_WIDE}, flat-grid route"):
+        x8l = x8.clone().requires_grad_()
+        p8l = pos.clone().requires_grad_()
+        w8 = torch.randn((n, C_WIDE), device=dev, generator=gen)
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        train_step(x8l, p8l, w8, plan, N=N)
+        torch.cuda.synchronize()
+        t_ffirst = time.perf_counter() - t0
+        launches_fstep = read_launches()
+        print(f"launches in one C={C_WIDE} training step: {launches_fstep}")
+        assert launches_fstep == {k: 2 if k in FLAT_PATH else 0 for k in KERNELS}, \
+            f"a flat-route training step must launch B7, B2 and B5 twice: {launches_fstep}"
+        times, (ffwd_ms, fbwd_ms) = run_steps(plan, x8l, p8l, w8)
+        peak = torch.cuda.max_memory_allocated()
+        t_fstep = float(np.median(times))
+        print(f"C={C_WIDE} training step s: first {t_ffirst:.4f}, then "
+              f"{[round(t, 4) for t in times]}; median {t_fstep:.4f} s/step = "
+              f"{C_WIDE * n / t_fstep / 1e6:.2f} M column-points/s (CUDA events: forward "
+              f"{ffwd_ms:.3f} ms, backward {fbwd_ms:.3f} ms); peak memory "
+              f"{peak / 2**30:.2f} GiB ({(peak - base_mem) / 2**30:.2f} GiB above the "
+              f"{base_mem / 2**30:.2f} GiB held before the step)")
+        zw8 = pair_on(plan, w8)
+        rel_x8 = rel_l2(x8l.grad, zw8)
+        print(f"x.grad vs pair(w): rel_l2={rel_x8:.3e}")
+        assert rel_x8 <= 3e-5, f"x.grad disagrees with pair(w): {rel_x8:.3e}"
+        assert tuple(p8l.grad.shape) == (n, DIM) and bool(torch.isfinite(p8l.grad).all()), \
+            "bad pos.grad"
+        del zw8, x8l, p8l, w8
+
+    with Phase("5i flat-grid route forced at C=1 vs the dense route"):
+        st_dense = pair_stages(plan, N=N, m=M_CUT, sigma=SIGMA, window=WINDOW, C=1)
+        st_flat = (binned.spread_flat_stages(plan) + st_dense[3:5]
+                   + binned.gather_flat_stages(plan))
+        rel_f1 = rel_l2(run_stages(st_flat, x), run_stages(st_dense, x))
+        print(f"C=1 pair, flat vs dense route: rel_l2={rel_f1:.3e}")
+        assert rel_f1 <= 1e-5, f"the forced flat route disagrees: {rel_f1:.3e}"
+        for label, st in (("dense", st_dense), ("flat", st_flat)):
+            med = stage_ms(st, x)
+            print(f"C=1 pair by stage, {label} route, ms (CUDA events, median of 5):")
+            for (name, _), ms in zip(st, med):
+                print(f"  {name:20s} {ms:9.3f} ms  {ms / med.sum():6.1%}")
+            print(f"  {'sum':20s} {med.sum():9.3f} ms")
+
     with Phase("6 kernel timing"):
         C = 1
         tiles_read = int(torch.unique(tid).numel())
-        (b_spread, by_spread), (b_gather, by_gather), (b_pg, by_pg) = \
+        (b_spread, by_spread), (b_gather, by_gather), (b_pg, by_pg), _ = \
             bounds(plan, C, tiles_read)
+        b_rows = {c: bounds(plan, c, tiles_read)[3] for c in (1, C_WIDE)}
+        vals8 = slot_values(plan, x8)
+        b_loc = bitonic.LOCAL_LOG2
+        # the bitonic kernels' inputs on the sort's own path at 2^24: the
+        # permutation, after the local sort, after the first cross stage
+        k1, v1 = bitonic.bitonic_local_sort(dest.clone(), vals_s.clone(), b_loc)
+        k2, v2 = bitonic.bitonic_cross_stage(k1.clone(), v1.clone(), b_loc + 1, b_loc)
+        k3, v3 = bitonic.bitonic_local_merge(k2.clone(), v2.clone(), b_loc + 1, b_loc)
+        ks_all, vs_all = bitonic.sort_pairs(dest, vals_s)
+        s_bounds = sort_bounds(n, b_loc, {
+            "bitonic_local_sort": moved(dest, vals_s, k1, v1),
+            "bitonic_cross_stage": moved(k1, v1, k2, v2),
+            "bitonic_local_merge": moved(k2, v2, k3, v3),
+            "sort_pairs": moved(dest, vals_s, ks_all, vs_all)})
+        del k3, v3, ks_all, vs_all
         s_loc = benes.LOCAL_LOG2
         pb_bounds = permute_bounds(C, n, plan.S, plan.K, bt.q, s_loc, bt.n)
         # inputs of the permutation kernels at the headline, and the index
@@ -728,11 +988,32 @@ def main() -> int:
              lambda: benes.benes_local(work, bt, s_loc),
              lambda: benes.benes_local_plain(v_h, bt, s_loc),
              lambda: v_h.index_select(1, map_l), *pb_bounds["benes_local"]),
+            ("spread_tiles",  # at the flat route's C
+             lambda: contract.spread_tiles(plan, vals8),
+             lambda: contract.spread_tiles_plain(plan, vals8),
+             None, *b_rows[C_WIDE]),
+            # in place: each timed on a fresh copy of its input, less the copy
+            ("bitonic_local_sort",
+             (lambda a, b: bitonic.bitonic_local_sort(a, b, b_loc), (dest, vals_s)),
+             lambda: bitonic.bitonic_local_sort_plain(dest, vals_s, b_loc),
+             None, *s_bounds["bitonic_local_sort"]),
+            ("bitonic_cross_stage",
+             (lambda a, b: bitonic.bitonic_cross_stage(a, b, b_loc + 1, b_loc), (k1, v1)),
+             lambda: bitonic.bitonic_cross_stage_plain(k1, v1, b_loc + 1, b_loc),
+             None, *s_bounds["bitonic_cross_stage"]),
+            ("bitonic_local_merge",
+             (lambda a, b: bitonic.bitonic_local_merge(a, b, b_loc + 1, b_loc), (k2, v2)),
+             lambda: bitonic.bitonic_local_merge_plain(k2, v2, b_loc + 1, b_loc),
+             None, *s_bounds["bitonic_local_merge"]),
         ]
         max_err = {**{k: v[0] for k, v in err.items()}, **perm_err}
         report = []
+        # each kernel's main-path launches: the Benes-route step (which runs
+        # every dense-route kernel), the flat-route step, the sort's entry points
+        main_launches = {**launches_bstep, "spread_tiles": launches_fstep["spread_tiles"],
+                         **{k: launches_sort[k] for k in BITONIC}}
         for name, kern, plain, lib, b_ms, b_by in rows:
-            ms = time_ms(kern, 10)
+            ms = time_ms(kern, 10) if callable(kern) else time_on_copy(*kern, 10)
             plain_ms = time_ms(plain, 2)
             lib_ms = time_ms(lib, 10) if lib is not None else None
             lib_txt = f", index_select {lib_ms:.4f} ms" if lib is not None else ""
@@ -740,14 +1021,46 @@ def main() -> int:
                   f"{b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of bound)")
             report.append({
                 "name": name, "route": "cuda", "source": KERNELS[name][2],
-                "replaces": KERNELS[name][1], "launches": launches_bstep[name],
+                "replaces": KERNELS[name][1], "launches": main_launches[name],
                 "launches_pair": launches_pair[name] // 4,
                 "launches_step": launches_step[name],
                 "launches_benes_pair": launches_bpair[name] // 4,
                 "launches_benes_step": launches_bstep[name],
+                "launches_flat_pair": launches_fpair[name] // 4,
+                "launches_flat_step": launches_fstep[name],
+                "launches_sort_pairs": launches_sort[name],
                 "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             })
+        # the per-row spread at one column, the tile moves of the flat route
+        # (PyTorch index_add_ / indexing over per-row cell indices) at C=8
+        ms1 = time_ms(lambda: contract.spread_tiles(plan, vals), 10)
+        print(f"spread_tiles C=1: {ms1:.4f} ms (bound {b_rows[1][0]:.4f} ms by {b_rows[1][1]})")
+        tiles8 = contract.spread_tiles(plan, vals8)
+        g8 = binned.tiles_to_grid(plan, tiles8)
+        cells8 = 4 * plan.S * C_WIDE * plan.H**DIM
+        grid8 = 4 * C_WIDE * plan.M**DIM
+        for label, fn in (("tiles to grid", lambda: binned.tiles_to_grid(plan, tiles8)),
+                          ("grid to tiles", lambda: binned.grid_to_tiles(plan, g8))):
+            ms_m = time_ms(fn, 5)
+            bound_m = (cells8 + grid8) / PEAK_BYTES_PER_S * 1e3
+            print(f"{label} C={C_WIDE}: {ms_m:.4f} ms (bound {bound_m:.4f} ms by bytes: "
+                  f"{cells8 / 1e9:.3f} GB of tiles, {grid8 / 1e9:.3f} GB of grid)")
+        del tiles8, g8, vals8, k1, v1, k2, v2
+        # the whole sort and the permutation, against one PyTorch call each
+        dest_l = dest.long()
+        for label, fn, plain, lib, lib_name in (
+                ("sort_pairs", lambda: bitonic.sort_pairs(dest, vals_s),
+                 lambda: bitonic.sort_pairs_plain(dest, vals_s),
+                 lambda: vals_s[torch.sort(dest).indices], "torch.sort + gather"),
+                ("apply_permutation", lambda: bitonic.apply_permutation(dest, vals_s), None,
+                 lambda: torch.empty_like(vals_s).index_copy_(0, dest_l, vals_s),
+                 "index_copy_")):
+            ms_s = time_ms(fn, 5)
+            plain_txt = f"plain {time_ms(plain, 1):.3f} ms, " if plain is not None else ""
+            print(f"{label} 2^{N_LOG2}: {ms_s:.4f} ms ({plain_txt}{lib_name} "
+                  f"{time_ms(lib, 10):.4f} ms, bound {s_bounds['sort_pairs'][0]:.4f} ms by "
+                  f"{s_bounds['sort_pairs'][1]})")
         # the whole network and both slot permutations per route
         net_f = time_ms(lambda: benes.apply_benes(v_h, bt), 10)
         net_r = time_ms(lambda: benes.apply_benes(v_h, bt, reverse=True), 10)
@@ -767,14 +1080,15 @@ def main() -> int:
 
     with Phase("7 stages and device busy share"):
         reps = 3
-        for label, p in (("sort", plan), ("Benes", plan_b)):
-            stages = pair_stages(p, N=N, m=M_CUT, sigma=SIGMA, window=WINDOW)
-            med = stage_ms(stages, x)
+        for label, p, xv in (("sort", plan, x), ("Benes", plan_b, x),
+                             (f"C={C_WIDE} flat-grid", plan, x8)):
+            stages = pair_stages(p, N=N, m=M_CUT, sigma=SIGMA, window=WINDOW, C=xv.shape[1])
+            med = stage_ms(stages, xv)
             print(f"headline pair by stage, {label} route, ms (CUDA events, median of 5):")
             for (name, _), ms in zip(stages, med):
-                print(f"  {name:18s} {ms:9.3f} ms  {ms / med.sum():6.1%}")
-            print(f"  {'sum':18s} {med.sum():9.3f} ms")
-            busy_ms, wall_ms, kernels = device_busy(lambda: pair_on(p), reps)
+                print(f"  {name:20s} {ms:9.3f} ms  {ms / med.sum():6.1%}")
+            print(f"  {'sum':20s} {med.sum():9.3f} ms")
+            busy_ms, wall_ms, kernels = device_busy(lambda: pair_on(p, xv), reps)
             if busy_ms == 0.0:
                 print("profiler: no device time recorded")
             else:
@@ -792,8 +1106,9 @@ def main() -> int:
                 print(f"  {_device_us(e) / 1e3 / reps:9.3f} ms/step  "
                       f"x{e.count // reps:<4d} {e.key[:160]}")
 
+    peak_all = max(peak_before, torch.cuda.max_memory_allocated())
     print(f"total {time.perf_counter() - t_all:.1f} s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}")
+          f"{peak_all / 2**30:.2f} GiB; card {card}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

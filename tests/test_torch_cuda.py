@@ -9,8 +9,8 @@ also runs on a machine with the card and without JAX:
 
 Kernel and plain version agree to rel-L2 1e-5: they sum the same float32
 products in another order (the spread kernel in the order of its atomics).
-The permutation kernels (ragged rows, Benes network) move words and agree
-with their plain versions bit for bit.
+The permutation kernels (ragged rows, Benes network) and the bitonic sort
+move words and agree with their plain versions bit for bit.
 Gradients on the card agree with the same call on the CPU (the plain
 versions) to rel-L2 3e-5, the bar of the transforms against JAX.
 """
@@ -24,7 +24,7 @@ from _torch_port import points
 
 import torch_nfft_tpu_torch as tp
 from torch_nfft_tpu_torch import _build, _native
-from torch_nfft_tpu_torch.ops import benes, binned, contract, ragged
+from torch_nfft_tpu_torch.ops import benes, binned, bitonic, contract, ragged
 from torch_nfft_tpu_torch.ops.tilefold import row_tile_ids, unfold_grid_to_tiles
 
 KERNELS = ("spread_tiles_dense", "gather_points", "pos_grad")
@@ -330,3 +330,116 @@ def test_benes_training_step_launches_every_kernel(card, rng):
                             N=16, m=2, sigma=1.625, window="es")
     (z * torch.ones_like(z)).sum().backward()
     assert _rel(gx, x.grad) <= 1e-6 and _rel(gp, p.grad) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# The flat-grid route: per-row tiles (spread_tiles), the tile moves, and the
+# route's pair and gradients against the dense route's.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dim,N,m,sigma,window,n,T", [
+    (1, 64, 2, 2.0, "gaussian", 3000, None),
+    (2, 32, 3, 2.0, "es", 5000, None),
+    (3, 16, 2, 1.625, "es", 20000, None),
+    (3, 16, 4, 1.25, "kb", 8000, None),
+    (3, 32, 3, 2.0, "es", 4000, 32),  # 39^3 cells: global atomics
+])
+@pytest.mark.parametrize("C", [1, 3])
+def test_spread_tiles_match_plain(card, rng, dim, N, m, sigma, window, n, T, C):
+    B = 2
+    pos, batch = points(rng, n, dim, B)
+    plan = tp.build_plan_device(pos, batch, N=N, m=m, sigma=sigma, batch_size=B,
+                                window=window, T=T, device=card)
+    plan = _with_empty_row(plan, card)
+    vals = torch.randn((C, plan.S * plan.K), device=card)
+    before = contract.spread_tiles.launches
+    got = contract.spread_tiles(plan, vals)
+    ref = contract.spread_tiles_plain(plan, vals)
+    torch.cuda.synchronize()
+    assert contract.spread_tiles.launches == before + 1
+    assert _rel(got, ref) <= 1e-5
+    assert bool((got[-1] == 0).all())  # the empty row
+
+
+def _never_fold(*args, **kwargs):
+    return False
+
+
+def test_flat_route_matches_the_dense_route(card, rng, monkeypatch):
+    """The pair and a training step forced onto the flat route: within
+    rel-L2 1e-5 of the dense route (float sums in another order), with
+    spread_tiles, gather_points and pos_grad launched twice per step and
+    the dense spread never."""
+    n, B = 20000, 2
+    pos, batch = points(rng, n, 3, B)
+    x = rng.standard_normal((n, 2)).astype(np.float32)
+    w = rng.standard_normal((n, 2)).astype(np.float32)
+    kw = dict(batch_size=B, N=16, m=2, sigma=1.625, window="es")
+    plan = tp.build_plan(pos, batch, **{k: kw[k] for k in ("N", "m", "sigma", "window")},
+                         batch_size=B)
+
+    def step():
+        xl = torch.from_numpy(x).to(card).requires_grad_()
+        pl = torch.from_numpy(pos).to(card).requires_grad_()
+        z = tp.nfft_pair_planar(xl, pl, batch, plan, **kw)
+        (z * torch.from_numpy(w).to(card)).sum().backward()
+        return z.detach(), xl.grad, pl.grad
+
+    dense = step()
+    monkeypatch.setattr(binned, "use_fold", _never_fold)
+    names = KERNELS + ("spread_tiles",)
+    before = {k: getattr(contract, k).launches for k in names}
+    flat = step()
+    torch.cuda.synchronize()
+    launches = {k: getattr(contract, k).launches - before[k] for k in names}
+    assert launches == {"spread_tiles_dense": 0, "gather_points": 2, "pos_grad": 2,
+                        "spread_tiles": 2}
+    for a, b in zip(flat, dense):
+        assert _rel(a, b) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The bitonic sort: three kernels, bit for bit against the plain network.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("dq", [-1, 0, 3])
+def test_bitonic_kernels_match_plain(card, rng, dq, dtype, ties):
+    """q below, at and above the block 2^b: each kernel on its own and the
+    whole sort, against the plain network."""
+    b = bitonic.LOCAL_LOG2
+    q = b + dq
+    Q = 1 << q
+    keys = rng.integers(-40, 40, Q) if ties else rng.permutation(Q)
+    k = torch.from_numpy(keys.astype(np.int32)).to(card)
+    v = _payload(rng, (Q,), dtype, card)
+    names = ("bitonic_local_sort", "bitonic_cross_stage", "bitonic_local_merge")
+    before = {n: getattr(bitonic, n).launches for n in names}
+    got = bitonic.sort_pairs(k, v)
+    used = {n: getattr(bitonic, n).launches - before[n] for n in names}
+    want = bitonic.sort_pairs_plain(k, v)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], torch.sort(k).values)
+    bb = min(q, b)
+    assert used == {"bitonic_local_sort": 1,
+                    "bitonic_cross_stage": (q - bb) * (q - bb + 1) // 2,
+                    "bitonic_local_merge": q - bb}
+    ks, vs = bitonic.bitonic_local_sort(k.clone(), v.clone(), bb)
+    kp, vp = bitonic.bitonic_local_sort_plain(k, v, bb)
+    assert torch.equal(ks, kp) and torch.equal(vs, vp)
+    for jj in range(bb + 1, q + 1):
+        for d in range(jj - 1, bb - 1, -1):
+            kc, vc = bitonic.bitonic_cross_stage(ks.clone(), vs.clone(), jj, d)
+            kp, vp = bitonic.bitonic_cross_stage_plain(ks, vs, jj, d)
+            assert torch.equal(kc, kp) and torch.equal(vc, vp), (jj, d)
+            ks, vs = kc, vc
+        km, vm = bitonic.bitonic_local_merge(ks.clone(), vs.clone(), jj, bb)
+        kp, vp = bitonic.bitonic_local_merge_plain(ks, vs, jj, bb)
+        assert torch.equal(km, kp) and torch.equal(vm, vp), jj
+        ks, vs = km, vm
+    if not ties:
+        out = bitonic.apply_permutation(k, v)
+        assert torch.equal(out, torch.empty_like(v).index_copy_(0, k.long(), v))

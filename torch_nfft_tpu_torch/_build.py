@@ -38,6 +38,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 _FUNCTIONS = {
     # (pointers, S, K, C, NT, dim, H, M, m, kind, window floats, device, stream)
     "tnt_spread_tiles_dense": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_I, _P],
+    # (pointers, S, K, C, dim, H, M, m, kind, window floats, device, stream)
+    "tnt_spread_tiles": [_P] * 5 + [_I] * 8 + [_F] * 3 + [_I, _P],
     "tnt_gather_points": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_I, _P],
     # p0, p1, p2 and the derivative factor
     "tnt_pos_grad": [_P] * 7 + [_I] * 9 + [_F] * 4 + [_I, _P],
@@ -49,6 +51,12 @@ _FUNCTIONS = {
     "tnt_benes_stage": [_P] * 2 + [_L] + [_I] * 3 + [_P],
     # v, bits, n, C, q, s, reverse, device, stream
     "tnt_benes_local": [_P] * 2 + [_L] + [_I] * 5 + [_P],
+    # keys, vals, n, b, device, stream
+    "tnt_bitonic_local_sort": [_P] * 2 + [_L] + [_I] * 2 + [_P],
+    # keys, vals, n, jj, d, device, stream
+    "tnt_bitonic_cross_stage": [_P] * 2 + [_L] + [_I] * 3 + [_P],
+    # keys, vals, n, jj, b, device, stream
+    "tnt_bitonic_local_merge": [_P] * 2 + [_L] + [_I] * 3 + [_P],
 }
 
 

@@ -6,7 +6,9 @@
 //       _spread_dense_kernel) and its row-batched twin spread_tiles_rb_pallas;
 //   tnt_gather_points       <- gather_points_pallas (kernel _gather_kernel)
 //       and its row-batched twin gather_points_rb_pallas;
-//   tnt_pos_grad            <- pos_grad_pallas (kernel _pos_grad_kernel).
+//   tnt_pos_grad            <- pos_grad_pallas (kernel _pos_grad_kernel);
+//   tnt_spread_tiles        <- spread_tiles_pallas (kernel _spread_kernel),
+//       the per-row tiles of the flat-grid route.
 //
 // What they compute. A plan row s holds row_count[s] <= K points of one
 // tile (origin o_s, halo edge H = T + 2m + 1). Point k has, per axis d, a
@@ -31,6 +33,11 @@
 //   a block may use accumulates with atomicAdd straight in global memory
 //   (still one block per tile). The float sums follow the atomics' order,
 //   so results agree with the plain version to float32 rounding, not bits.
+//   spread, per-row tiles (B7): the same kernel body (a template parameter)
+//   with block s forming only row s's own tile out[s]: no tile index, no
+//   run order, no zero-filled output (each block stores its whole tile, so
+//   a row with no points writes zeros; a tile too large for shared memory
+//   is zeroed by its block before the global atomics).
 //   gather: one block per row; each thread sums the support cells of its
 //   point from the row's tile (read through the read-only cache; the 8.8 KB
 //   tile stays in L1 for the block) and writes y[s, c, k]; empty slots get 0.
@@ -43,6 +50,10 @@
 //   dense tile array: bytes bound, ~0.45 ms at 3.35 TB/s; its ~9.7e9 flops
 //   (per point 3 x 6 window values at ~8 flops, 216 cells at 2 flops) take
 //   ~0.14 ms at 67 TFLOP/s float32.
+//   per-row spread (B7) at C columns reads the values and coordinates of
+//   the n filled slots (0.2 + 0.07 C GB) and writes S C H^3 floats
+//   (0.175 C GB): ~0.64 ms of bytes at C = 8, against ~6.0e10 flops
+//   (~0.90 ms): bound by operations (at C = 1, 0.13 against 0.14 ms).
 //   gather reads the ~0.17 GB of tiles the rows name and ~0.2 GB of
 //   coordinates, and writes its (S, C, K) output, padded zeros included
 //   (~0.08 GB): ~0.14 ms of bytes against ~0.14 ms of the same flops, so
@@ -216,25 +227,36 @@ __device__ __forceinline__ void point_windows(
                        g.L, w, v[d]);
 }
 
-__global__ void __launch_bounds__(kThreads) spread_dense_kernel(
+// The spread of both routes. kPerRow = false (B1): each tile's run of rows
+// accumulates into the dense tile tile_id[s], owned by the block of the
+// run's first row. kPerRow = true (B7): block s forms row s's own tile,
+// out[s]. Accumulation is in shared memory when use_smem, else by global
+// atomics on the owned slice (which B7 zeroes first; B1's wrapper zeroes
+// the whole array).
+template <bool kPerRow>
+__global__ void __launch_bounds__(kThreads) spread_kernel(
     const float* __restrict__ vals, const float* __restrict__ slot_pos,
     const int* __restrict__ row_count, const int* __restrict__ origin,
     const int* __restrict__ tile_id, float* __restrict__ out, int S, int K,
     int C, int NT, int dim, int H, int M, int m, Window w, int use_smem) {
   const int first = blockIdx.x;
-  const int tile = tile_id[first];
-  if (tile < 0 || tile >= NT) return;
-  if (first > 0 && tile_id[first - 1] == tile) return;  // not the run's owner
+  int tile = first;
+  if (!kPerRow) {
+    tile = tile_id[first];
+    if (tile < 0 || tile >= NT) return;
+    if (first > 0 && tile_id[first - 1] == tile) return;  // not the run's owner
+  }
   const Geometry g(dim, H, m);
   const size_t SK = static_cast<size_t>(S) * K;
   extern __shared__ float smem[];
   float* dst = out + static_cast<size_t>(tile) * C * g.cells;
   float* acc = use_smem ? smem : dst;
-  if (use_smem) {
-    for (int i = threadIdx.x; i < C * g.cells; i += blockDim.x) smem[i] = 0.0f;
+  if (use_smem || kPerRow) {
+    for (int i = threadIdx.x; i < C * g.cells; i += blockDim.x) acc[i] = 0.0f;
     __syncthreads();
   }
-  for (int s = first; s < S && tile_id[s] == tile; ++s) {
+  const int last = kPerRow ? first + 1 : S;
+  for (int s = first; s < last && (kPerRow || tile_id[s] == tile); ++s) {
     const int cnt = row_count[s];
     for (int k = threadIdx.x; k < cnt; k += blockDim.x) {
       const size_t j = static_cast<size_t>(s) * K + k;
@@ -359,6 +381,33 @@ __global__ void __launch_bounds__(kThreads) pos_grad_kernel(
   }
 }
 
+// Launches spread_kernel<kPerRow> with S blocks, the accumulator in
+// dynamic shared memory when C * H^dim floats fit the opt-in limit.
+template <bool kPerRow>
+int launch_spread(const float* vals, const float* slot_pos,
+                  const int* row_count, const int* origin, const int* tile_id,
+                  float* out, int S, int K, int C, int NT, int dim, int H,
+                  int M, int m, int kind, float p0, float p1, float p2,
+                  int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess || S == 0) return static_cast<int>(err);
+  size_t cells = H;
+  for (int d = 1; d < dim; ++d) cells *= H;
+  const size_t smem = cells * C * sizeof(float);
+  const int use_smem = smem <= kSmemOptIn;
+  if (use_smem && smem > kSmemDefault) {
+    err = cudaFuncSetAttribute(spread_kernel<kPerRow>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  spread_kernel<kPerRow><<<S, kThreads, use_smem ? smem : 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      vals, slot_pos, row_count, origin, tile_id, out, S, K, C, NT, dim, H, M,
+      m, Window{kind, p0, p1, p2}, use_smem);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -369,23 +418,19 @@ int tnt_spread_tiles_dense(const float* vals, const float* slot_pos,
                            int NT, int dim, int H, int M, int m, int kind,
                            float p0, float p1, float p2, int device,
                            void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess || S == 0) return static_cast<int>(err);
-  size_t cells = H;
-  for (int d = 1; d < dim; ++d) cells *= H;
-  const size_t smem = cells * C * sizeof(float);
-  const int use_smem = smem <= kSmemOptIn;
-  if (use_smem && smem > kSmemDefault) {
-    err = cudaFuncSetAttribute(spread_dense_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  spread_dense_kernel<<<S, kThreads, use_smem ? smem : 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      vals, slot_pos, row_count, origin, tile_id, out, S, K, C, NT, dim, H, M,
-      m, Window{kind, p0, p1, p2}, use_smem);
-  return static_cast<int>(cudaGetLastError());
+  return launch_spread<false>(vals, slot_pos, row_count, origin, tile_id, out,
+                              S, K, C, NT, dim, H, M, m, kind, p0, p1, p2,
+                              device, stream);
+}
+
+int tnt_spread_tiles(const float* vals, const float* slot_pos,
+                     const int* row_count, const int* origin, float* out,
+                     int S, int K, int C, int dim, int H, int M, int m,
+                     int kind, float p0, float p1, float p2, int device,
+                     void* stream) {
+  return launch_spread<true>(vals, slot_pos, row_count, origin, nullptr, out,
+                             S, K, C, S, dim, H, M, m, kind, p0, p1, p2,
+                             device, stream);
 }
 
 int tnt_gather_points(const float* tiles, const float* slot_pos,

@@ -9,6 +9,15 @@ tile (H = T + 2m + 1) and accumulates it into a dense tile array; the fold
 (ops/tilefold.py) overlap-adds the tiles onto the grid. The gather runs the
 same steps backwards.
 
+Where the dense tile array for C columns would exceed the memory budget of
+``tilefold.use_fold`` (the JAX package's rule), both directions take the
+flat-grid route instead: the spread forms each row's own tile
+(``spread_tiles``) and adds it onto the grid cell by cell, each cell
+wrapped mod M (the JAX package's scatter onto the periodically extended
+grid and its fold of the extension, in another order of the float sums);
+the gather reads each row's tile from the grid and runs the gather kernel
+on the per-row tiles.
+
 Plans come from the host builder :func:`build_plan` (the native counting
 sort of ``csrc/plan_builder.cpp``; it also keeps the sorted ``order``,
 ``row_start`` and the bin-id fingerprint ``pos_fp``) or from
@@ -40,13 +49,14 @@ import torch
 from .._device import resolve_device
 from .._native import plan_tables
 from .benes import apply_benes_, plan_benes_tables
-from .contract import gather_points, pos_grad, spread_tiles_dense
+from .contract import gather_points, pos_grad, spread_tiles, spread_tiles_dense
 from .ragged import compact_rows, expand_rows, row_start_from_counts
 from .tilefold import (
     fold_tiles_to_grid,
     row_tile_ids,
     tiles_per_axis,
     unfold_grid_to_tiles,
+    use_fold,
 )
 from .window import check_window
 
@@ -64,6 +74,12 @@ __all__ = [
     "gather_binned",
     "spread_stages",
     "gather_stages",
+    "spread_flat_stages",
+    "gather_flat_stages",
+    "spread_route",
+    "gather_route",
+    "tiles_to_grid",
+    "grid_to_tiles",
     "run_stages",
 ]
 
@@ -607,6 +623,97 @@ def gather_stages(plan: BinnedPlan) -> tuple:
     )
 
 
+def _cell_chunks(plan: BinnedPlan, C: int, entries: int = 1 << 23):
+    """Row ranges whose (R, C, H^dim) cell index stays under ``entries``."""
+    S = plan.S
+    R = max(1, entries // (C * plan.H**plan.dim))
+    return [(r0, min(S, r0 + R)) for r0 in range(0, S, R)]
+
+
+def _tile_cells(plan: BinnedPlan, r0: int, r1: int, C: int) -> torch.Tensor:
+    """(R, C, H^dim) int64 flat index into the (batch_size, C, M^dim) grid of
+    every cell of the tiles of rows [r0, r1): cell u of an axis is
+    (origin + u) mod M, the periodic wrap."""
+    dim, H, M = plan.dim, plan.H, plan.M
+    u = torch.arange(H, dtype=torch.int64, device=plan.device)
+    cells = torch.remainder(plan.origin[r0:r1].to(torch.int64)[:, :, None] + u, M)
+    lin = cells[:, 0]
+    for d in range(1, dim):
+        lin = lin[..., None] * M + cells[:, d].reshape((r1 - r0,) + (1,) * d + (H,))
+    ch = torch.arange(C, dtype=torch.int64, device=plan.device)
+    base = (plan.row_batch[r0:r1].to(torch.int64)[:, None] * C + ch) * M**dim
+    return base[:, :, None] + lin.reshape(r1 - r0, 1, H**dim)
+
+
+def tiles_to_grid(plan: BinnedPlan, tiles: torch.Tensor) -> torch.Tensor:
+    """Per-row tiles (S, C, H, H^{dim-1}) -> grid (batch_size, C, M^dim):
+    each tile added onto the cells it covers (``index_add_``, chunked over
+    rows to bound the index)."""
+    C = tiles.shape[1]
+    g = tiles.new_zeros((plan.batch_size, C) + (plan.M,) * plan.dim)
+    flat, rows = g.view(-1), tiles.reshape(plan.S, -1)
+    for r0, r1 in _cell_chunks(plan, C):
+        flat.index_add_(0, _tile_cells(plan, r0, r1, C).reshape(-1),
+                        rows[r0:r1].reshape(-1))
+    return g
+
+
+def grid_to_tiles(plan: BinnedPlan, g: torch.Tensor) -> torch.Tensor:
+    """Grid (batch_size, C, M^dim) -> per-row tiles (S, C, H, H^{dim-1}):
+    row s's tile read from the cells it covers (the transpose of
+    :func:`tiles_to_grid`)."""
+    C, H = g.shape[1], plan.H
+    flat = g.contiguous().view(-1)
+    out = g.new_empty((plan.S, C, H, H ** (plan.dim - 1)))
+    rows = out.view(plan.S, -1)
+    for r0, r1 in _cell_chunks(plan, C):
+        rows[r0:r1] = flat[_tile_cells(plan, r0, r1, C).reshape(r1 - r0, -1)]
+    return out
+
+
+def _row_ids(plan: BinnedPlan) -> torch.Tensor:
+    """(S,) int32 identity tile index: row s reads per-row tile s."""
+    return torch.arange(plan.S, dtype=torch.int32, device=plan.device)
+
+
+def spread_flat_stages(plan: BinnedPlan) -> tuple:
+    """The spread on the flat-grid route, as (name, function) stages:
+    x (n, C) -> grid (batch_size, C, M^dim) through per-row tiles."""
+    return (
+        ("slot_values", lambda x: slot_values(plan, x.to(torch.float32))),
+        ("spread tiles kernel", lambda v: spread_tiles(plan, v)),
+        ("tiles to grid", lambda tiles: tiles_to_grid(plan, tiles)),
+    )
+
+
+def gather_flat_stages(plan: BinnedPlan) -> tuple:
+    """The gather on the flat-grid route, the transpose of
+    :func:`spread_flat_stages`: grid (batch_size, C, M^dim) -> (n, C)."""
+    return (
+        ("grid to tiles", lambda g: grid_to_tiles(plan, g.to(torch.float32))),
+        ("gather kernel", lambda tiles: gather_points(plan, tiles, _row_ids(plan))),
+        ("unslot_values",
+         lambda y: unslot_values(plan, y.transpose(1, 2).reshape(-1, y.shape[1]))),
+    )
+
+
+def spread_route(plan: BinnedPlan, C: int) -> tuple:
+    """The spread's stages for C columns: dense unless the dense tile array
+    exceeds the budget of :func:`tilefold.use_fold`, then flat."""
+    if use_fold(plan, C, 4, plan.batch_size):
+        return spread_stages(plan)
+    return spread_flat_stages(plan)
+
+
+def gather_route(plan: BinnedPlan, C: int) -> tuple:
+    """(stages, tile_index): the gather's stages for C columns on the route
+    :func:`spread_route` takes, and the index by which row s reads its tile
+    from the first stage's tiles (dense tile ids, or the identity)."""
+    if use_fold(plan, C, 4, plan.batch_size):
+        return gather_stages(plan), row_tile_ids(plan)
+    return gather_flat_stages(plan), _row_ids(plan)
+
+
 def run_stages(stages: tuple, v):
     """Run (name, function) stages in order on v."""
     for _, fn in stages:
@@ -614,22 +721,23 @@ def run_stages(stages: tuple, v):
     return v
 
 
-def _pos_cotangent(plan: BinnedPlan, tiles, w_slot, pos) -> torch.Tensor:
+def _pos_cotangent(plan: BinnedPlan, tiles, w_slot, pos, tile_index) -> torch.Tensor:
     """(n, dim) position cotangent, on ``pos``'s device and in its dtype,
-    from the dense tiles and the slot-ordered point weights."""
-    dp = pos_grad(plan, tiles, w_slot, row_tile_ids(plan))  # (S, dim, K)
+    from the tiles (row s reads ``tiles[tile_index[s]]``) and the
+    slot-ordered point weights."""
+    dp = pos_grad(plan, tiles, w_slot, tile_index)  # (S, dim, K)
     dp = unslot_values(plan, dp.transpose(1, 2).reshape(-1, plan.dim))
     return dp.to(pos)
 
 
 class _Spread(torch.autograd.Function):
-    """x (n, C), pos (n, dim) or None -> grid (batch_size, C, M^dim).
-    Backward: dx = gather(unfold(g_bar)), dpos = pos_grad(unfold(g_bar),
-    w = x), the tiles unfolded once for both."""
+    """x (n, C), pos (n, dim) or None -> grid (batch_size, C, M^dim), on the
+    route :func:`spread_route` picks for C. Backward: dx = gather of g_bar,
+    dpos = pos_grad(tiles of g_bar, w = x), the tiles read once for both."""
 
     @staticmethod
     def forward(ctx, plan, x, pos):
-        stages = spread_stages(plan)
+        stages = spread_route(plan, x.shape[1])
         vals = run_stages(stages[:1], x)  # slot-ordered (C, S*K)
         ctx.plan = plan
         ctx.save_for_backward(vals if ctx.needs_input_grad[2] else None, pos)
@@ -640,40 +748,42 @@ class _Spread(torch.autograd.Function):
     def backward(ctx, g_bar):
         plan = ctx.plan
         vals, pos = ctx.saved_tensors
-        stages = gather_stages(plan)
+        stages, tile_index = gather_route(plan, g_bar.shape[1])
         tiles = run_stages(stages[:1], g_bar)
         dx = dpos = None
         if ctx.needs_input_grad[1]:
             dx = run_stages(stages[1:], tiles)
         if ctx.needs_input_grad[2]:
-            dpos = _pos_cotangent(plan, tiles, vals, pos)
+            dpos = _pos_cotangent(plan, tiles, vals, pos, tile_index)
         return None, dx, dpos
 
 
 class _Gather(torch.autograd.Function):
-    """grid (batch_size, C, M^dim), pos (n, dim) or None -> (n, C).
-    Backward: dg = spread(y_bar), dpos = pos_grad(unfold(g), w = y_bar),
-    y_bar put in slot order once for both."""
+    """grid (batch_size, C, M^dim), pos (n, dim) or None -> (n, C), on the
+    route :func:`gather_route` picks for C. Backward: dg = spread(y_bar),
+    dpos = pos_grad(tiles of g, w = y_bar), y_bar put in slot order once for
+    both."""
 
     @staticmethod
     def forward(ctx, plan, g, pos):
         ctx.plan = plan
         ctx.save_for_backward(g if ctx.needs_input_grad[2] else None, pos)
-        return run_stages(gather_stages(plan), g)
+        return run_stages(gather_route(plan, g.shape[1])[0], g)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, y_bar):
         plan = ctx.plan
         g, pos = ctx.saved_tensors
-        stages = spread_stages(plan)
+        stages = spread_route(plan, y_bar.shape[1])
         w_slot = run_stages(stages[:1], y_bar)  # slot-ordered (C, S*K)
         dg = dpos = None
         if ctx.needs_input_grad[1]:
             dg = run_stages(stages[1:], w_slot)
         if ctx.needs_input_grad[2]:
-            tiles = run_stages(gather_stages(plan)[:1], g)
-            dpos = _pos_cotangent(plan, tiles, w_slot, pos)
+            g_stages, tile_index = gather_route(plan, g.shape[1])
+            tiles = run_stages(g_stages[:1], g)
+            dpos = _pos_cotangent(plan, tiles, w_slot, pos, tile_index)
         return None, dg, dpos
 
 

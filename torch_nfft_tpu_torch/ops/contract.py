@@ -15,7 +15,10 @@ in t is piecewise constant). ``pos_grad`` is the position cotangent of
 both the spread (tiles of the grid cotangent, w the values) and the gather
 (tiles of the primal grid, w the point cotangent).
 
-``spread_tiles_dense`` replaces the JAX package's TPU kernel
+``spread_tiles`` replaces ``ops/pallas/contract.py:spread_tiles_pallas``:
+the same spread into each row's own tile, (S, C, H, H^{dim-1}), the tiles
+of the flat-grid route (ops/binned.py). ``spread_tiles_dense`` replaces the
+JAX package's TPU kernel
 ``ops/pallas/contract.py:spread_tiles_dense_pallas`` (and
 its row-batched twin ``spread_tiles_rb_pallas``, which computes the same
 function); ``gather_points`` replaces ``gather_points_pallas`` (and
@@ -41,9 +44,11 @@ from .window import (
 )
 
 __all__ = [
+    "spread_tiles",
     "spread_tiles_dense",
     "gather_points",
     "pos_grad",
+    "spread_tiles_plain",
     "spread_tiles_dense_plain",
     "gather_points_plain",
     "pos_grad_plain",
@@ -109,6 +114,26 @@ def _contract_rows(W, tl, dim: int):
     return torch.einsum("rkw,rkcw->rkc", W[:, :, 2], t2)
 
 
+def _spread_rows(plan, vals: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
+    """Tiles of rows [r0, r1), (R, C * H^dim): each row's points spread into
+    its own tile."""
+    K, dim, H = plan.K, plan.dim, plan.H
+    C = vals.shape[0]
+    A, kmask = _chunk_inputs(plan, r0, r1)
+    xs = vals[:, r0 * K: r1 * K].reshape(C, r1 - r0, K).permute(1, 2, 0)
+    xs = xs * kmask[..., None]  # (R, K, C)
+    if dim == 1:
+        tiles = torch.einsum("rku,rkc->rcu", A[:, :, 0], xs)
+    elif dim == 2:
+        t1 = torch.einsum("rkv,rkc->rkcv", A[:, :, 1], xs)
+        tiles = torch.einsum("rku,rkcv->rcuv", A[:, :, 0], t1)
+    else:
+        t1 = torch.einsum("rkw,rkc->rkcw", A[:, :, 2], xs)
+        t2 = torch.einsum("rkv,rkcw->rkcvw", A[:, :, 1], t1)
+        tiles = torch.einsum("rku,rkcvw->rcuvw", A[:, :, 0], t2)
+    return tiles.reshape(r1 - r0, C * H**dim)
+
+
 def spread_tiles_dense_plain(plan, vals: torch.Tensor, tile_index: torch.Tensor,
                              NT: int) -> torch.Tensor:
     """Plain version of :func:`spread_tiles_dense`, chunked over rows."""
@@ -117,21 +142,20 @@ def spread_tiles_dense_plain(plan, vals: torch.Tensor, tile_index: torch.Tensor,
     C = vals.shape[0]
     out = torch.zeros((NT, C * H**dim), dtype=torch.float32, device=vals.device)
     for r0, r1 in _row_chunks(S, K, H, dim, C):
-        A, kmask = _chunk_inputs(plan, r0, r1)
-        xs = vals[:, r0 * K: r1 * K].reshape(C, r1 - r0, K).permute(1, 2, 0)
-        xs = xs * kmask[..., None]  # (R, K, C)
-        if dim == 1:
-            tiles = torch.einsum("rku,rkc->rcu", A[:, :, 0], xs)
-        elif dim == 2:
-            t1 = torch.einsum("rkv,rkc->rkcv", A[:, :, 1], xs)
-            tiles = torch.einsum("rku,rkcv->rcuv", A[:, :, 0], t1)
-        else:
-            t1 = torch.einsum("rkw,rkc->rkcw", A[:, :, 2], xs)
-            t2 = torch.einsum("rkv,rkcw->rkcvw", A[:, :, 1], t1)
-            tiles = torch.einsum("rku,rkcvw->rcuvw", A[:, :, 0], t2)
         out.index_add_(0, tile_index[r0:r1].to(torch.int64),
-                       tiles.reshape(r1 - r0, C * H**dim))
+                       _spread_rows(plan, vals, r0, r1))
     return out.reshape(NT, C, H, H ** (dim - 1))
+
+
+def spread_tiles_plain(plan, vals: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`spread_tiles`, chunked over rows."""
+    S, K = plan.slot_pt.shape
+    dim, H = plan.dim, plan.H
+    C = vals.shape[0]
+    out = torch.empty((S, C * H**dim), dtype=torch.float32, device=vals.device)
+    for r0, r1 in _row_chunks(S, K, H, dim, C):
+        out[r0:r1] = _spread_rows(plan, vals, r0, r1)
+    return out.reshape(S, C, H, H ** (dim - 1))
 
 
 def gather_points_plain(plan, tiles: torch.Tensor,
@@ -175,17 +199,18 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _check_plan_tensors(plan, t: torch.Tensor, tile_index: torch.Tensor) -> None:
+def _check_plan_tensors(plan, t: torch.Tensor, tile_index: torch.Tensor | None) -> None:
     S = plan.slot_pt.shape[0]
-    for name, a in (("slot_pos", plan.slot_pos), ("row_count", plan.row_count),
-                    ("origin", plan.origin), ("tile_index", tile_index)):
+    ints = (("row_count", plan.row_count), ("origin", plan.origin))
+    if tile_index is not None:
+        ints += (("tile_index", tile_index),)
+        _require(tuple(tile_index.shape) == (S,), f"tile_index must be ({S},)")
+    for name, a in (("slot_pos", plan.slot_pos),) + ints:
         _require(a.device == t.device, f"{name} is on {a.device}, data on {t.device}")
         _require(a.is_contiguous(), f"{name} must be contiguous")
     _require(plan.slot_pos.dtype == torch.float32, "slot_pos must be float32")
-    for name, a in (("row_count", plan.row_count), ("origin", plan.origin),
-                    ("tile_index", tile_index)):
+    for name, a in ints:
         _require(a.dtype == torch.int32, f"{name} must be int32")
-    _require(tuple(tile_index.shape) == (S,), f"tile_index must be ({S},)")
     _require(tuple(plan.slot_pos.shape) == (plan.dim, S * plan.K),
              "slot_pos must be (dim, S*K)")
     _require(1 <= plan.dim <= 3, "the kernels take dim 1, 2 or 3")
@@ -216,6 +241,38 @@ def _kernel_args(plan, t: torch.Tensor):
             t.device.index or 0, torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def _check_vals(plan, vals: torch.Tensor, tile_index: torch.Tensor | None) -> None:
+    S, K = plan.slot_pt.shape
+    _check_plan_tensors(plan, vals, tile_index)
+    _require(vals.dtype == torch.float32 and vals.is_contiguous(),
+             "vals must be contiguous float32")
+    _require(vals.ndim == 2 and vals.shape[1] == S * K,
+             f"vals must be (C, {S * K})")
+
+
+def spread_tiles(plan, vals: torch.Tensor) -> torch.Tensor:
+    """Slot-ordered values (C, S*K) -> per-row tiles (S, C, H, H^{dim-1}):
+    row s's points spread into its own tile (tile origin ``origin[s]``);
+    rows with no points give exact zeros."""
+    S, K = plan.slot_pt.shape
+    C = vals.shape[0]
+    _check_vals(plan, vals, None)
+    if not _route(vals):
+        return spread_tiles_plain(plan, vals)
+    dim, H, M, m, kind, p0, p1, p2, device, stream = _kernel_args(plan, vals)
+    out = torch.empty((S, C, H, H ** (dim - 1)), dtype=torch.float32,
+                      device=vals.device)
+    check(library().tnt_spread_tiles(
+        vals.data_ptr(), plan.slot_pos.data_ptr(), plan.row_count.data_ptr(),
+        plan.origin.data_ptr(), out.data_ptr(), S, K, C, dim, H, M, m, kind,
+        p0, p1, p2, device, stream))
+    spread_tiles.launches += 1
+    return out
+
+
+spread_tiles.launches = 0
+
+
 def spread_tiles_dense(plan, vals: torch.Tensor, tile_index: torch.Tensor,
                        NT: int) -> torch.Tensor:
     """Slot-ordered values (C, S*K) -> dense tiles (NT, C, H, H^{dim-1}).
@@ -226,10 +283,7 @@ def spread_tiles_dense(plan, vals: torch.Tensor, tile_index: torch.Tensor,
     preceding tile)."""
     S, K = plan.slot_pt.shape
     C = vals.shape[0]
-    _check_plan_tensors(plan, vals, tile_index)
-    _require(vals.dtype == torch.float32 and vals.is_contiguous(),
-             "vals must be contiguous float32")
-    _require(tuple(vals.shape) == (C, S * K), f"vals must be (C, {S * K})")
+    _check_vals(plan, vals, tile_index)
     if not _route(vals):
         return spread_tiles_dense_plain(plan, vals, tile_index, NT)
     H, dim = plan.H, plan.dim

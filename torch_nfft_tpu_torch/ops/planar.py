@@ -29,11 +29,11 @@ from .binned import (
     BinnedPlan,
     build_plan_device,
     gather_binned,
-    gather_stages,
+    gather_route,
     position_fingerprint,
     run_stages,
     spread_binned,
-    spread_stages,
+    spread_route,
 )
 from .fft import spectral_adjoint, spectral_forward
 from .window import DEFAULT_SIGMA, DEFAULT_WINDOW
@@ -181,14 +181,15 @@ def _spectral_stages(plan: BinnedPlan, *, N: int, m: int, sigma: float,
 
 
 def pair_stages(plan: BinnedPlan, *, N: int, m: int, sigma: float,
-                window: str) -> tuple:
-    """The pair's forward as (name, function) stages in order: the spread
-    stages, the two spectral stages, the gather stages.
+                window: str, C: int = 1) -> tuple:
+    """The pair's forward for C columns as (name, function) stages in order:
+    the spread stages, the two spectral stages, the gather stages, each on
+    the route (dense or flat grid) the pair takes for C.
     :func:`nfft_pair_planar` runs them (the spread and gather stages inside
     their autograd Functions); chip_smoke.py times them one by one."""
-    return (spread_stages(plan)
+    return (spread_route(plan, C)
             + _spectral_stages(plan, N=N, m=m, sigma=sigma, window=window)
-            + gather_stages(plan))
+            + gather_route(plan, C)[0])
 
 
 def nfft_pair_planar(x, pos, batch=None, plan=None, *, batch_size: int, N: int,

@@ -1,9 +1,14 @@
 """Dense-tile overlap-add between the halo tiles and the oversampled grid.
 
-Counterpart of ``fold_tiles_to_grid``, ``unfold_grid_to_tiles`` and
-``row_tile_ids`` of the JAX package's ``ops/tilefold.py``, and of the
-windowed-scatter fallback of its ``ops/binned.py`` for grids
-that T does not divide. Tile b of an axis covers cells [b*T, b*T + H) mod M,
+Counterpart of ``fold_tiles_to_grid``, ``unfold_grid_to_tiles``,
+``row_tile_ids``, ``use_fold`` and ``tile_array_bytes`` of the JAX package's
+``ops/tilefold.py``. The JAX fold needs M % T == 0 and H - T <= T and
+sends other grids to its windowed XLA engines; this fold takes any M and
+T, so the port runs those grids on the dense route too. The memory rule
+``use_fold`` decides between this dense route and the flat-grid route of
+``ops/binned.py`` (per-row tiles moved onto the grid cell by cell), which
+is the counterpart of the JAX package's flat Pallas route and its windowed
+fallback. Tile b of an axis covers cells [b*T, b*T + H) mod M,
 H = T + 2m + 1, with nb = ceil(M/T) tiles per axis. Folding an axis adds
 the tiles onto an extended axis of (nb + J - 1)*T cells in J = ceil(H/T)
 tile-wide strided passes, then wraps the cells beyond M back onto the
@@ -21,11 +26,32 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["row_tile_ids", "fold_tiles_to_grid", "unfold_grid_to_tiles"]
+__all__ = ["row_tile_ids", "fold_tiles_to_grid", "unfold_grid_to_tiles",
+           "tile_array_bytes", "use_fold"]
+
+# the JAX package's default memory budget of the dense tile array (a TPU
+# figure, kept so that both packages take the same route)
+FOLD_BUDGET = 6 << 30
 
 
 def tiles_per_axis(plan) -> int:
     return -(-plan.M // plan.T)
+
+
+def tile_array_bytes(plan, C: int, itemsize: int, batch_size: int) -> int:
+    """Bytes of the dense tile array (NT, C, H^dim) the dense route builds,
+    NT = batch_size * ceil(M/T)^dim over the full grid (the port has no
+    compact active slab)."""
+    return batch_size * tiles_per_axis(plan) ** plan.dim * C * plan.H**plan.dim * itemsize
+
+
+def use_fold(plan, C: int, itemsize: int, batch_size: int,
+             budget: int = FOLD_BUDGET) -> bool:
+    """Whether the dense tile array for C columns fits ``budget``: True for
+    the dense route (spread into dense tiles, fold), False for the flat-grid
+    route (per-row tiles added onto the grid). The JAX package's rule, with
+    no geometry test: this fold takes any M and T."""
+    return tile_array_bytes(plan, C, itemsize, batch_size) <= budget
 
 
 def row_tile_ids(plan) -> torch.Tensor:
