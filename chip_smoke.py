@@ -26,11 +26,13 @@ GB) exceeds the memory budget of ``use_fold`` and the flat-grid route runs
 against the one-column dense pair and by the sampled-frequency check, and
 the flat route forced at C = 1 against the dense route. The bitonic sort's
 three kernels (B8) run through ``sort_pairs``/``apply_permutation`` at 2^24
-and are held against the plain network bit for bit. Last it times each
-kernel with CUDA events beside its bound, its plain version and one PyTorch
-call of the same function where there is one, times the pair stage by
-stage on every route (the stages ``nfft_pair_planar`` runs) and reads the
-device's busy share of three traced pairs and three traced steps with
+and are held against the plain network bit for bit, call by call. Last it
+times each kernel with CUDA events beside its bound, its plain version and
+one PyTorch call of the same function where there is one (the sort's
+kernels call by call along its schedule), times the sort and the Benes
+network with other block and tile sizes, times the pair stage by stage on
+every route (the stages ``nfft_pair_planar`` runs) and reads the device's
+busy share of three traced pairs and three traced steps with
 ``torch.profiler``.
 
 Every phase prints its seconds; any failure exits non-zero. The line before
@@ -95,8 +97,8 @@ KERNELS = {
     "pos_grad": (contract, "torch_nfft_tpu/ops/pallas/contract.py:809", CONTRACT_CU),
     "expand_rows": (ragged, "torch_nfft_tpu/ops/pallas/ragged.py:78", PERMUTE_CU),
     "compact_rows": (ragged, "torch_nfft_tpu/ops/pallas/ragged.py:162", PERMUTE_CU),
-    # the cross-block stages (_cross_stage_pallas, _outer_fused) of apply_benes
-    "benes_stage": (benes, "torch_nfft_tpu/ops/pallas/benes.py:268", PERMUTE_CU),
+    # the cross-block stages (_outer_fused, _cross_stage_pallas) of apply_benes
+    "benes_outer": (benes, "torch_nfft_tpu/ops/pallas/benes.py:491", PERMUTE_CU),
     # the fused stages (_apply_benes_super's _fused_stages_kernel) of apply_benes
     "benes_local": (benes, "torch_nfft_tpu/ops/pallas/benes.py:539", PERMUTE_CU),
     # the per-row spread of the flat-grid route
@@ -104,13 +106,17 @@ KERNELS = {
     # sort_pairs's local rounds (_local_sort_loop_kernel, pallas_call :361/:373),
     # its cross stages (_cross_stage) and its merges (pallas_call :393)
     "bitonic_local_sort": (bitonic, f"{JAX_BITONIC}:224", BITONIC_CU),
-    "bitonic_cross_stage": (bitonic, f"{JAX_BITONIC}:285", BITONIC_CU),
+    "bitonic_cross_round": (bitonic, f"{JAX_BITONIC}:285", BITONIC_CU),
     "bitonic_local_merge": (bitonic, f"{JAX_BITONIC}:248", BITONIC_CU),
 }
 SORT_PATH = ("spread_tiles_dense", "gather_points", "pos_grad")
-BENES_PATH = SORT_PATH + ("expand_rows", "compact_rows", "benes_stage", "benes_local")
+BENES_PATH = SORT_PATH + ("expand_rows", "compact_rows", "benes_outer", "benes_local")
 FLAT_PATH = ("spread_tiles", "gather_points", "pos_grad")
-BITONIC = ("bitonic_local_sort", "bitonic_cross_stage", "bitonic_local_merge")
+BITONIC = ("bitonic_local_sort", "bitonic_cross_round", "bitonic_local_merge")
+# pos.grad of the Benes and the sort route's training steps: the spread
+# kernel's float atomics reorder its sums on every run, so two runs of one
+# route differ by rel-L2 up to 1.2e-6 (tools/probe_route_noise.py)
+POS_GRAD_ROUTES = 3e-6
 
 
 class Phase:
@@ -309,19 +315,22 @@ def device_busy(pair, reps: int = 3):
     return busy_ms, wall_ms, sorted(kernels, key=_device_us, reverse=True)
 
 
-def permute_bounds(C: int, n: int, S: int, K: int, q: int, s: int, size: int) -> dict:
+def permute_bounds(C: int, n: int, S: int, K: int, q: int, s: int, size: int,
+                   outer_stages: int) -> dict:
     """Least ms of each permutation kernel: the bytes it must move (inputs
     read once, outputs written once) over the HBM rate; they do no
     arithmetic. The ragged passes read or write the n filled lanes of each
-    column and the whole padded side; a Benes stage reads and writes the
-    (C, 2^q) array and its 2^q/2 pair bits; the local pass does so once for
-    its 2s-1 stages."""
+    column and the whole padded side; an outer pass of ``outer_stages``
+    stages, the local pass (2s-1 stages) and the whole network (2q-1) read
+    and write the (C, 2^q) array once and read 2^q/2 pair bits per stage."""
     bits = (1 << q) // 16  # 2^q / 2 pair bits per stage
+    words = 2 * 4 * C * (1 << q)
     work = {
         "expand_rows": 4 * C * n + 8 * S + 4 * C * S * K,
         "compact_rows": 4 * C * n + 8 * S + 4 * C * size,
-        "benes_stage": 2 * 4 * C * (1 << q) + bits,
-        "benes_local": 2 * 4 * C * (1 << q) + (2 * min(s, q) - 1) * bits,
+        "benes_outer": words + outer_stages * bits,
+        "benes_local": words + (2 * min(s, q) - 1) * bits,
+        "apply_benes": words + (2 * q - 1) * bits,
     }
     return {k: (b / PEAK_BYTES_PER_S * 1e3, "bytes") for k, b in work.items()}
 
@@ -331,20 +340,39 @@ def moved(k_in, v_in, k_out, v_out) -> int:
     return int(((k_in != k_out) | (v_in.view(torch.int32) != v_out.view(torch.int32))).sum())
 
 
-def sort_bounds(Q: int, b: int, moves: dict) -> dict:
-    """Least ms of the bitonic kernels and the whole sort on Q = 2^q int32
-    keys and 32-bit values: the bytes this run's data needs (every key read,
-    and for each of the ``moves[name]`` elements that change, its value read
-    and its key and value written) over the HBM rate, against one comparison
-    per pair and stage over the float32 peak (the CUDA cores' 32-bit rate)."""
-    q = Q.bit_length() - 1
-    stages = {"bitonic_local_sort": b * (b + 1) // 2, "bitonic_cross_stage": 1,
-              "bitonic_local_merge": b, "sort_pairs": q * (q + 1) // 2}
-    out = {}
-    for name, st in stages.items():
-        t_bytes = (4 * Q + 12 * moves[name]) / PEAK_BYTES_PER_S * 1e3
-        t_ops = (Q // 2) * st / PEAK_F32_FLOPS * 1e3
-        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+def sort_bound(Q: int, stages: int, moves: int) -> tuple:
+    """Least ms of ``stages`` stages of the bitonic network on Q int32 keys
+    and 32-bit values: the bytes this run's data needs (every key read, and
+    for each of the ``moves`` elements that change, its value read and its
+    key and value written) over the HBM rate, against one comparison per
+    pair and stage over the float32 peak (the CUDA cores' 32-bit rate)."""
+    t_bytes = (4 * Q + 12 * moves) / PEAK_BYTES_PER_S * 1e3
+    t_ops = (Q // 2) * stages / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sort_schedule(keys, vals):
+    """The kernel calls ``sort_pairs`` makes on (keys, vals), run one by
+    one: (name, kernel of (k, v), its plain version, stages, input k and v,
+    the kernel's output k and v)."""
+    q = keys.shape[0].bit_length() - 1
+    b = min(q, bitonic.LOCAL_LOG2)
+    calls = [("bitonic_local_sort", lambda k, v: bitonic.bitonic_local_sort(k, v, b),
+              lambda k, v: bitonic.bitonic_local_sort_plain(k, v, b), b * (b + 1) // 2)]
+    for jj in range(b + 1, q + 1):
+        for a in bitonic.cross_passes(jj, b):
+            calls.append(("bitonic_cross_round",
+                          lambda k, v, a=a, jj=jj: bitonic.bitonic_cross_round(k, v, jj, *a),
+                          lambda k, v, a=a, jj=jj: bitonic.bitonic_cross_round_plain(
+                              k, v, jj, *a), a[0] - a[1] + 1))
+        calls.append(("bitonic_local_merge",
+                      lambda k, v, jj=jj: bitonic.bitonic_local_merge(k, v, jj, b),
+                      lambda k, v, jj=jj: bitonic.bitonic_local_merge_plain(k, v, jj, b), b))
+    out, k, v = [], keys, vals
+    for name, fn, plain, st in calls:
+        k2, v2 = fn(k.clone(), v.clone())
+        out.append((name, fn, plain, st, k, v, k2, v2))
+        k, v = k2, v2
     return out
 
 
@@ -527,7 +555,7 @@ def main() -> int:
             assert rl <= 1e-5, f"{name} disagrees with its plain version: {rl:.3e}"
 
     with Phase("3b permutation kernels vs plain (bitwise)"):
-        perm_err = dict.fromkeys(("expand_rows", "compact_rows", "benes_stage",
+        perm_err = dict.fromkeys(("expand_rows", "compact_rows", "benes_outer",
                                   "benes_local"), 0.0)
 
         def same(name, got, ref):
@@ -538,14 +566,14 @@ def main() -> int:
 
         def network_cases(tables, vals_c):
             q, s = tables.q, benes.LOCAL_LOG2
+            entry, exit_ = benes.outer_passes(q, min(s, q))
             for reverse in (False, True):
                 same("benes_local", benes.benes_local(vals_c.clone(), tables, s, reverse),
                      benes.benes_local_plain(vals_c, tables, s, reverse))
-                for j in list(range(q - min(s, q))) + list(range(q + min(s, q) - 1, 2 * q - 1)):
-                    row = tables.bits[2 * q - 2 - j if reverse else j]
-                    same("benes_stage", benes.benes_stage(vals_c.clone(), tables, j, reverse),
-                         benes.benes_stage_plain(vals_c, row, benes.stage_distances(q)[j]))
-                same("benes_stage", benes.apply_benes(vals_c, tables, reverse),
+                for js in entry + exit_:
+                    same("benes_outer", benes.benes_outer(vals_c.clone(), tables, js, reverse),
+                         benes.benes_outer_plain(vals_c, tables, js, reverse))
+                same("benes_outer", benes.apply_benes(vals_c, tables, reverse),
                      benes.apply_benes_plain(vals_c, tables, reverse))
 
         rng = np.random.default_rng(21)
@@ -558,7 +586,7 @@ def main() -> int:
             network_cases(t20, v20.view(torch.int32))
             want = torch.empty_like(v20)
             want[:, torch.from_numpy(perm20).long().to(dev)] = v20
-            same("benes_stage", benes.apply_benes(v20, t20), want)
+            same("benes_outer", benes.apply_benes(v20, t20), want)
             cnt = torch.from_numpy(rng.integers(0, 129, size=12000).astype(np.int32)).to(dev)
             rs20 = ragged.row_start_from_counts(cnt)
             n20 = int(cnt.sum())
@@ -569,8 +597,8 @@ def main() -> int:
             same("compact_rows", ragged.compact_rows(pd, rs20, cnt, n20),
                  ragged.compact_rows_plain(pd, rs20, cnt, n20, -(-n20 // 128) * 128))
         del t20, v20, want, st, pd
-        print(f"q={q20}, C=1 and 3, float32 and int32: every stage, the local pass and "
-              f"the network (both directions), expand and compact: bitwise equal")
+        print(f"q={q20}, C=1 and 3, float32 and int32: every outer pass, the local pass "
+              f"and the network (both directions), expand and compact: bitwise equal")
         # the headline: the network, the ragged passes on the plan's rows
         rs_h = ragged.row_start_from_counts(plan.row_count)
         xb = torch.zeros((1, bt.n), device=dev)
@@ -648,32 +676,28 @@ def main() -> int:
             same_sort(f"2^{TIES_LOG2} ties and extremes, {v_t.dtype}", got,
                       bitonic.sort_pairs_plain(k_t, v_t))
             assert torch.equal(got[0], torch.sort(k_t).values)
-        # each kernel on its own, q around the card's block 2^b
-        for q in (b_loc - 1, b_loc, b_loc + 3):
+        # each kernel on its own, call by call along the sort's schedule: q
+        # around the card's block 2^b, at 2^Q_CHECK and at the headline's 2^24
+        for q in (b_loc - 1, b_loc, b_loc + 3, Q_CHECK, N_LOG2):
             Q = 1 << q
-            k_q = torch.from_numpy(rng3.integers(-40, 40, Q).astype(np.int32)).to(dev)
-            for v_q in (torch.randn(Q, device=dev, generator=gen),
-                        torch.randint(-1000, 1000, (Q,), dtype=torch.int32, device=dev,
-                                      generator=gen)):
-                same_sort(f"q={q}", bitonic.sort_pairs(k_q, v_q),
-                          bitonic.sort_pairs_plain(k_q, v_q))
-                bb = min(q, b_loc)
-                ks, vs = bitonic.bitonic_local_sort(k_q.clone(), v_q.clone(), bb)
-                same_sort(f"local sort q={q}", (ks, vs),
-                          bitonic.bitonic_local_sort_plain(k_q, v_q, bb))
-                for jj in range(bb + 1, q + 1):
-                    for d in range(jj - 1, bb - 1, -1):
-                        kc, vc = bitonic.bitonic_cross_stage(ks.clone(), vs.clone(), jj, d)
-                        same_sort(f"cross stage q={q} jj={jj} d={d}", (kc, vc),
-                                  bitonic.bitonic_cross_stage_plain(ks, vs, jj, d))
-                        ks, vs = kc, vc
-                    km, vm = bitonic.bitonic_local_merge(ks.clone(), vs.clone(), jj, bb)
-                    same_sort(f"local merge q={q} jj={jj}", (km, vm),
-                              bitonic.bitonic_local_merge_plain(ks, vs, jj, bb))
-                    ks, vs = km, vm
+            if q == N_LOG2:
+                cases = [(dest, vals_s)]
+            else:
+                k_q = torch.from_numpy(rng3.integers(-40, 40, Q).astype(np.int32)).to(dev)
+                cases = [(k_q, torch.randn(Q, device=dev, generator=gen)),
+                         (k_q, torch.randint(-1000, 1000, (Q,), dtype=torch.int32,
+                                             device=dev, generator=gen))]
+            for k_q, v_q in cases:
+                if q != N_LOG2:
+                    same_sort(f"q={q}", bitonic.sort_pairs(k_q, v_q),
+                              bitonic.sort_pairs_plain(k_q, v_q))
+                for name, _, plain, st, k_in, v_in, k_out, v_out in sort_schedule(k_q, v_q):
+                    same_sort(f"{name} ({st} stages) q={q}", (k_out, v_out), plain(k_in, v_in))
+                del k_in, v_in, k_out, v_out
         print(f"sort_pairs and apply_permutation at 2^{N_LOG2} (float32 values), "
               f"2^{TIES_LOG2} ties and int32 extremes (float32, int32 values), and each "
-              f"kernel at q={b_loc - 1}, {b_loc}, {b_loc + 3} (block 2^{b_loc}): bitwise "
+              f"kernel call of the schedule at q={b_loc - 1}, {b_loc}, {b_loc + 3}, {Q_CHECK}, "
+              f"{N_LOG2} (block 2^{b_loc}, cross tiles 2^{bitonic.CROSS_LOG2}): bitwise "
               "equal to the plain network; keys equal torch.sort")
         perm_err.update(dict.fromkeys(BITONIC, 0.0))  # bitwise equal
         del k_t, keys_t
@@ -808,6 +832,7 @@ def main() -> int:
               f"{bbwd_ms:.3f} ms; sort route {t_step:.4f} s)")
         print(f"Benes vs sort route: x.grad rel_l2={rel_bx:.3e}, pos.grad rel_l2={rel_bp:.3e}")
         assert rel_bx <= 1e-6, f"Benes-route x.grad disagrees: {rel_bx:.3e}"
+        assert rel_bp <= POS_GRAD_ROUTES, f"Benes-route pos.grad disagrees: {rel_bp:.3e}"
 
     with Phase(f"5f slot-space Benes route at n=2^{SLOT_LOG2}"):
         ns = 1 << SLOT_LOG2
@@ -919,21 +944,27 @@ def main() -> int:
             bounds(plan, C, tiles_read)
         b_rows = {c: bounds(plan, c, tiles_read)[3] for c in (1, C_WIDE)}
         vals8 = slot_values(plan, x8)
-        b_loc = bitonic.LOCAL_LOG2
-        # the bitonic kernels' inputs on the sort's own path at 2^24: the
-        # permutation, after the local sort, after the first cross stage
-        k1, v1 = bitonic.bitonic_local_sort(dest.clone(), vals_s.clone(), b_loc)
-        k2, v2 = bitonic.bitonic_cross_stage(k1.clone(), v1.clone(), b_loc + 1, b_loc)
-        k3, v3 = bitonic.bitonic_local_merge(k2.clone(), v2.clone(), b_loc + 1, b_loc)
-        ks_all, vs_all = bitonic.sort_pairs(dest, vals_s)
-        s_bounds = sort_bounds(n, b_loc, {
-            "bitonic_local_sort": moved(dest, vals_s, k1, v1),
-            "bitonic_cross_stage": moved(k1, v1, k2, v2),
-            "bitonic_local_merge": moved(k2, v2, k3, v3),
-            "sort_pairs": moved(dest, vals_s, ks_all, vs_all)})
-        del k3, v3, ks_all, vs_all
+        # every call of the sort's schedule at 2^24 on its own input, each
+        # timed on a fresh copy less the copy, with the bound of its data
+        sched = sort_schedule(dest, vals_s)
+        sort_calls = {k: [] for k in BITONIC}  # (ms, bound ms, bound by, stages)
+        for name, fn, _, st, k_in, v_in, k_out, v_out in sched:
+            ms_c = time_on_copy(fn, (k_in, v_in), 5)
+            sort_calls[name].append((ms_c, *sort_bound(n, st, moved(k_in, v_in, k_out, v_out)),
+                                     st))
+        print(f"sort_pairs at 2^{N_LOG2}, call by call (block 2^{bitonic.LOCAL_LOG2}, cross "
+              f"tiles 2^{bitonic.CROSS_LOG2}), ms (bound ms, stages):")
+        for name in BITONIC:
+            print(f"  {name}: " + ", ".join(f"{m:.4f} ({bd:.4f}, {st})"
+                                            for m, bd, _, st in sort_calls[name]))
+        plain_sort = {name: next((plain, k_in, v_in) for nm, _, plain, _, k_in, v_in, _, _
+                                 in sched if nm == name) for name in BITONIC}
+        s_bound_all = sort_bound(n, N_LOG2 * (N_LOG2 + 1) // 2,
+                                 moved(dest, vals_s, sched[-1][6], sched[-1][7]))
+        del sched
         s_loc = benes.LOCAL_LOG2
-        pb_bounds = permute_bounds(C, n, plan.S, plan.K, bt.q, s_loc, bt.n)
+        entry, exit_ = benes.outer_passes(bt.q, min(s_loc, bt.q))
+        pb_bounds = permute_bounds(C, n, plan.S, plan.K, bt.q, s_loc, bt.n, len(entry[0]))
         # inputs of the permutation kernels at the headline, and the index
         # maps of one index_select computing the same function
         rs_h = ragged.row_start_from_counts(plan.row_count)
@@ -952,10 +983,9 @@ def main() -> int:
             r.reshape(1, plan.S, plan.K), rs_h, plan.row_count, n, size=bt.n),
             plan.S * plan.K, dev)
         ext_c = torch.cat([torch.zeros((1, 1), device=dev), rows_h.reshape(1, -1)], 1)
-        q, j0 = bt.q, 0
-        row0 = bt.bits[0]
-        map_s = source_map(lambda r: benes.benes_stage(
-            r[None].contiguous(), bt, j0), bt.n, dev) - 1
+        q = bt.q
+        map_s = source_map(lambda r: benes.benes_outer(
+            r[None].contiguous(), bt, entry[0]), bt.n, dev) - 1
         map_l = source_map(lambda r: benes.benes_local(
             r[None].contiguous(), bt, s_loc), bt.n, dev) - 1
         map_f = source_map(lambda r: benes.apply_benes(r[None], bt), bt.n, dev) - 1
@@ -980,10 +1010,10 @@ def main() -> int:
              lambda: ragged.compact_rows(rows_h, rs_h, plan.row_count, n, size=bt.n),
              lambda: ragged.compact_rows_plain(rows_h, rs_h, plan.row_count, n, bt.n),
              lambda: ext_c.index_select(1, map_c), *pb_bounds["compact_rows"]),
-            ("benes_stage",  # the outermost stage, distance 2^(q-1)
-             lambda: benes.benes_stage(work, bt, j0),
-             lambda: benes.benes_stage_plain(v_h, row0, q - 1),
-             lambda: v_h.index_select(1, map_s), *pb_bounds["benes_stage"]),
+            ("benes_outer",  # the entry side's pass
+             lambda: benes.benes_outer(work, bt, entry[0]),
+             lambda: benes.benes_outer_plain(v_h, bt, entry[0]),
+             lambda: v_h.index_select(1, map_s), *pb_bounds["benes_outer"]),
             ("benes_local",
              lambda: benes.benes_local(work, bt, s_loc),
              lambda: benes.benes_local_plain(v_h, bt, s_loc),
@@ -992,19 +1022,11 @@ def main() -> int:
              lambda: contract.spread_tiles(plan, vals8),
              lambda: contract.spread_tiles_plain(plan, vals8),
              None, *b_rows[C_WIDE]),
-            # in place: each timed on a fresh copy of its input, less the copy
-            ("bitonic_local_sort",
-             (lambda a, b: bitonic.bitonic_local_sort(a, b, b_loc), (dest, vals_s)),
-             lambda: bitonic.bitonic_local_sort_plain(dest, vals_s, b_loc),
-             None, *s_bounds["bitonic_local_sort"]),
-            ("bitonic_cross_stage",
-             (lambda a, b: bitonic.bitonic_cross_stage(a, b, b_loc + 1, b_loc), (k1, v1)),
-             lambda: bitonic.bitonic_cross_stage_plain(k1, v1, b_loc + 1, b_loc),
-             None, *s_bounds["bitonic_cross_stage"]),
-            ("bitonic_local_merge",
-             (lambda a, b: bitonic.bitonic_local_merge(a, b, b_loc + 1, b_loc), (k2, v2)),
-             lambda: bitonic.bitonic_local_merge_plain(k2, v2, b_loc + 1, b_loc),
-             None, *s_bounds["bitonic_local_merge"]),
+            # timed above, call by call: the mean per launch of the schedule
+            *[(name, [c[0] for c in sort_calls[name]],
+               lambda pk=plain_sort[name]: pk[0](pk[1], pk[2]), None,
+               float(np.mean([c[1] for c in sort_calls[name]])), sort_calls[name][0][2])
+              for name in BITONIC],
         ]
         max_err = {**{k: v[0] for k, v in err.items()}, **perm_err}
         report = []
@@ -1013,7 +1035,7 @@ def main() -> int:
         main_launches = {**launches_bstep, "spread_tiles": launches_fstep["spread_tiles"],
                          **{k: launches_sort[k] for k in BITONIC}}
         for name, kern, plain, lib, b_ms, b_by in rows:
-            ms = time_ms(kern, 10) if callable(kern) else time_on_copy(*kern, 10)
+            ms = time_ms(kern, 10) if callable(kern) else float(np.mean(kern))
             plain_ms = time_ms(plain, 2)
             lib_ms = time_ms(lib, 10) if lib is not None else None
             lib_txt = f", index_select {lib_ms:.4f} ms" if lib is not None else ""
@@ -1046,7 +1068,7 @@ def main() -> int:
             bound_m = (cells8 + grid8) / PEAK_BYTES_PER_S * 1e3
             print(f"{label} C={C_WIDE}: {ms_m:.4f} ms (bound {bound_m:.4f} ms by bytes: "
                   f"{cells8 / 1e9:.3f} GB of tiles, {grid8 / 1e9:.3f} GB of grid)")
-        del tiles8, g8, vals8, k1, v1, k2, v2
+        del tiles8, g8, vals8, plain_sort
         # the whole sort and the permutation, against one PyTorch call each
         dest_l = dest.long()
         for label, fn, plain, lib, lib_name in (
@@ -1059,17 +1081,15 @@ def main() -> int:
             ms_s = time_ms(fn, 5)
             plain_txt = f"plain {time_ms(plain, 1):.3f} ms, " if plain is not None else ""
             print(f"{label} 2^{N_LOG2}: {ms_s:.4f} ms ({plain_txt}{lib_name} "
-                  f"{time_ms(lib, 10):.4f} ms, bound {s_bounds['sort_pairs'][0]:.4f} ms by "
-                  f"{s_bounds['sort_pairs'][1]})")
+                  f"{time_ms(lib, 10):.4f} ms, bound {s_bound_all[0]:.4f} ms by "
+                  f"{s_bound_all[1]})")
         # the whole network and both slot permutations per route
         net_f = time_ms(lambda: benes.apply_benes(v_h, bt), 10)
         net_r = time_ms(lambda: benes.apply_benes(v_h, bt, reverse=True), 10)
         net_lib = time_ms(lambda: v_h.index_select(1, map_f), 10)
-        n_outer = 2 * (q - min(s_loc, q))
-        net_bound = (n_outer * pb_bounds["benes_stage"][0] + pb_bounds["benes_local"][0])
-        print(f"whole network (q={q}, {n_outer} stage launches + 1 local pass): forward "
-              f"{net_f:.4f} ms, reverse {net_r:.4f} ms (index_select {net_lib:.4f} ms, "
-              f"bound {net_bound:.4f} ms)")
+        print(f"whole network (q={q}, {len(entry) + len(exit_)} outer passes + 1 local pass): "
+              f"forward {net_f:.4f} ms, reverse {net_r:.4f} ms (index_select {net_lib:.4f} ms, "
+              f"bound {pb_bounds['apply_benes'][0]:.4f} ms by bytes)")
         for label, p in (("sort", plan), ("Benes", plan_b)):
             sv = time_ms(lambda: slot_values(p, x), 10)
             flat = vals.T.contiguous()
@@ -1077,6 +1097,34 @@ def main() -> int:
             print(f"{label} route: slot_values {sv:.4f} ms, unslot_values {us:.4f} ms, "
                   f"both {sv + us:.4f} ms")
         del stream_h, rows_h, v_h, work, map_e, map_c, map_s, map_l, map_f, ext_e, ext_c
+
+    with Phase("6b block sizes"):
+        # the sort and the network at the headline with other tiles: each
+        # result bitwise equal to the defaults', times side by side
+        xb = torch.randn((1, bt.n), device=dev, generator=gen)
+        want_s = bitonic.sort_pairs(dest, vals_s)
+        want_f = benes.apply_benes(xb, bt)
+        for mod, names, grid in (
+                (bitonic, ("LOCAL_LOG2", "CROSS_LOG2"),
+                 ((11, 11), (12, 12), (12, 13), (13, 13), (13, 14), (14, 13))),
+                (benes, ("LOCAL_LOG2", "OUTER_LOG2"), ((13, 13), (14, 14), (15, 13), (15, 14)))):
+            keep = [getattr(mod, nm) for nm in names]
+            for vals_g in grid:
+                for nm, val in zip(names, vals_g):
+                    setattr(mod, nm, val)
+                if mod is bitonic:
+                    fn = lambda: bitonic.sort_pairs(dest, vals_s)  # noqa: E731
+                    got = fn()
+                    ok = torch.equal(got[0], want_s[0]) and torch.equal(got[1], want_s[1])
+                else:
+                    fn = lambda: benes.apply_benes(xb, bt)  # noqa: E731
+                    ok = torch.equal(fn(), want_f)
+                assert ok, f"{mod.__name__} with {dict(zip(names, vals_g))} differs"
+                print(f"{mod.__name__.split('.')[-1]} {dict(zip(names, vals_g))}: "
+                      f"{time_ms(fn, 5):.4f} ms, bitwise equal to the defaults'")
+            for nm, val in zip(names, keep):
+                setattr(mod, nm, val)
+        del want_s, want_f, xb
 
     with Phase("7 stages and device busy share"):
         reps = 3

@@ -10,6 +10,7 @@ and agrees with JAX's Benes-plan transform to rel-L2 3e-5, the bar of the
 transforms (tests/test_torch_pair.py).
 """
 
+import functools
 import os
 
 import jax
@@ -99,26 +100,78 @@ def test_apply_benes_matches_jax(q, b, dtype):
     assert torch.equal(benes.apply_benes_plain(fwd, tables, reverse=True), xt)
 
 
+def _card_schedule(x, tables, s, reverse):
+    """The card's schedule (each side's outer passes, the middle through the
+    local pass) on the wrappers' CPU routes."""
+    entry, exit_ = benes.outer_passes(tables.q, min(s, tables.q))
+    v = x
+    for js in entry:
+        v = benes.benes_outer(v, tables, js, reverse)
+    v = benes.benes_local(v, tables, s, reverse)
+    for js in exit_:
+        v = benes.benes_outer(v, tables, js, reverse)
+    return v
+
+
 @pytest.mark.parametrize("s", [7, 11, 13])
 def test_stage_and_local_split_the_network(s):
-    """The card's schedule (outer stages one by one, the middle through the
-    local pass, outer stages again) on the wrappers' CPU routes gives the
-    whole network, for the local block below, at and above the size."""
+    """The card's schedule gives the whole network, for the local block
+    below, at and above the size."""
     q = 11
     perm, _, tables = _perm_tables(q, 40 + s)
     x = torch.from_numpy(np.random.default_rng(s).standard_normal((3, 1 << q))
                          .astype(np.float32))
     for reverse in (False, True):
-        v = x
-        mid = range(q - min(s, q), q + min(s, q) - 1)
-        for j in range(mid.start):
-            v = benes.benes_stage(v, tables, j, reverse)
-        v = benes.benes_local(v, tables, s, reverse)
-        for j in range(mid.stop, 2 * q - 1):
-            v = benes.benes_stage(v, tables, j, reverse)
+        v = _card_schedule(x, tables, s, reverse)
         assert torch.equal(v, benes.apply_benes_plain(x, tables, reverse))
     np.testing.assert_array_equal(benes.apply_benes_plain(x, tables).numpy(),
                                   _scatter(perm, x.numpy()))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_network(q, dtype, C):
+    """A routed network of 2^q, C columns of values and JAX's apply_benes of
+    each column (interpret mode), forward and reverse."""
+    perm, bits, tables = _perm_tables(q, 77)
+    cw, lw = jbenes.pack_masks(jbenes.unpack_pair_bits_np(bits, q), q, 9)
+    rng = np.random.default_rng(C)
+    if dtype is np.float32:
+        x = rng.standard_normal((C, 1 << q)).astype(np.float32)
+    else:
+        x = rng.integers(-(1 << 30), 1 << 30, (C, 1 << q)).astype(np.int32)
+    want = {rev: np.stack([np.asarray(jbenes.apply_benes(
+        jnp.asarray(col), jnp.asarray(cw), jnp.asarray(lw), block_log2=9, reverse=rev,
+        interpret=True)) for col in x]) for rev in (False, True)}
+    return tables, x, want
+
+
+@pytest.mark.parametrize("outer_log2", [7, 14])
+@pytest.mark.parametrize("s", [6, 8, 10, 11, 13])
+@pytest.mark.parametrize("C,dtype", [(1, np.float32), (3, np.int32)])
+def test_outer_local_split_matches_jax(monkeypatch, s, outer_log2, C, dtype):
+    """The outer/local split with q - s of 5, 3, 1, 0 and below 0 at q = 11,
+    one pass per side or passes of at most two stages: JAX's apply_benes
+    bit for bit, forward and reverse, and each outer pass is its stages
+    composed."""
+    monkeypatch.setattr(benes, "OUTER_LOG2", outer_log2)
+    tables, x, want = _jax_network(11, dtype, C)
+    xt = torch.from_numpy(x)
+    for reverse in (False, True):
+        got = _card_schedule(xt, tables, s, reverse)
+        np.testing.assert_array_equal(got.numpy(), want[reverse])
+        assert torch.equal(benes.apply_benes_(xt.clone(), tables, reverse, s), got)
+    q = tables.q
+    ds = benes.stage_distances(q)
+    entry, exit_ = benes.outer_passes(q, min(s, q))
+    assert [j for js in entry for j in js] == list(range(q - min(s, q)))
+    assert all(len(js) <= outer_log2 - 5 for js in entry + exit_)
+    for js in entry + exit_:
+        for reverse in (False, True):
+            v = xt
+            for j in js:
+                v = benes.benes_stage_plain(v, tables.bits[2 * q - 2 - j if reverse else j],
+                                            ds[j])
+            assert torch.equal(benes.benes_outer_plain(xt, tables, js, reverse), v)
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,8 @@ so any difference is a fault, not rounding. The cases are those of
 tests/test_bitonic.py.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -124,19 +126,38 @@ def test_bad_inputs_raise():
                             interpret=True)
 
 
+def _ties_and_extremes(rng, Q):
+    """Keys with many ties among small values and the int32 extremes."""
+    ext = np.array([I32.min, I32.min + 1, -1, 0, 1, I32.max - 1, I32.max], np.int64)
+    return np.where(rng.random(Q) < 0.5, rng.choice(ext, Q),
+                    rng.integers(-50, 50, Q)).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _schedule_case(dtype):
+    """Inputs of the schedule tests at q = 10 and JAX's sort of them."""
+    rng = np.random.default_rng(11)
+    keys = _ties_and_extremes(rng, 1 << 10)
+    vals = _values(rng, 1 << 10, dtype)
+    return keys, vals, _jax_sort(keys, vals, block_log2=9)
+
+
+@pytest.mark.parametrize("cross_log2", [6, 14])
 @pytest.mark.parametrize("local_log2", [7, 10, 12])
 @pytest.mark.parametrize("dtype", [np.float32, np.int32])
-def test_schedule_through_the_plain_routes(monkeypatch, local_log2, dtype):
-    """The card's schedule (local sort, cross stages, local merges) with the
-    block below, at and above q = 10, through the wrappers' plain versions:
-    the network's output bit for bit, with each kernel called as often as
-    the schedule says."""
+def test_schedule_through_the_plain_routes(monkeypatch, local_log2, cross_log2, dtype):
+    """The card's schedule (local sort, cross passes, local merges) with the
+    block below, at and above q = 10 (rounds of 1, 2 and 3 cross stages), a
+    cross pass of one stage or of the whole round, through the wrappers'
+    plain versions: JAX's network output bit for bit, ties and int32
+    extremes included, with each kernel called as often as the schedule
+    says."""
     q = 10
-    rng = np.random.default_rng(local_log2)
-    keys = torch.from_numpy(rng.integers(-50, 50, 1 << q).astype(np.int32))
-    vals = torch.from_numpy(_values(rng, 1 << q, dtype))
+    keys_np, vals_np, want = _schedule_case(dtype)
+    keys, vals = torch.from_numpy(keys_np), torch.from_numpy(vals_np)
     monkeypatch.setattr(bitonic, "LOCAL_LOG2", local_log2)
-    calls = dict.fromkeys(("bitonic_local_sort", "bitonic_cross_stage",
+    monkeypatch.setattr(bitonic, "CROSS_LOG2", cross_log2)
+    calls = dict.fromkeys(("bitonic_local_sort", "bitonic_cross_round",
                            "bitonic_local_merge"), 0)
     for name in calls:
         def counted(*args, _fn=getattr(bitonic, name), _name=name):
@@ -144,16 +165,47 @@ def test_schedule_through_the_plain_routes(monkeypatch, local_log2, dtype):
             return _fn(*args)
         monkeypatch.setattr(bitonic, name, counted)
     got = bitonic.sort_pairs(keys, vals)
+    _assert_same(got, want)
     _assert_same(got, tuple(t.numpy() for t in bitonic.sort_pairs_plain(keys, vals)))
     b = min(q, local_log2)
+    per_pass = cross_log2 - 5
     assert calls == {"bitonic_local_sort": 1,
-                     "bitonic_cross_stage": (q - b) * (q - b + 1) // 2,
+                     "bitonic_cross_round": sum(-(-(jj - b) // per_pass)
+                                                for jj in range(b + 1, q + 1)),
                      "bitonic_local_merge": q - b}
     assert torch.equal(got[0], torch.sort(keys).values)
 
 
+@pytest.mark.parametrize("cross_log2", [6, 7, 9, 14])
+@pytest.mark.parametrize("r", [1, 2, 4, 9])
+def test_cross_passes_cover_each_round(monkeypatch, r, cross_log2):
+    """Each round's cross stages, in order, each in exactly one pass of at
+    most CROSS_LOG2 - 5 stages, in the fewest passes."""
+    monkeypatch.setattr(bitonic, "CROSS_LOG2", cross_log2)
+    b = 13
+    passes = bitonic.cross_passes(b + r, b)
+    stages = [d for hi, lo in passes for d in range(hi, lo - 1, -1)]
+    assert stages == list(range(b + r - 1, b - 1, -1))
+    assert all(hi - lo + 1 <= cross_log2 - 5 for hi, lo in passes)
+    assert len(passes) == -(-r // (cross_log2 - 5))
+
+
+@pytest.mark.parametrize("jj,d_hi,d_lo", [(9, 8, 8), (10, 9, 8), (11, 10, 6), (11, 7, 5)])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_cross_round_plain_is_the_stages_composed(jj, d_hi, d_lo, dtype):
+    """bitonic_cross_round_plain equals its stages run one by one."""
+    rng = np.random.default_rng(jj * 7 + d_lo)
+    k = torch.from_numpy(_ties_and_extremes(rng, 1 << 11))
+    v = torch.from_numpy(_values(rng, 1 << 11, dtype))
+    kk, ww = k, bitonic._words(v)
+    for d in range(d_hi, d_lo - 1, -1):
+        kk, ww = bitonic._stage_plain(kk, ww, jj, d)
+    _assert_same(bitonic.bitonic_cross_round_plain(k, v, jj, d_hi, d_lo),
+                 (kk.numpy(), ww.view(v.dtype).numpy()))
+
+
 def test_kernel_plain_versions_compose_to_the_network():
-    """Local sort, then per round the cross stages and the local merge, on
+    """Local sort, then per round the cross passes and the local merge, on
     the plain versions directly, at q = 11 with blocks of 2^8."""
     rng = np.random.default_rng(5)
     q, b = 11, 8
@@ -161,8 +213,8 @@ def test_kernel_plain_versions_compose_to_the_network():
     v = torch.from_numpy(rng.standard_normal(1 << q).astype(np.float32))
     kk, vv = bitonic.bitonic_local_sort_plain(k, v, b)
     for jj in range(b + 1, q + 1):
-        for d in range(jj - 1, b - 1, -1):
-            kk, vv = bitonic.bitonic_cross_stage_plain(kk, vv, jj, d)
+        for d_hi, d_lo in bitonic.cross_passes(jj, b):
+            kk, vv = bitonic.bitonic_cross_round_plain(kk, vv, jj, d_hi, d_lo)
         kk, vv = bitonic.bitonic_local_merge_plain(kk, vv, jj, b)
     want = _jax_sort(k.numpy(), v.numpy(), block_log2=b)
     _assert_same((kk, vv), want)

@@ -213,13 +213,13 @@ def test_training_step_launches_each_kernel_twice(card, rng):
 # 32-bit words, so kernel and plain version agree bit for bit.
 # ---------------------------------------------------------------------------
 
-PERMUTE = ("expand_rows", "compact_rows", "benes_stage", "benes_local")
+PERMUTE = ("expand_rows", "compact_rows", "benes_outer", "benes_local")
 
 
 def _permute_launches():
     return {"expand_rows": ragged.expand_rows.launches,
             "compact_rows": ragged.compact_rows.launches,
-            "benes_stage": benes.benes_stage.launches,
+            "benes_outer": benes.benes_outer.launches,
             "benes_local": benes.benes_local.launches}
 
 
@@ -231,31 +231,53 @@ def _payload(rng, shape, dtype, dev):
     return torch.from_numpy(a).to(dev)
 
 
+def _benes_kernels_vs_plain(x, tables, s):
+    """Each outer pass, the local pass and the whole network (its launches
+    as the schedule says), both directions, bit for bit."""
+    q = tables.q
+    entry, exit_ = benes.outer_passes(q, min(s, q))
+    for reverse in (False, True):
+        before = _permute_launches()
+        got = benes.apply_benes_(x.clone(), tables, reverse, s)
+        after = _permute_launches()
+        assert torch.equal(got, benes.apply_benes_plain(x, tables, reverse))
+        assert after["benes_outer"] - before["benes_outer"] == len(entry) + len(exit_)
+        assert after["benes_local"] - before["benes_local"] == 1
+        local = benes.benes_local(x.clone(), tables, s, reverse)
+        assert torch.equal(local, benes.benes_local_plain(x, tables, s, reverse))
+        for js in entry + exit_:
+            out = benes.benes_outer(x.clone(), tables, js, reverse)
+            assert torch.equal(out, benes.benes_outer_plain(x, tables, js, reverse)), js
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
 @pytest.mark.parametrize("C", [1, 3])
 @pytest.mark.parametrize("dq", [-2, 0, 3])
 def test_benes_kernels_match_plain(card, rng, dq, C, dtype):
-    """q below, at and above the local block 2^s: every stage kernel, the
-    local pass and the whole network, both directions."""
+    """q below, at and above the local block 2^s on a routed permutation:
+    every outer pass, the local pass and the whole network, both
+    directions, and the network is the permutation."""
     s = benes.LOCAL_LOG2
     q = s + dq
     perm = rng.permutation(1 << q).astype(np.int32)
     tables = benes.tables_from_pair_bits(_native.benes_route(perm), 1 << q, device=card)
     x = _payload(rng, (C, 1 << q), dtype, card)
-    for reverse in (False, True):
-        got = benes.apply_benes(x, tables, reverse)
-        assert torch.equal(got, benes.apply_benes_plain(x, tables, reverse))
-        local = benes.benes_local(x.clone(), tables, s, reverse)
-        assert torch.equal(local, benes.benes_local_plain(x, tables, s, reverse))
-        for j in list(range(q - min(s, q))) + list(range(q + min(s, q) - 1, 2 * q - 1)):
-            st = benes.benes_stage(x.clone(), tables, j, reverse)
-            row = tables.bits[2 * q - 2 - j if reverse else j]
-            ref = benes.benes_stage_plain(x, row, benes.stage_distances(q)[j])
-            assert torch.equal(st, ref), j
+    _benes_kernels_vs_plain(x, tables, s)
     want = torch.empty_like(x)
     want[:, torch.from_numpy(perm).long().to(card)] = x
     assert torch.equal(benes.apply_benes(x, tables), want)
     assert torch.equal(benes.apply_benes(want, tables, reverse=True), x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("q,s", [(15, 15), (16, 15), (18, 9), (20, 9), (12, 6)])
+def test_benes_outer_passes_match_plain(card, rng, q, s, C, dtype):
+    """q - s of 0, 1, 9 and 11 (two outer passes per side), and the
+    smallest local block, on random pair bits (any bits make a network)."""
+    words = rng.integers(0, 1 << 32, size=(2 * q - 1, (1 << q) // 64), dtype=np.uint64)
+    tables = benes.tables_from_pair_bits(words.astype(np.uint32), 1 << q, device=card)
+    _benes_kernels_vs_plain(_payload(rng, (C, 1 << q), dtype, card), tables, s)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
@@ -303,17 +325,32 @@ def test_benes_pair_on_the_card_matches_the_sort_pair(card, rng, compact):
     after = _permute_launches()
     z = tp.nfft_pair_planar(x, pos, batch, plan, **kw)
     assert _rel(z_b, z) <= 1e-6
-    used = ("benes_stage", "benes_local") + (("expand_rows", "compact_rows") if compact else ())
+    used = ("benes_outer", "benes_local") + (("expand_rows", "compact_rows") if compact else ())
     for name in used:
         assert after[name] > before[name], name
 
 
+# pos.grad of the two routes' training steps: the spread kernel's float
+# atomics reorder its sums on every run, so two runs of one route differ by
+# rel-L2 up to 1.2e-6 (30 runs on an H100, tools/probe_route_noise.py)
+POS_GRAD_ROUTES = 3e-6
+
+
 def test_benes_training_step_launches_every_kernel(card, rng):
+    """The Benes route realises the sort route's permutation exactly
+    (slot_values and unslot_values bit for bit), launches every kernel in a
+    training step, and its gradients agree with the sort route's: x.grad
+    to 1e-6, pos.grad to the spread's own run-to-run noise."""
     n = 40000
     pos, _ = points(rng, n, 3)
     plan = tp.build_plan(pos, N=16, m=2, sigma=1.625, window="es").with_benes_tables()
+    plan_s = dataclasses.replace(plan, benes=None)
     assert plan.device == card and plan.benes.q > benes.LOCAL_LOG2
     x = torch.from_numpy(rng.standard_normal((n, 1)).astype(np.float32)).to(card)
+    slots = torch.from_numpy(rng.standard_normal((plan.S * plan.K, 2)).astype(np.float32))
+    slots = slots.to(card)
+    assert torch.equal(binned.slot_values(plan, x), binned.slot_values(plan_s, x))
+    assert torch.equal(binned.unslot_values(plan, slots), binned.unslot_values(plan_s, slots))
     p = torch.from_numpy(pos).to(card)
     x.requires_grad_()
     p.requires_grad_()
@@ -326,10 +363,10 @@ def test_benes_training_step_launches_every_kernel(card, rng):
     assert all(after[k] > before[k] for k in KERNELS + PERMUTE), (before, after)
     gx, gp = x.grad.clone(), p.grad.clone()
     x.grad = p.grad = None
-    z = tp.nfft_pair_planar(x, p, None, dataclasses.replace(plan, benes=None), batch_size=1,
-                            N=16, m=2, sigma=1.625, window="es")
+    z = tp.nfft_pair_planar(x, p, None, plan_s, batch_size=1, N=16, m=2, sigma=1.625,
+                            window="es")
     (z * torch.ones_like(z)).sum().backward()
-    assert _rel(gx, x.grad) <= 1e-6 and _rel(gp, p.grad) <= 1e-6
+    assert _rel(gx, x.grad) <= 1e-6 and _rel(gp, p.grad) <= POS_GRAD_ROUTES
 
 
 # ---------------------------------------------------------------------------
@@ -404,37 +441,51 @@ def test_flat_route_matches_the_dense_route(card, rng, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
+BITONIC = ("bitonic_local_sort", "bitonic_cross_round", "bitonic_local_merge")
+
+
+def _sort_keys(rng, Q, ties):
+    """A permutation, or many ties among small keys and the int32 extremes."""
+    if not ties:
+        return rng.permutation(Q).astype(np.int32)
+    i32 = np.iinfo(np.int32)
+    ext = np.array([i32.min, i32.min + 1, -1, 0, 1, i32.max - 1, i32.max], np.int64)
+    return np.where(rng.random(Q) < 0.5, rng.choice(ext, Q),
+                    rng.integers(-40, 40, Q)).astype(np.int32)
+
+
 @pytest.mark.parametrize("ties", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
-@pytest.mark.parametrize("dq", [-1, 0, 3])
+@pytest.mark.parametrize("dq", [-1, 0, 1, 2, 3, 8])
 def test_bitonic_kernels_match_plain(card, rng, dq, dtype, ties):
-    """q below, at and above the block 2^b: each kernel on its own and the
-    whole sort, against the plain network."""
+    """q below, at and above the block 2^b (2^20 at b = 12): each kernel on its
+    own and the whole sort, against the plain network, with the launches
+    the schedule says."""
     b = bitonic.LOCAL_LOG2
     q = b + dq
     Q = 1 << q
-    keys = rng.integers(-40, 40, Q) if ties else rng.permutation(Q)
-    k = torch.from_numpy(keys.astype(np.int32)).to(card)
+    k = torch.from_numpy(_sort_keys(rng, Q, ties)).to(card)
     v = _payload(rng, (Q,), dtype, card)
-    names = ("bitonic_local_sort", "bitonic_cross_stage", "bitonic_local_merge")
-    before = {n: getattr(bitonic, n).launches for n in names}
+    before = {n: getattr(bitonic, n).launches for n in BITONIC}
     got = bitonic.sort_pairs(k, v)
-    used = {n: getattr(bitonic, n).launches - before[n] for n in names}
+    used = {n: getattr(bitonic, n).launches - before[n] for n in BITONIC}
     want = bitonic.sort_pairs_plain(k, v)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.equal(got[0], torch.sort(k).values)
     bb = min(q, b)
+    rounds = range(bb + 1, q + 1)
     assert used == {"bitonic_local_sort": 1,
-                    "bitonic_cross_stage": (q - bb) * (q - bb + 1) // 2,
+                    "bitonic_cross_round": sum(len(bitonic.cross_passes(jj, bb))
+                                               for jj in rounds),
                     "bitonic_local_merge": q - bb}
     ks, vs = bitonic.bitonic_local_sort(k.clone(), v.clone(), bb)
     kp, vp = bitonic.bitonic_local_sort_plain(k, v, bb)
     assert torch.equal(ks, kp) and torch.equal(vs, vp)
-    for jj in range(bb + 1, q + 1):
-        for d in range(jj - 1, bb - 1, -1):
-            kc, vc = bitonic.bitonic_cross_stage(ks.clone(), vs.clone(), jj, d)
-            kp, vp = bitonic.bitonic_cross_stage_plain(ks, vs, jj, d)
-            assert torch.equal(kc, kp) and torch.equal(vc, vp), (jj, d)
+    for jj in rounds:
+        for d_hi, d_lo in bitonic.cross_passes(jj, bb):
+            kc, vc = bitonic.bitonic_cross_round(ks.clone(), vs.clone(), jj, d_hi, d_lo)
+            kp, vp = bitonic.bitonic_cross_round_plain(ks, vs, jj, d_hi, d_lo)
+            assert torch.equal(kc, kp) and torch.equal(vc, vp), (jj, d_hi, d_lo)
             ks, vs = kc, vc
         km, vm = bitonic.bitonic_local_merge(ks.clone(), vs.clone(), jj, bb)
         kp, vp = bitonic.bitonic_local_merge_plain(ks, vs, jj, bb)
@@ -443,3 +494,18 @@ def test_bitonic_kernels_match_plain(card, rng, dq, dtype, ties):
     if not ties:
         out = bitonic.apply_permutation(k, v)
         assert torch.equal(out, torch.empty_like(v).index_copy_(0, k.long(), v))
+
+
+@pytest.mark.parametrize("b", [8, 9, 14])
+def test_bitonic_block_sizes(card, rng, b, monkeypatch):
+    """The local kernels at the smallest block, the first with 16 words per
+    thread and the largest (128 KB), and a cross tile of 2^10: the sort is
+    the plain network's, ties included."""
+    monkeypatch.setattr(bitonic, "LOCAL_LOG2", b)
+    monkeypatch.setattr(bitonic, "CROSS_LOG2", 10)
+    Q = 1 << 17
+    k = torch.from_numpy(_sort_keys(rng, Q, True)).to(card)
+    v = _payload(rng, (Q,), torch.int32, card)
+    got = bitonic.sort_pairs(k, v)
+    want = bitonic.sort_pairs_plain(k, v)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -47,14 +47,14 @@ _FUNCTIONS = {
     "tnt_expand_rows": [_P] * 4 + [_L] * 2 + [_I] * 4 + [_P],
     # padded, row_start, row_count, out, 3 strides, size, n, S, K, C, device, stream
     "tnt_compact_rows": [_P] * 4 + [_L] * 5 + [_I] * 4 + [_P],
-    # v, stage bits, n, C, d, device, stream
-    "tnt_benes_stage": [_P] * 2 + [_L] + [_I] * 3 + [_P],
+    # v, bits, n, C, q, j0, j1, reverse, tile_log2, device, stream
+    "tnt_benes_outer": [_P] * 2 + [_L] + [_I] * 7 + [_P],
     # v, bits, n, C, q, s, reverse, device, stream
     "tnt_benes_local": [_P] * 2 + [_L] + [_I] * 5 + [_P],
     # keys, vals, n, b, device, stream
     "tnt_bitonic_local_sort": [_P] * 2 + [_L] + [_I] * 2 + [_P],
-    # keys, vals, n, jj, d, device, stream
-    "tnt_bitonic_cross_stage": [_P] * 2 + [_L] + [_I] * 3 + [_P],
+    # keys, vals, n, jj, d_hi, d_lo, tile_log2, device, stream
+    "tnt_bitonic_cross_round": [_P] * 2 + [_L] + [_I] * 5 + [_P],
     # keys, vals, n, jj, b, device, stream
     "tnt_bitonic_local_merge": [_P] * 2 + [_L] + [_I] * 3 + [_P],
 }

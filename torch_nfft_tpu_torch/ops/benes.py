@@ -18,13 +18,15 @@ thread indexes them directly, so the TPU's one-word-per-element layout
 (``pack_masks``, ``expand_pair_bits``) has no counterpart here.
 
 ``apply_benes`` replaces the TPU kernel ``ops/pallas/benes.py:apply_benes``
-with two kernels in ``csrc/permute.cu``: ``benes_stage`` (one stage of
-distance >= 2^LOCAL_LOG2 over the whole array) and ``benes_local`` (every
-stage below, on blocks of 2^LOCAL_LOG2 elements in shared memory). Both
-launch once per stage or pass over all C columns of a (C, 2^q) array, and
-move 32-bit words: float32 and int32 payloads alike, exact to the bit.
-Each wrapper launches its kernel for CUDA tensors, or raises; it takes the
-plain version only for CPU tensors. ``launches`` counts the launches.
+with two kernels in ``csrc/permute.cu``: ``benes_outer`` (a run of
+consecutive stages of distance >= 2^LOCAL_LOG2 in one pass over the whole
+array: one pass per side where a tile of 2^OUTER_LOG2 words holds them,
+:func:`outer_passes`) and ``benes_local`` (every stage below, on blocks of
+2^LOCAL_LOG2 elements). Both launch once per pass over all C columns of a
+(C, 2^q) array, and move 32-bit words: float32 and int32 payloads alike,
+exact to the bit. Each wrapper launches its kernel for CUDA tensors, or
+raises; it takes the plain version only for CPU tensors. ``launches``
+counts the launches.
 """
 
 from __future__ import annotations
@@ -56,15 +58,22 @@ __all__ = [
     "plan_benes_tables",
     "apply_benes",
     "apply_benes_plain",
-    "benes_stage",
+    "outer_passes",
+    "benes_outer",
+    "benes_outer_plain",
     "benes_stage_plain",
     "benes_local",
     "benes_local_plain",
 ]
 
-# stages of distance < 2^LOCAL_LOG2 run fused in shared memory: 2^15 words
-# (128 KB) per block
-LOCAL_LOG2 = 15
+# Stages of distance < 2^LOCAL_LOG2 run in one local pass on blocks of 2^13
+# words (32 KB of shared memory beside 12.5 KB of pair bits, two blocks an
+# SM); an outer pass takes tiles of 2^OUTER_LOG2 words and runs at most
+# OUTER_LOG2 - 5 stages (its rows hold 32 columns at least). Of blocks of
+# 2^13 to 2^15 and tiles of 2^13 and 2^14, this pair ran the 2^24 network
+# fastest on an H100 (chip_smoke.py phase 6b), two outer passes a side.
+LOCAL_LOG2 = 13
+OUTER_LOG2 = 13
 CACHE_ENV = "TORCH_NFFT_TPU_TORCH_BENES_CACHE"
 
 
@@ -371,7 +380,8 @@ def _stage_bits(words: torch.Tensor) -> torch.Tensor:
 
 
 def benes_stage_plain(v: torch.Tensor, words: torch.Tensor, d: int) -> torch.Tensor:
-    """Plain version of :func:`benes_stage` (returns a new array)."""
+    """One stage at distance 2^d on (C, n) values, driven by its (n/64,)
+    bit words (returns a new array): the plain network's building block."""
     C, n = v.shape
     sel = _stage_bits(words).reshape(n >> (d + 1), 1, 1 << d)
     v4 = v.reshape(C, n >> (d + 1), 2, 1 << d)
@@ -421,30 +431,57 @@ def _stream(v: torch.Tensor) -> tuple:
     return v.device.index or 0, torch.cuda.current_stream(v.device).cuda_stream
 
 
-def benes_stage(v: torch.Tensor, tables: BenesTables, j: int,
-                reverse: bool = False) -> torch.Tensor:
-    """Network stage at position ``j`` (distance 2^stage_distances(q)[j])
-    on (C, 2^q) values, in place on CUDA tensors; returns the result."""
-    _check_apply(v, tables)
+def outer_passes(q: int, s: int) -> tuple[list[range], list[range]]:
+    """Network positions of the outer passes, entry side and exit side: the
+    q-s stages of each side in as few runs as hold at most OUTER_LOG2 - 5
+    stages each, of near-equal length."""
+    r = q - s
+    if r <= 0:
+        return [], []
+    n_pass = -(-r // (OUTER_LOG2 - 5))
+    cuts = [0]
+    for i in range(n_pass):
+        cuts.append(cuts[-1] + (r + i) // n_pass)  # smallest parts first
+    entry = [range(a, b) for a, b in zip(cuts, cuts[1:])]
+    exit_ = [range(2 * q - 1 - b, 2 * q - 1 - a) for a, b in zip(cuts, cuts[1:])][::-1]
+    return entry, exit_
+
+
+def benes_outer_plain(v: torch.Tensor, tables: BenesTables, js: range,
+                      reverse: bool = False) -> torch.Tensor:
+    """Plain version of :func:`benes_outer`: the stages at positions ``js``
+    one after another (returns a new array)."""
     q = tables.q
-    words = tables.bits[_bit_row(q, j, reverse)]
-    d = stage_distances(q)[j]
-    if not _route(v):
-        return benes_stage_plain(v, words, d)
-    check(library().tnt_benes_stage(v.data_ptr(), words.data_ptr(), tables.n,
-                                    v.shape[0], d, *_stream(v)))
-    benes_stage.launches += 1
+    ds = stage_distances(q)
+    for j in js:
+        v = benes_stage_plain(v, tables.bits[_bit_row(q, j, reverse)], ds[j])
     return v
 
 
-benes_stage.launches = 0
-
-
-def benes_local(v: torch.Tensor, tables: BenesTables, s: int = LOCAL_LOG2,
+def benes_outer(v: torch.Tensor, tables: BenesTables, js: range,
                 reverse: bool = False) -> torch.Tensor:
-    """Every stage of distance < 2^s (all of them when q <= s) on (C, 2^q)
-    values, block by block in shared memory, in place on CUDA tensors;
-    returns the result."""
+    """The consecutive outer stages at network positions ``js`` (one side's,
+    distances >= 2^5) on (C, 2^q) values in one pass, in place on CUDA
+    tensors; returns the result."""
+    _check_apply(v, tables)
+    if not _route(v):
+        return benes_outer_plain(v, tables, js, reverse)
+    check(library().tnt_benes_outer(v.data_ptr(), tables.bits.data_ptr(), tables.n,
+                                    v.shape[0], tables.q, js.start, js.stop - 1,
+                                    int(reverse), OUTER_LOG2, *_stream(v)))
+    benes_outer.launches += 1
+    return v
+
+
+benes_outer.launches = 0
+
+
+def benes_local(v: torch.Tensor, tables: BenesTables, s: int | None = None,
+                reverse: bool = False) -> torch.Tensor:
+    """Every stage of distance < 2^s (all of them when q <= s; s defaults to
+    LOCAL_LOG2) on (C, 2^q) values, block by block, in place on CUDA
+    tensors; returns the result."""
+    s = LOCAL_LOG2 if s is None else s
     _check_apply(v, tables)
     if not _route(v):
         return benes_local_plain(v, tables, s, reverse)
@@ -460,20 +497,22 @@ benes_local.launches = 0
 
 
 def apply_benes_(v: torch.Tensor, tables: BenesTables, reverse: bool = False,
-                 s: int = LOCAL_LOG2) -> torch.Tensor:
+                 s: int | None = None) -> torch.Tensor:
     """:func:`apply_benes` on (C, 2^q) values, in place on CUDA tensors:
-    the q-s outer stages one launch each, the middle in one local pass, the
-    q-s outer stages again."""
+    the entry side's outer stages in one pass, the middle (distances below
+    2^s, s defaulting to LOCAL_LOG2) in one local pass, the exit side's
+    outer stages in one pass (more outer passes where a side has more
+    stages than a tile holds)."""
+    s = LOCAL_LOG2 if s is None else s
     _check_apply(v, tables)
     if not _route(v):
         return apply_benes_plain(v, tables, reverse)
-    q = tables.q
-    mid = _middle(q, min(s, q))
-    for j in range(mid.start):
-        v = benes_stage(v, tables, j, reverse)
+    entry, exit_ = outer_passes(tables.q, min(s, tables.q))
+    for js in entry:
+        v = benes_outer(v, tables, js, reverse)
     v = benes_local(v, tables, s, reverse)
-    for j in range(mid.stop, 2 * q - 1):
-        v = benes_stage(v, tables, j, reverse)
+    for js in exit_:
+        v = benes_outer(v, tables, js, reverse)
     return v
 
 

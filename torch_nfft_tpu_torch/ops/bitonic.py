@@ -7,14 +7,16 @@ Q = 2^q elements, rounds jj = 1..q, in round jj stages d = jj-1..0 that
 compare-exchange the pairs (i, i ^ 2^d), descending iff bit jj of i is set,
 with ``swap = (key_lo > key_hi) XOR desc`` for both members. Tied keys
 therefore land exactly where the JAX kernels put them, and the output,
-values included, equals theirs bit for bit for any block size.
+values included, equals theirs bit for bit for any schedule.
 
 The schedule runs the network on blocks of 2^b elements (``csrc/bitonic.cu``):
-``bitonic_local_sort`` (rounds 1..b in shared memory), then per round jj > b
-``bitonic_cross_stage`` for each distance >= 2^b and ``bitonic_local_merge``
-for the stages below. b = min(q, block_log2, LOCAL_LOG2): the JAX
-default block (2^18, a TPU VMEM size) is larger than a Hopper block's
-shared memory, so the card's own LOCAL_LOG2 caps it.
+``bitonic_local_sort`` (rounds 1..b), then per round jj > b the stages of
+distance >= 2^b in one ``bitonic_cross_round`` pass (or as few as the tile
+of 2^CROSS_LOG2 elements allows, :func:`cross_passes`) and
+``bitonic_local_merge`` for the stages below. b = min(q, LOCAL_LOG2,
+max(block_log2, 8)): the JAX default block (2^18, a TPU VMEM size) is
+larger than a Hopper block's shared memory, so the card's own LOCAL_LOG2
+caps it, and the card's kernels take no block below 2^8.
 
 Keys are int32; values any 32-bit word (float32 or int32), moved unchanged.
 Each wrapper launches its kernel for CUDA tensors, in place, or raises; it
@@ -34,16 +36,24 @@ __all__ = [
     "sort_pairs",
     "apply_permutation",
     "sort_pairs_plain",
+    "CROSS_LOG2",
+    "cross_passes",
     "bitonic_local_sort",
-    "bitonic_cross_stage",
+    "bitonic_cross_round",
     "bitonic_local_merge",
     "bitonic_local_sort_plain",
-    "bitonic_cross_stage_plain",
+    "bitonic_cross_round_plain",
     "bitonic_local_merge_plain",
 ]
 
-# blocks of 2^13 keys and values, 64 KB of shared memory
-LOCAL_LOG2 = 13
+# Blocks of the local sort and merges, and tiles of a cross pass: 2^12
+# keys and values (32 KB of shared memory, 256 threads of 16 each, two
+# blocks an SM). A cross pass runs at most CROSS_LOG2 - 5 stages (its rows
+# hold 32 columns at least). Of blocks and tiles of 2^11 to 2^14, 2^12 sorted
+# 2^24 keys fastest on an H100 (chip_smoke.py phase 6b); at 2^14 a thread's
+# 32 keys and values spill registers.
+LOCAL_LOG2 = 12
+CROSS_LOG2 = 12
 _TINY_LOG2 = 8  # below 2^8 elements the JAX function sorts without a kernel
 
 
@@ -88,9 +98,13 @@ def bitonic_local_sort_plain(k: torch.Tensor, v: torch.Tensor, b: int):
     return k, w.view(v.dtype)
 
 
-def bitonic_cross_stage_plain(k: torch.Tensor, v: torch.Tensor, jj: int, d: int):
-    """Plain version of :func:`bitonic_cross_stage` (returns new tensors)."""
-    k, w = _stage_plain(k, _words(v), jj, d)
+def bitonic_cross_round_plain(k: torch.Tensor, v: torch.Tensor, jj: int, d_hi: int,
+                              d_lo: int):
+    """Plain version of :func:`bitonic_cross_round`: the stages d_hi..d_lo of
+    round jj one after another (returns new tensors)."""
+    w = _words(v)
+    for d in range(d_hi, d_lo - 1, -1):
+        k, w = _stage_plain(k, w, jj, d)
     return k, w.view(v.dtype)
 
 
@@ -141,18 +155,33 @@ def bitonic_local_sort(k: torch.Tensor, v: torch.Tensor, b: int):
 bitonic_local_sort.launches = 0
 
 
-def bitonic_cross_stage(k: torch.Tensor, v: torch.Tensor, jj: int, d: int):
-    """Stage d (2^d >= the block) of round jj over the whole array, in place
-    on CUDA tensors; returns (k, v)."""
+def bitonic_cross_round(k: torch.Tensor, v: torch.Tensor, jj: int, d_hi: int,
+                        d_lo: int):
+    """Stages d_hi..d_lo (2^d_lo >= the block) of round jj over the whole
+    array in one pass, in place on CUDA tensors; returns (k, v)."""
     _check_pairs(k, v)
     if not _route(k):
-        return bitonic_cross_stage_plain(k, v, jj, d)
-    check(library().tnt_bitonic_cross_stage(*_kernel_args(k, v), jj, d, *_stream(k)))
-    bitonic_cross_stage.launches += 1
+        return bitonic_cross_round_plain(k, v, jj, d_hi, d_lo)
+    check(library().tnt_bitonic_cross_round(*_kernel_args(k, v), jj, d_hi, d_lo,
+                                            CROSS_LOG2, *_stream(k)))
+    bitonic_cross_round.launches += 1
     return k, v
 
 
-bitonic_cross_stage.launches = 0
+bitonic_cross_round.launches = 0
+
+
+def cross_passes(jj: int, b: int) -> list[tuple[int, int]]:
+    """The (d_hi, d_lo) passes that run round jj's stages jj-1..b: as few as
+    hold at most CROSS_LOG2 - 5 stages each, of near-equal length."""
+    r = jj - b
+    n_pass = -(-r // (CROSS_LOG2 - 5))
+    out, d_hi = [], jj - 1
+    for i in range(n_pass):
+        size = (r + i) // n_pass  # the near-equal parts of r, smallest first
+        out.append((d_hi, d_hi - size + 1))
+        d_hi -= size
+    return out
 
 
 def bitonic_local_merge(k: torch.Tensor, v: torch.Tensor, jj: int, b: int):
@@ -181,12 +210,12 @@ def sort_pairs(keys: torch.Tensor, vals: torch.Tensor, *, block_log2: int = 18,
     if q < _TINY_LOG2:
         sk, idx = torch.sort(keys, stable=True)
         return sk, vals[idx]
-    b = min(q, block_log2, LOCAL_LOG2)
+    b = min(q, LOCAL_LOG2, max(block_log2, _TINY_LOG2))
     k, v = keys.clone(), vals.clone()
     k, v = bitonic_local_sort(k, v, b)
     for jj in range(b + 1, q + 1):
-        for d in range(jj - 1, b - 1, -1):
-            k, v = bitonic_cross_stage(k, v, jj, d)
+        for d_hi, d_lo in cross_passes(jj, b):
+            k, v = bitonic_cross_round(k, v, jj, d_hi, d_lo)
         k, v = bitonic_local_merge(k, v, jj, b)
     return k, v
 
