@@ -8,8 +8,9 @@ router with g++. Builds the headline plan on the device and on the host
 (checked against each other field by field), routes the host plan's Benes
 tables cold, holds each kernel against its plain PyTorch version at the
 headline shapes (the position-gradient kernel with both of its weightings;
-the permutation kernels bit for bit, also at q = 20), runs the NDFT
-accuracy gates, then runs the headline adjoint+forward pair (3D, N=256,
+the permutation kernels bit for bit, also at q = 20 with rows of K = 8,
+128 and 1024), runs the NDFT accuracy gates, then runs the headline
+adjoint+forward pair (3D, N=256,
 n=2^24 points in [-1/4, 1/4)^3, es window, m=2, sigma=1.625) through the
 port's public entry points, checks the kernels were launched on that path
 and the adjoint at 96 sampled frequencies against the direct sum. Then a
@@ -29,8 +30,10 @@ three kernels (B8) run through ``sort_pairs``/``apply_permutation`` at 2^24
 and are held against the plain network bit for bit, call by call. Last it
 times each kernel with CUDA events beside its bound, its plain version and
 one PyTorch call of the same function where there is one (the sort's
-kernels call by call along its schedule), times the sort and the Benes
-network with other block and tile sizes, times the pair stage by stage on
+kernels call by call along its schedule; the ragged row passes also at C = 8
+in the layouts the slot permutations pass them), times the sort, the Benes
+network and the ragged passes with other block, tile and row-group sizes
+(each bitwise equal to the defaults), times the pair stage by stage on
 every route (the stages ``nfft_pair_planar`` runs) and reads the device's
 busy share of three traced pairs and three traced steps with
 ``torch.profiler``.
@@ -587,28 +590,44 @@ def main() -> int:
             want = torch.empty_like(v20)
             want[:, torch.from_numpy(perm20).long().to(dev)] = v20
             same("benes_outer", benes.apply_benes(v20, t20), want)
-            cnt = torch.from_numpy(rng.integers(0, 129, size=12000).astype(np.int32)).to(dev)
-            rs20 = ragged.row_start_from_counts(cnt)
-            n20 = int(cnt.sum())
-            st = torch.from_numpy(rng.standard_normal((C, n20 + 256)).astype(np.float32)).to(dev)
-            same("expand_rows", ragged.expand_rows(st, rs20, cnt, 128),
-                 ragged.expand_rows_plain(st, rs20, cnt, 128))
-            pd = torch.from_numpy(rng.standard_normal((C, 12000, 128)).astype(np.float32)).to(dev)
-            same("compact_rows", ragged.compact_rows(pd, rs20, cnt, n20),
-                 ragged.compact_rows_plain(pd, rs20, cnt, n20, -(-n20 // 128) * 128))
-        del t20, v20, want, st, pd
+            # ~2^q20 filled lanes in rows of K, a run of empty rows across
+            # a row-group boundary; the stream of exactly n words (no
+            # spare tail); compaction of contiguous rows and, at C > 1, of
+            # unslot_values's (S*K, C) slot array (the slab layout)
+            for K in (8, 128, 1024):
+                S20 = (2 << q20) // K + 5
+                counts = rng.integers(0, K + 1, size=S20).astype(np.int32)
+                counts[:3] = counts[-3:] = 0
+                r_g = ragged.rows_per_group(K)
+                counts[max(0, r_g - 2):r_g + 2] = 0
+                cnt = torch.from_numpy(counts).to(dev)
+                rs20 = ragged.row_start_from_counts(cnt)
+                n20 = int(counts.sum())
+                st = torch.from_numpy(rng.standard_normal((C, n20)).astype(np.float32)).to(dev)
+                for stv in (st, st.view(torch.int32)):
+                    same("expand_rows", ragged.expand_rows(stv, rs20, cnt, K),
+                         ragged.expand_rows_plain(stv, rs20, cnt, K))
+                flat = torch.from_numpy(rng.standard_normal((S20 * K, C)).astype(
+                    np.float32)).to(dev)
+                for pd in (flat.T.contiguous().reshape(C, S20, K), flat.T.reshape(C, S20, K)):
+                    for size in (None, n20 + 9000):
+                        got = ragged.compact_rows(pd, rs20, cnt, n20, size=size)
+                        same("compact_rows", got,
+                             ragged.compact_rows_plain(pd, rs20, cnt, n20, got.shape[1]))
+                assert C == 1 or ragged.compact_layout(flat.T.reshape(C, S20, K)) == "slab"
+        del t20, v20, want, st, flat, pd, got
         print(f"q={q20}, C=1 and 3, float32 and int32: every outer pass, the local pass "
-              f"and the network (both directions), expand and compact: bitwise equal")
+              f"and the network (both directions); expand and compact at K=8, 128, 1024 "
+              f"(~2^{q20} filled lanes, contiguous rows and the transposed slot array, "
+              f"with and without a zero tail): bitwise equal")
         # the headline: the network, the ragged passes on the plan's rows
         rs_h = ragged.row_start_from_counts(plan.row_count)
         xb = torch.zeros((1, bt.n), device=dev)
         xb[:, :n] = x.T
         network_cases(bt, xb)
-        net_out = benes.apply_benes(xb, bt)
-        need = ((n - 1) // plan.K + 2) * plan.K
-        stream_h = torch.nn.functional.pad(net_out, (0, max(0, need - bt.n)))
-        same("expand_rows", ragged.expand_rows(stream_h, rs_h, plan.row_count, plan.K),
-             ragged.expand_rows_plain(stream_h, rs_h, plan.row_count, plan.K))
+        net_out = benes.apply_benes(xb, bt)  # slot_values expands it as it is
+        same("expand_rows", ragged.expand_rows(net_out, rs_h, plan.row_count, plan.K),
+             ragged.expand_rows_plain(net_out, rs_h, plan.row_count, plan.K))
         rows_h = vals.reshape(1, plan.S, plan.K)
         same("compact_rows", ragged.compact_rows(rows_h, rs_h, plan.row_count, n, size=bt.n),
              ragged.compact_rows_plain(rows_h, rs_h, plan.row_count, n, bt.n))
@@ -617,7 +636,7 @@ def main() -> int:
         assert torch.equal(unslot_values(plan_b, vals.T), x), "Benes unslot_values != x"
         print(f"headline (q={bt.q}, C=1): network, expand, compact bitwise equal to plain; "
               "Benes slot_values == sort slot_values and unslot_values(slot) == x, bitwise")
-        del xb, net_out, stream_h, sv_b
+        del xb, net_out, sv_b
 
     x8 = torch.randn((n, C_WIDE), device=dev, generator=gen)
     with Phase("3c per-row spread kernel (B7) vs plain"):
@@ -968,21 +987,33 @@ def main() -> int:
         # inputs of the permutation kernels at the headline, and the index
         # maps of one index_select computing the same function
         rs_h = ragged.row_start_from_counts(plan.row_count)
-        need = ((n - 1) // plan.K + 2) * plan.K
-        stream_h = torch.zeros((1, max(need, bt.n)), device=dev)
-        stream_h[:, :n] = torch.randn((1, n), device=dev, generator=gen)
-        stream_h = stream_h[:, :need]
-        rows_h = slot_values(plan, x).reshape(1, plan.S, plan.K)
         v_h = torch.randn((1, bt.n), device=dev, generator=gen)
         work = v_h.clone()
-        map_e = source_map(lambda r: ragged.expand_rows(
-            torch.nn.functional.pad(r[:n], (0, need - n))[None], rs_h, plan.row_count,
-            plan.K), n, dev)
-        ext_e = torch.cat([torch.zeros((1, 1), device=dev), stream_h[:, :n]], 1)
+        # the ragged passes in the layouts slot_values and unslot_values pass
+        # them at C = 1 and C_WIDE: the network's (C, 2^q) output, and the
+        # (S*K, C) slot array seen as (C, S, K) (contiguous rows at C = 1,
+        # the slab at C > 1)
+        SK = plan.S * plan.K
+        map_e = source_map(lambda r: ragged.expand_rows(r[None], rs_h, plan.row_count,
+                                                        plan.K), n, dev)
         map_c = source_map(lambda r: ragged.compact_rows(
-            r.reshape(1, plan.S, plan.K), rs_h, plan.row_count, n, size=bt.n),
-            plan.S * plan.K, dev)
-        ext_c = torch.cat([torch.zeros((1, 1), device=dev), rows_h.reshape(1, -1)], 1)
+            r[:, None].T.reshape(1, plan.S, plan.K), rs_h, plan.row_count, n, size=bt.n),
+            SK, dev)
+        ragged_in = {}
+        for C_r in (1, C_WIDE):
+            stream_r = torch.randn((C_r, bt.n), device=dev, generator=gen)
+            slots_r = torch.randn((SK, C_r), device=dev, generator=gen)
+            rows_r = slots_r.T.reshape(C_r, plan.S, plan.K)
+            ragged_in[C_r] = (
+                stream_r, rows_r,
+                torch.cat([torch.zeros((C_r, 1), device=dev), stream_r[:, :n]], 1),
+                torch.cat([torch.zeros((C_r, 1), device=dev), slots_r.T], 1),
+                permute_bounds(C_r, n, plan.S, plan.K, bt.q, s_loc, bt.n, len(entry[0])))
+        stream_h, rows_h, ext_e, ext_c = ragged_in[1][:4]
+        print(f"compact_rows layouts: C=1 {ragged.compact_layout(rows_h)}, C={C_WIDE} "
+              f"{ragged.compact_layout(ragged_in[C_WIDE][1])} (rows per group: "
+              f"{ragged.rows_per_group(plan.K)} at C=1, "
+              f"{ragged.rows_per_group(plan.K, C_WIDE)} in the slab)")
         q = bt.q
         map_s = source_map(lambda r: benes.benes_outer(
             r[None].contiguous(), bt, entry[0]), bt.n, dev) - 1
@@ -1054,6 +1085,27 @@ def main() -> int:
                 "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             })
+        # the ragged passes at C_WIDE columns in the layouts of slot_values
+        # and unslot_values, bitwise against their plain versions
+        stream_r, rows_r, ext_er, ext_cr, bnd_r = ragged_in[C_WIDE]
+        for name, kern, plain, lib in (
+                ("expand_rows",
+                 lambda: ragged.expand_rows(stream_r, rs_h, plan.row_count, plan.K),
+                 lambda: ragged.expand_rows_plain(stream_r, rs_h, plan.row_count, plan.K),
+                 lambda: ext_er.index_select(1, map_e)),
+                ("compact_rows",
+                 lambda: ragged.compact_rows(rows_r, rs_h, plan.row_count, n, size=bt.n),
+                 lambda: ragged.compact_rows_plain(rows_r, rs_h, plan.row_count, n, bt.n),
+                 lambda: ext_cr.index_select(1, map_c))):
+            assert torch.equal(kern(), plain()), f"{name} at C={C_WIDE} differs from plain"
+            ms, plain_ms, lib_ms = time_ms(kern, 10), time_ms(plain, 2), time_ms(lib, 10)
+            b_ms = bnd_r[name][0]
+            print(f"{name} C={C_WIDE}: {ms:.4f} ms (plain {plain_ms:.3f} ms, index_select "
+                  f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms by bytes, {b_ms / ms:.1%} of bound); "
+                  f"bitwise equal to plain")
+            next(r for r in report if r["name"] == name)[f"c{C_WIDE}"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "library_ms": lib_ms}
+        del stream_r, rows_r, ext_er, ext_cr, ragged_in
         # the per-row spread at one column, the tile moves of the flat route
         # (PyTorch index_add_ / indexing over per-row cell indices) at C=8
         ms1 = time_ms(lambda: contract.spread_tiles(plan, vals), 10)
@@ -1091,11 +1143,13 @@ def main() -> int:
               f"forward {net_f:.4f} ms, reverse {net_r:.4f} ms (index_select {net_lib:.4f} ms, "
               f"bound {pb_bounds['apply_benes'][0]:.4f} ms by bytes)")
         for label, p in (("sort", plan), ("Benes", plan_b)):
-            sv = time_ms(lambda: slot_values(p, x), 10)
-            flat = vals.T.contiguous()
-            us = time_ms(lambda: unslot_values(p, flat), 10)
-            print(f"{label} route: slot_values {sv:.4f} ms, unslot_values {us:.4f} ms, "
-                  f"both {sv + us:.4f} ms")
+            for xv in (x, x8):
+                flat = torch.randn((plan.S * plan.K, xv.shape[1]), device=dev, generator=gen)
+                sv = time_ms(lambda: slot_values(p, xv), 10)
+                us = time_ms(lambda: unslot_values(p, flat), 10)
+                print(f"{label} route, C={xv.shape[1]}: slot_values {sv:.4f} ms, unslot_values "
+                      f"{us:.4f} ms, both {sv + us:.4f} ms")
+            del flat
         del stream_h, rows_h, v_h, work, map_e, map_c, map_s, map_l, map_f, ext_e, ext_c
 
     with Phase("6b block sizes"):
@@ -1125,6 +1179,29 @@ def main() -> int:
             for nm, val in zip(names, keep):
                 setattr(mod, nm, val)
         del want_s, want_f, xb
+        # the ragged passes with other row groups, in the layouts of
+        # slot_values and unslot_values at C = 1 and C_WIDE
+        keep = ragged.GROUP_LOG2
+        for C_r in (1, C_WIDE):
+            stream_r = torch.randn((C_r, bt.n), device=dev, generator=gen)
+            rows_r = torch.randn((SK, C_r), device=dev, generator=gen).T.reshape(
+                C_r, plan.S, plan.K)
+            fn_e = lambda: ragged.expand_rows(stream_r, rs_h, plan.row_count, plan.K)  # noqa: E731
+            fn_c = lambda: ragged.compact_rows(rows_r, rs_h, plan.row_count, n,  # noqa: E731
+                                               size=bt.n)
+            want_e, want_c = fn_e(), fn_c()
+            for g in (10, 11, 12, 13, 14):
+                ragged.GROUP_LOG2 = g
+                assert torch.equal(fn_e(), want_e) and torch.equal(fn_c(), want_c), \
+                    f"ragged passes with GROUP_LOG2={g} at C={C_r} differ"
+                layout = ragged.compact_layout(rows_r)
+                rows_c = ragged.rows_per_group(plan.K, C_r if layout == "slab" else 1)
+                print(f"ragged GROUP_LOG2={g} C={C_r}: expand_rows {time_ms(fn_e, 10):.4f} ms "
+                      f"({ragged.rows_per_group(plan.K)} rows a block), compact_rows "
+                      f"{time_ms(fn_c, 10):.4f} ms ({layout}, {rows_c} rows a block), "
+                      f"bitwise equal to the defaults'")
+            ragged.GROUP_LOG2 = keep
+            del stream_r, rows_r, want_e, want_c
 
     with Phase("7 stages and device busy share"):
         reps = 3

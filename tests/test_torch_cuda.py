@@ -280,28 +280,110 @@ def test_benes_outer_passes_match_plain(card, rng, q, s, C, dtype):
     _benes_kernels_vs_plain(_payload(rng, (C, 1 << q), dtype, card), tables, s)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
-@pytest.mark.parametrize("C", [1, 3])
-def test_ragged_kernels_match_plain(card, rng, C, dtype):
-    S, K = 300, 128
+def _ragged_rows(rng, K):
+    """Counts of S rows of at most K lanes, S not a multiple of the row
+    group R: runs of empty rows at both ends and across group boundaries,
+    and rows starting at every residue mod 4."""
+    R = ragged.rows_per_group(K)
+    S = max(3 * R + 5, 41)
     counts = rng.integers(0, K + 1, size=S).astype(np.int32)
-    counts[::7] = 0  # rows with no points, as device plans have
-    n = int(counts.sum())
+    counts[rng.integers(0, S, size=S // 5)] = rng.integers(1, 4, size=S // 5)
+    counts[:3] = counts[-3:] = 0
+    for b in range(R, S, 2 * R):  # every other group boundary
+        counts[max(0, b - 2):b + 2] = 0
+    rs = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    assert set(rs[counts > 0] % 4) == {0, 1, 2, 3} and S % R
+    return counts
+
+
+def _ragged_check(got, ref, name, before):
+    assert torch.equal(got, ref), name
+    assert _permute_launches()[name] == before[name] + 1, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("C", [1, 3, 8])
+@pytest.mark.parametrize("K", [8, 128, 1024])
+def test_ragged_kernels_match_plain(card, rng, K, C, dtype):
+    """expand_rows and compact_rows bit for bit against their plain
+    versions, one launch each: row groups cut mid-run of empty rows, rows
+    at every residue mod 4; expansion from a stream with spare tail, with
+    none, and from a misaligned view; compaction
+    of contiguous rows, of unslot_values's transposed (S*K, C) slot array,
+    of rows with other strides, and of a misaligned view, with the default
+    size and with a zero tail over several tail blocks."""
+    counts = _ragged_rows(rng, K)
+    S, n = counts.size, int(counts.sum())
     cnt = torch.from_numpy(counts).to(card)
     rs = ragged.row_start_from_counts(cnt)
-    stream = _payload(rng, (C, n + 3 * K), dtype, card)
+    big = _payload(rng, (C, n + 3 * K + 1), dtype, card)
+    for stream in (big, big[:, :n].contiguous(), big[:, 1:n + 2]):
+        before = _permute_launches()
+        got = ragged.expand_rows(stream, rs, cnt, K)
+        _ragged_check(got, ragged.expand_rows_plain(stream, rs, cnt, K), "expand_rows",
+                      before)
+        assert bool((got[:, counts == 0] == 0).all())
+    flat = _payload(rng, (S * K + 1, C), dtype, card)
+    layouts = {
+        "contiguous": torch.empty((C, S, K), dtype=dtype, device=card).copy_(
+            flat[1:].T.reshape(C, S, K)),
+        "slot array": flat[:-1].T.reshape(C, S, K),
+        "strided": flat[:-1].reshape(C, K, S).permute(0, 2, 1),
+        "misaligned": flat.T.contiguous().reshape(-1)[1:C * S * K + 1].reshape(C, S, K),
+    }
+    assert ragged.compact_layout(layouts["contiguous"]) == "rows"
+    assert ragged.compact_layout(layouts["slot array"]) == ("slab" if C > 1 else "rows")
+    assert ragged.compact_layout(layouts["strided"]) == "strided"
+    assert ragged.compact_layout(layouts["misaligned"]) == "strided"
+    for label, padded in layouts.items():
+        for size in (None, n + 2 * 8192 + 5):
+            before = _permute_launches()
+            out = ragged.compact_rows(padded, rs, cnt, n, size=size)
+            ref = ragged.compact_rows_plain(padded, rs, cnt, n, out.shape[1])
+            _ragged_check(out, ref, "compact_rows", before)
+            assert bool((out[:, n:] == 0).all()), label
+
+
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("K", [8, 1024])
+def test_ragged_kernels_empty_plan(card, rng, K, C):
+    """A plan whose rows are all empty: expansion gives zeros, compaction
+    only the zero tail."""
+    cnt = torch.zeros(ragged.rows_per_group(K) * 2 + 1, dtype=torch.int32, device=card)
+    rs = ragged.row_start_from_counts(cnt)
+    S = cnt.shape[0]
+    stream = _payload(rng, (C, 16), torch.float32, card)
     got = ragged.expand_rows(stream, rs, cnt, K)
-    assert torch.equal(got, ragged.expand_rows_plain(stream, rs, cnt, K))
-    assert bool((got[:, counts == 0] == 0).all())
-    assert torch.equal(ragged.expand_rows(stream[:, : n + K], rs, cnt, K), got)  # strided
-    padded = _payload(rng, (C, S, K), dtype, card)
-    for size in (None, n + 5 * K):
-        out = ragged.compact_rows(padded, rs, cnt, n, size=size)
-        ref = ragged.compact_rows_plain(padded, rs, cnt, n, out.shape[1])
-        assert torch.equal(out, ref) and bool((out[:, n:] == 0).all())
-    strided = padded.permute(1, 2, 0).contiguous().permute(2, 0, 1)
-    assert torch.equal(ragged.compact_rows(strided, rs, cnt, n),
-                       ragged.compact_rows_plain(padded, rs, cnt, n, -(-n // K) * K))
+    assert got.shape == (C, S, K) and bool((got == 0).all())
+    padded = _payload(rng, (C, S, K), torch.float32, card)
+    for size in (0, 5, 9000):
+        out = ragged.compact_rows(padded, rs, cnt, 0, size=size)
+        assert out.shape == (C, size) and bool((out == 0).all())
+
+
+def test_benes_slot_values_at_k1024_equal_the_sort_route(card, rng):
+    """A plan of 1024 lanes a row (the headline's K): the Benes route's
+    slot_values and unslot_values equal the sort route's bit for bit at 1,
+    3 and 8 columns (unslot_values's slot array is the slab layout at
+    C > 1), and the ragged kernels ran."""
+    n = 60000
+    pos, _ = points(rng, n, 3)
+    plan = tp.build_plan(pos, N=16, m=2, sigma=1.625, window="es", K=1024)
+    plan_b = plan.with_benes_tables()
+    plan_s = dataclasses.replace(plan_b, benes=None)
+    assert plan_b.K == 1024 and plan_b.benes.compact
+    for C in (1, 3, 8):
+        x = _payload(rng, (n, C), torch.float32, card)
+        slots = _payload(rng, (plan.S * plan.K, C), torch.float32, card)
+        before = _permute_launches()
+        got = binned.slot_values(plan_b, x)
+        back = binned.unslot_values(plan_b, slots)
+        after = _permute_launches()
+        assert torch.equal(got, binned.slot_values(plan_s, x))
+        assert torch.equal(back, binned.unslot_values(plan_s, slots))
+        assert torch.equal(binned.unslot_values(plan_b, got.T.contiguous()), x)
+        assert after["expand_rows"] == before["expand_rows"] + 1
+        assert after["compact_rows"] == before["compact_rows"] + 1
 
 
 @pytest.mark.parametrize("compact", [True, False])

@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
+_U = ctypes.c_uint32
 _FUNCTIONS = {
     # (pointers, S, K, C, NT, dim, H, M, m, kind, window floats, device, stream)
     "tnt_spread_tiles_dense": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_I, _P],
@@ -43,10 +44,11 @@ _FUNCTIONS = {
     "tnt_gather_points": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_I, _P],
     # p0, p1, p2 and the derivative factor
     "tnt_pos_grad": [_P] * 7 + [_I] * 9 + [_F] * 4 + [_I, _P],
-    # stream, row_start, row_count, out, ld, L, S, K, C, device, stream
-    "tnt_expand_rows": [_P] * 4 + [_L] * 2 + [_I] * 4 + [_P],
-    # padded, row_start, row_count, out, 3 strides, size, n, S, K, C, device, stream
-    "tnt_compact_rows": [_P] * 4 + [_L] * 5 + [_I] * 4 + [_P],
+    # stream, row_start, row_count, out, ld, L, S, K, C, R, K's divisor, device, stream
+    "tnt_expand_rows": [_P] * 4 + [_L] * 2 + [_I] * 4 + [_U, _I, _I, _P],
+    # padded, row_start, row_count, out, 3 strides, size, n, S, K, C, layout,
+    # R, K's and C's divisors, device, stream
+    "tnt_compact_rows": [_P] * 4 + [_L] * 5 + [_I] * 5 + [_U, _I, _U, _I, _I, _P],
     # v, bits, n, C, q, j0, j1, reverse, tile_log2, device, stream
     "tnt_benes_outer": [_P] * 2 + [_L] + [_I] * 7 + [_P],
     # v, bits, n, C, q, s, reverse, device, stream

@@ -14,13 +14,29 @@
 // element offsets are 64-bit (C * 2^q passes 2^31 at 64 columns of 2^25).
 //
 // Ragged rows. A plan's rows tile the sorted order [0, n) contiguously:
-// row s holds stream positions [rs[s], rs[s] + cnt[s]). The TPU kernels
-// roll a two-block window of the stream per group of rows to align lanes;
-// here one thread per padded element (c, s, k) reads or writes its stream
-// word directly. Reads (expand) and writes (compact) of one row are
-// consecutive words, so a warp's accesses coalesce. Rows never overlap, so
-// the compaction needs no atomics; a row with cnt = 0 expands to zeros and
-// compacts to nothing.
+// row s holds stream positions [rs[s], rs[s] + cnt[s]), rs the exclusive
+// cumsum of cnt. The TPU kernels roll a two-block window of the stream per
+// group of rows to align lanes. Here a block takes a group of R
+// consecutive rows (R*K ~ 2^12 words, ops/ragged.py:rows_per_group), whose
+// filled lanes are one span [rs[s0], rs[s0] + sum cnt) of the stream, and
+// stages that span in shared memory: the rows' starts and counts are read
+// once per block, a lane's row is j >> log2 K for the plans' power-of-two
+// K (a multiply-high for any other K: no division), and every global
+// access is a 16-byte vector except the span's two partial ends.
+//   expand: the span in with 16-byte loads (its partial ends as single
+//   words), the padded rows out with 16-byte stores (a row starts at word
+//   s*K), zeros for lanes >= cnt.
+//   compact: each row's filled lanes in with 16-byte loads (vectors wholly
+//   past cnt are not read), assembled in shared memory at their stream
+//   offsets, the span out with 16-byte stores and its ends as single words,
+//   so no two blocks write one word and no atomics are needed; extra blocks
+//   write the zero tail [n, size). The rows of unslot_values at C > 1 (the
+//   (S*K, C) slot array seen as (C, S, K), strides (1, K*C, C)) are read as
+//   the group's contiguous (R*K, C) slab, all columns in one block, and
+//   transposed in shared memory; other strides read one word at a time.
+// Bound: the n filled words of each column once each way plus the padded
+// side, ~0.04 ms a pass at the 3D headline (n = 2^24, S*K = 20.3 M);
+// chip_smoke.py prints it beside the time.
 //
 // Benes network. n = 2^q elements per column, 2q-1 stages with exchange
 // distances 2^d, d = q-1, ..., 1, 0, 1, ..., q-1. Stage t's pair p joins
@@ -57,10 +73,8 @@
 // tiles of 2^13 (ops/benes.py) the schedule makes five passes (two a side
 // for the 11 outer stages, one local pass), ~0.2 ms at the memory rate; the
 // local pass's 25 stages of shuffles and register exchanges bound it more
-// than its bytes. The ragged passes move the n values once each way plus
-// the padded rows.
-// chip_smoke.py computes the bounds from its run and prints them beside the
-// times.
+// than its bytes. chip_smoke.py computes the bounds from its run and prints
+// them beside the times.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -71,56 +85,247 @@ namespace {
 
 using namespace tnt;
 
-constexpr int kThreads = 256;
+constexpr int kRowThreads = 256;
+// zero-tail words per block of the compaction
+constexpr int kTailWords = 8192;
 
-int blocks_for(int64_t total, int threads) {
-  int64_t b = (total + threads - 1) / threads;
-  if (b > (1 << 30)) b = 1 << 30;  // the kernels loop over the rest
-  return static_cast<int>(b < 1 ? 1 : b);
+// j / d for 0 <= j < 2^31 without a division: (mulhi(j, mul) + j) >> shift,
+// with mul = 0 for a power-of-two d (a shift) and otherwise Granlund and
+// Montgomery's round-up multiplier (ops/ragged.py:fast_divisor).
+struct FastDiv {
+  uint32_t mul;
+  int shift;
+  __device__ __forceinline__ int operator()(int j) const {
+    const uint32_t u = static_cast<uint32_t>(j);
+    return static_cast<int>((__umulhi(u, mul) + u) >> shift);
+  }
+};
+
+// Word offset of p past the 16-byte boundary at or below it.
+__device__ __forceinline__ int lead_of(const void* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
 }
 
-__global__ void expand_rows_kernel(const uint32_t* __restrict__ stream,
-                                   const int* __restrict__ rs,
-                                   const int* __restrict__ cnt,
-                                   uint32_t* __restrict__ out, int64_t ld,
-                                   int S, int K, int C) {
-  const int64_t row_words = static_cast<int64_t>(S) * K;
-  const int64_t total = row_words * C;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t c = i / row_words;
-    const int64_t r = i - c * row_words;
-    const int s = static_cast<int>(r / K);
-    const int k = static_cast<int>(r - static_cast<int64_t>(s) * K);
-    out[i] = k < __ldg(cnt + s) ? __ldg(stream + c * ld + __ldg(rs + s) + k) : 0u;
+__host__ __device__ __forceinline__ int round4(int w) { return (w + 3) & ~3; }
+
+// Shared words of one column's span buffer: the span, its lead and the
+// 16-byte vectors that cover both ends.
+__host__ __device__ __forceinline__ int span_words(int R, int K) { return round4(R * K) + 8; }
+
+// The group's rows [s0, s0 + nr): starts and counts into shared memory, one
+// coalesced read each. Returns the span's first stream word; *len gets its
+// length (rows tile the stream, so the span is the last row's end less it).
+__device__ __forceinline__ int load_group(const int* __restrict__ rs,
+                                          const int* __restrict__ cnt, int s0,
+                                          int nr, int* s_rs, int* s_cnt, int* len) {
+  for (int i = threadIdx.x; i < nr; i += blockDim.x) {
+    s_rs[i] = __ldg(rs + s0 + i);
+    s_cnt[i] = __ldg(cnt + s0 + i);
+  }
+  __syncthreads();
+  *len = s_rs[nr - 1] + s_cnt[nr - 1] - s_rs[0];
+  return s_rs[0];
+}
+
+// dst[j] = value(j) for 0 <= j < len: 16-byte stores where a whole aligned
+// vector lies inside, single words at the two ends (which a neighbouring
+// block may share).
+template <class F>
+__device__ __forceinline__ void write_words(uint32_t* dst, int len, F value) {
+  const int lead = lead_of(dst);
+  const int nv = len > 0 ? (len + lead + 3) >> 2 : 0;
+  uint4* v = reinterpret_cast<uint4*>(dst - lead);
+  for (int i = threadIdx.x; i < nv; i += blockDim.x) {
+    const int j = 4 * i - lead;
+    if (j >= 0 && j + 4 <= len) {
+      v[i] = make_uint4(value(j), value(j + 1), value(j + 2), value(j + 3));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (j + e >= 0 && j + e < len) dst[j + e] = value(j + e);
+      }
+    }
   }
 }
 
-__global__ void compact_rows_kernel(const uint32_t* __restrict__ padded,
-                                    const int* __restrict__ rs,
-                                    const int* __restrict__ cnt,
-                                    uint32_t* __restrict__ out, int64_t sc,
-                                    int64_t ss, int64_t sk, int64_t size,
-                                    int64_t n, int S, int K, int C) {
-  const int64_t row_words = static_cast<int64_t>(S) * K;
-  const int64_t lanes = row_words * C;
-  const int64_t tail = size - n;
-  const int64_t total = lanes + tail * C;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    if (i < lanes) {
-      const int64_t c = i / row_words;
-      const int64_t r = i - c * row_words;
-      const int s = static_cast<int>(r / K);
-      const int k = static_cast<int>(r - static_cast<int64_t>(s) * K);
-      if (k < __ldg(cnt + s)) {
-        out[c * size + __ldg(rs + s) + k] = __ldg(padded + c * sc + s * ss + k * sk);
+// span[lead_of(src) + j] = src[j] for 0 <= j < len: 16-byte loads where a
+// whole aligned vector lies inside, single words at the two ends (nothing
+// outside [src, src + len) is read).
+__device__ __forceinline__ void read_words(uint32_t* span, const uint32_t* src, int len) {
+  const int lead = lead_of(src);
+  const int nv = len > 0 ? (len + lead + 3) >> 2 : 0;
+  const uint4* v = reinterpret_cast<const uint4*>(src - lead);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nv; i += blockDim.x) {
+    const int j = 4 * i - lead;
+    if (j >= 0 && j + 4 <= len) {
+      reinterpret_cast<uint4*>(span)[i] = __ldg(v + i);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (j + e >= 0 && j + e < len) span[4 * i + e] = __ldg(src + j + e);
       }
-    } else {  // the stream's tail beyond n
-      const int64_t j = i - lanes;
-      const int64_t c = j / tail;
-      out[c * size + n + (j - c * tail)] = 0u;
     }
+  }
+}
+
+// dst[0, len) from span, which holds dst's word j at span[lead_of(dst) + j]:
+// the same vectors as write_words, one shared 16-byte load each.
+__device__ __forceinline__ void write_span(uint32_t* dst, int len, const uint32_t* span) {
+  const int lead = lead_of(dst);
+  const int nv = len > 0 ? (len + lead + 3) >> 2 : 0;
+  uint4* v = reinterpret_cast<uint4*>(dst - lead);
+  const uint4* sv = reinterpret_cast<const uint4*>(span);
+  for (int i = threadIdx.x; i < nv; i += blockDim.x) {
+    const int j = 4 * i - lead;
+    if (j >= 0 && j + 4 <= len) {
+      v[i] = sv[i];
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (j + e >= 0 && j + e < len) dst[j + e] = span[4 * i + e];
+      }
+    }
+  }
+}
+
+// Block (g, y): rows [g*R, g*R + R) of columns y, y + gridDim.y, ...
+__global__ void __launch_bounds__(kRowThreads) expand_rows_kernel(
+    const uint32_t* __restrict__ stream, const int* __restrict__ rs,
+    const int* __restrict__ cnt, uint32_t* __restrict__ out, int64_t ld, int S,
+    int K, FastDiv div_k, int R, int C) {
+  extern __shared__ __align__(16) uint32_t rows_smem[];
+  int* s_rs = reinterpret_cast<int*>(rows_smem);
+  int* s_cnt = s_rs + R;
+  uint32_t* span = rows_smem + round4(2 * R);
+  const int s0 = blockIdx.x * R;
+  const int nr = min(R, S - s0);
+  int len;
+  const int a = load_group(rs, cnt, s0, nr, s_rs, s_cnt, &len);
+  for (int c = blockIdx.y; c < C; c += gridDim.y) {
+    const uint32_t* src = stream + c * ld + a;
+    read_words(span, src, len);
+    __syncthreads();
+    const int base = lead_of(src) - a;  // stream word p is span[base + p]
+    uint32_t* dst = out + (static_cast<int64_t>(c) * S + s0) * K;
+    if ((K & 3) == 0) {  // aligned rows: a vector lies in one row
+      for (int i = threadIdx.x; i < (nr * K) >> 2; i += blockDim.x) {
+        const int j = 4 * i, r = div_k(j), k = j - r * K;
+        const int m = s_cnt[r] - k;  // filled lanes of the vector, if > 0
+        const uint32_t* p = span + base + s_rs[r] + k;
+        reinterpret_cast<uint4*>(dst)[i] = make_uint4(
+            m > 0 ? p[0] : 0u, m > 1 ? p[1] : 0u, m > 2 ? p[2] : 0u, m > 3 ? p[3] : 0u);
+      }
+    } else {
+      write_words(dst, nr * K, [&](int j) {
+        const int r = div_k(j), k = j - r * K;
+        return k < s_cnt[r] ? span[base + s_rs[r] + k] : 0u;
+      });
+    }
+    __syncthreads();  // the span is read before the next column's loads
+  }
+}
+
+enum Layout { kRows = 0, kStrided = 1, kSlab = 2 };
+
+// Block (g, y), g < groups: rows [g*R, g*R + R) of columns y, y +
+// gridDim.y, ... (kSlab: of every column, gridDim.y = 1). kRows: each row's
+// K words contiguous and 16-byte aligned (K % 4 == 0); kStrided: any
+// strides; kSlab: strides (1, K*C, C). Blocks g >= groups write the zero
+// tail [n, size) in chunks of kTailWords.
+template <int kLayout>
+__global__ void __launch_bounds__(kRowThreads) compact_rows_kernel(
+    const uint32_t* __restrict__ padded, const int* __restrict__ rs,
+    const int* __restrict__ cnt, uint32_t* __restrict__ out, int64_t sc,
+    int64_t ss, int64_t sk, int64_t size, int64_t n, int S, int K, FastDiv div_k,
+    FastDiv div_c, int R, int C, int groups) {
+  extern __shared__ __align__(16) uint32_t rows_smem[];
+  if (static_cast<int>(blockIdx.x) >= groups) {
+    const int64_t start = n + static_cast<int64_t>(blockIdx.x - groups) * kTailWords;
+    const int len = static_cast<int>(min(static_cast<int64_t>(kTailWords), size - start));
+    for (int c = blockIdx.y; c < C; c += gridDim.y) {
+      write_words(out + c * size + start, len, [](int) { return 0u; });
+    }
+    return;
+  }
+  int* s_rs = reinterpret_cast<int*>(rows_smem);
+  int* s_cnt = s_rs + R;
+  uint32_t* span = rows_smem + round4(2 * R);
+  const int s0 = blockIdx.x * R;
+  const int nr = min(R, S - s0);
+  const int words = nr * K;
+  int len;
+  const int a = load_group(rs, cnt, s0, nr, s_rs, s_cnt, &len);
+  if (kLayout == kSlab) {
+    // the group's (words, C) slab, one contiguous range; a word's column
+    // buffer is span + w * cap, aligned like its output column
+    const int cap = span_words(R, K);
+    const uint32_t* slab = padded + static_cast<int64_t>(s0) * K * C;
+    const int total = words * C;
+    const int lead = lead_of(slab);
+    const int nv = total > 0 ? (total + lead + 3) >> 2 : 0;
+    const uint4* v = reinterpret_cast<const uint4*>(slab - lead);
+    const int64_t out_word = static_cast<int64_t>(reinterpret_cast<uintptr_t>(out) >> 2) + a;
+    for (int i = threadIdx.x; i < nv; i += blockDim.x) {
+      int dst[4];
+      bool any = false;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int f = 4 * i - lead + e;
+        dst[e] = -1;
+        if (f >= 0 && f < total) {
+          const int j = div_c(f), w = f - j * C;
+          const int r = div_k(j), k = j - r * K;
+          if (k < s_cnt[r]) {
+            dst[e] = w * cap + static_cast<int>((out_word + w * size) & 3) + s_rs[r] - a + k;
+            any = true;
+          }
+        }
+      }
+      if (any && 4 * i - lead >= 0 && 4 * i - lead + 4 <= total) {
+        const uint4 x = __ldg(v + i);
+        if (dst[0] >= 0) span[dst[0]] = x.x;
+        if (dst[1] >= 0) span[dst[1]] = x.y;
+        if (dst[2] >= 0) span[dst[2]] = x.z;
+        if (dst[3] >= 0) span[dst[3]] = x.w;
+      } else if (any) {  // a vector the slab only partly covers: its words
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (dst[e] >= 0) span[dst[e]] = __ldg(slab + 4 * i - lead + e);
+        }
+      }
+    }
+    __syncthreads();
+    for (int w = 0; w < C; ++w) write_span(out + w * size + a, len, span + w * cap);
+    return;
+  }
+  for (int c = blockIdx.y; c < C; c += gridDim.y) {
+    uint32_t* dst = out + c * size + a;
+    const int base = lead_of(dst) - a;  // stream word p goes to span[base + p]
+    const uint32_t* col = padded + c * sc + s0 * ss;
+    if (kLayout == kRows) {
+      for (int i = threadIdx.x; i < words >> 2; i += blockDim.x) {
+        const int j = 4 * i;
+        const int r = div_k(j), k = j - r * K;
+        const int m = s_cnt[r] - k;  // filled lanes of the vector, if > 0
+        if (m > 0) {
+          const uint4 x = __ldg(reinterpret_cast<const uint4*>(col + r * ss + k));
+          uint32_t* p = span + base + s_rs[r] + k;
+          p[0] = x.x;
+          if (m > 1) p[1] = x.y;
+          if (m > 2) p[2] = x.z;
+          if (m > 3) p[3] = x.w;
+        }
+      }
+    } else {
+      for (int j = threadIdx.x; j < words; j += blockDim.x) {
+        const int r = div_k(j), k = j - r * K;
+        if (k < s_cnt[r]) span[base + s_rs[r] + k] = __ldg(col + r * ss + k * sk);
+      }
+    }
+    __syncthreads();
+    write_span(dst, len, span);
+    __syncthreads();  // the span is read before the next column's writes
   }
 }
 
@@ -335,31 +540,65 @@ cudaError_t launch_local(uint32_t* v, const uint32_t* bits, int64_t n, int C,
 
 extern "C" {
 
+// Rows of R = rows_per_group (ops/ragged.py) a block; K's divisor
+// (mul_k, shift_k) from fast_divisor.
 int tnt_expand_rows(const void* stream, const int* row_start,
                     const int* row_count, void* out, int64_t ld, int64_t L,
-                    int S, int K, int C, int device, void* strm) {
+                    int S, int K, int C, int R, uint32_t mul_k, int shift_k,
+                    int device, void* strm) {
   (void)L;  // rows read only [0, n) of each column; L >= n is the caller's
+  if (S < 0 || K < 1 || C < 0 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
-  const int64_t total = static_cast<int64_t>(S) * K * C;
-  if (err != cudaSuccess || total == 0) return static_cast<int>(err);
-  expand_rows_kernel<<<blocks_for(total, kThreads), kThreads, 0,
-                       static_cast<cudaStream_t>(strm)>>>(
+  if (err != cudaSuccess || S == 0 || C == 0) return static_cast<int>(err);
+  const size_t smem = sizeof(uint32_t) * (round4(2 * R) + span_words(R, K));
+  err = set_smem(expand_rows_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + R - 1) / R, C < 65535 ? C : 65535);
+  expand_rows_kernel<<<grid, kRowThreads, smem, static_cast<cudaStream_t>(strm)>>>(
       static_cast<const uint32_t*>(stream), row_start, row_count,
-      static_cast<uint32_t*>(out), ld, S, K, C);
+      static_cast<uint32_t*>(out), ld, S, K, FastDiv{mul_k, shift_k}, R, C);
   return static_cast<int>(cudaGetLastError());
 }
 
+// ``layout``: 0 rows (K % 4 == 0, every row 16-byte aligned), 1 any
+// strides, 2 the slab (strides (1, K*C, C)); ops/ragged.py:compact_layout
+// chooses. R rows a block (for the slab, R*K*C ~ the group's words); C's
+// divisor (mul_c, shift_c) serves the slab.
 int tnt_compact_rows(const void* padded, const int* row_start,
                      const int* row_count, void* out, int64_t sc, int64_t ss,
                      int64_t sk, int64_t size, int64_t n, int S, int K, int C,
-                     int device, void* strm) {
+                     int layout, int R, uint32_t mul_k, int shift_k,
+                     uint32_t mul_c, int shift_c, int device, void* strm) {
+  if (S < 0 || K < 1 || C < 0 || R < 1 || size < n || layout < kRows || layout > kSlab) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
-  const int64_t total = (static_cast<int64_t>(S) * K + (size - n)) * C;
-  if (err != cudaSuccess || total == 0) return static_cast<int>(err);
-  compact_rows_kernel<<<blocks_for(total, kThreads), kThreads, 0,
-                        static_cast<cudaStream_t>(strm)>>>(
-      static_cast<const uint32_t*>(padded), row_start, row_count,
-      static_cast<uint32_t*>(out), sc, ss, sk, size, n, S, K, C);
+  const int groups = (S + R - 1) / R;
+  const int64_t tail = (size - n + kTailWords - 1) / kTailWords;
+  if (err != cudaSuccess || C == 0 || groups + tail == 0) return static_cast<int>(err);
+  const int spans = layout == kSlab ? C : 1;
+  const size_t smem = sizeof(uint32_t) *
+      (round4(2 * R) + static_cast<size_t>(spans) * span_words(R, K));
+  const dim3 grid(static_cast<unsigned>(groups + tail),
+                  layout == kSlab ? 1 : (C < 65535 ? C : 65535));
+  const auto st = static_cast<cudaStream_t>(strm);
+  const auto* in = static_cast<const uint32_t*>(padded);
+  auto* o = static_cast<uint32_t*>(out);
+  const FastDiv dk{mul_k, shift_k}, dc{mul_c, shift_c};
+  switch (layout) {
+#define TNT_COMPACT(L)                                                         \
+  case L:                                                                      \
+    err = set_smem(compact_rows_kernel<L>, smem);                              \
+    if (err != cudaSuccess) return static_cast<int>(err);                      \
+    compact_rows_kernel<L><<<grid, kRowThreads, smem, st>>>(                   \
+        in, row_start, row_count, o, sc, ss, sk, size, n, S, K, dk, dc, R, C,  \
+        groups);                                                               \
+    break;
+    TNT_COMPACT(kRows)
+    TNT_COMPACT(kStrided)
+    TNT_COMPACT(kSlab)
+#undef TNT_COMPACT
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -525,14 +525,14 @@ def slot_values(plan: BinnedPlan, x: torch.Tensor) -> torch.Tensor:
         vals.index_copy_(0, plan.inv_slot.to(torch.int64), x)
         return vals.T.contiguous()
     n, C = x.shape
-    v = x.new_zeros((C, bt.n))  # the padding enters the network as zeros
+    v = x.new_empty((C, bt.n))
+    v[:, n:] = 0  # the padding enters the network as zeros
     v[:, :n] = x.T
     out = apply_benes_(v, bt)
     if not bt.compact:
         return out[:, : S * K].contiguous()
-    need = ((n - 1) // K + 2) * K  # the expansion's input length
-    out = out[:, :need] if bt.n >= need else torch.nn.functional.pad(
-        out, (0, need - bt.n))
+    # the expansion reads only the n ranks (the JAX kernel's window read
+    # ((n - 1) // K + 2) * K)
     rs = row_start_from_counts(plan.row_count)
     return expand_rows(out, rs, plan.row_count, K).reshape(C, S * K)
 
@@ -552,7 +552,8 @@ def unslot_values(plan: BinnedPlan, out_flat: torch.Tensor) -> torch.Tensor:
         v = compact_rows(out_flat.T.reshape(C, S, K), rs, plan.row_count, n,
                          size=bt.n)
     else:
-        v = out_flat.new_zeros((C, bt.n))
+        v = out_flat.new_empty((C, bt.n))
+        v[:, S * K:] = 0
         v[:, : S * K] = out_flat.T
     return apply_benes_(v, bt, reverse=True)[:, :n].T.contiguous()
 
