@@ -31,9 +31,15 @@ and are held against the plain network bit for bit, call by call. Last it
 times each kernel with CUDA events beside its bound, its plain version and
 one PyTorch call of the same function where there is one (the sort's
 kernels call by call along its schedule; the ragged row passes also at C = 8
-in the layouts the slot permutations pass them), times the sort, the Benes
-network and the ragged passes with other block, tile and row-group sizes
-(each bitwise equal to the defaults), times the pair stage by stage on
+in the layouts the slot permutations pass them; the two spreads at C = 1 and
+8 also beside the share of the float32 peak their issued flops reach and a
+yardstick for the contraction alone, ``torch.bmm`` of preformed operands
+over every row), times the sort, the Benes network, the ragged passes and
+the spreads' contraction with other block, tile, row-group, chunk and band
+sizes (each bitwise equal to the defaults), holds both spread designs
+against the plain versions on the headline points binned at T = 8 and
+T = 16, times the per-row spread's two designs at T = 8-24 and C = 1-8
+(which set ``contract.DENSE_RATIO_MAX``), times the pair stage by stage on
 every route (the stages ``nfft_pair_planar`` runs) and reads the device's
 busy share of three traced pairs and three traced steps with
 ``torch.profiler``.
@@ -116,9 +122,12 @@ SORT_PATH = ("spread_tiles_dense", "gather_points", "pos_grad")
 BENES_PATH = SORT_PATH + ("expand_rows", "compact_rows", "benes_outer", "benes_local")
 FLAT_PATH = ("spread_tiles", "gather_points", "pos_grad")
 BITONIC = ("bitonic_local_sort", "bitonic_cross_round", "bitonic_local_merge")
-# pos.grad of the Benes and the sort route's training steps: the spread
-# kernel's float atomics reorder its sums on every run, so two runs of one
-# route differ by rel-L2 up to 1.2e-6 (tools/probe_route_noise.py)
+# the spreads (B1, B7) have two designs (contract.spread_design)
+SPREADS = ("spread_tiles_dense", "spread_tiles")
+# pos.grad of the Benes and the sort route's training steps: held to the
+# limit set when the spread's float atomics reordered its sums on every run
+# (two runs of one route differed by rel-L2 up to 1.2e-6,
+# tools/probe_route_noise.py)
 POS_GRAD_ROUTES = 3e-6
 
 
@@ -147,6 +156,17 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
+def rel_l2_rows(a: torch.Tensor, b: torch.Tensor, rows: int = 1024) -> float:
+    """rel_l2 of two large float32 arrays, in float64 a block of rows at a
+    time."""
+    num = den = 0.0
+    for r0 in range(0, a.shape[0], rows):
+        da, db = a[r0:r0 + rows].double(), b[r0:r0 + rows].double()
+        num += float(torch.linalg.vector_norm(da - db)) ** 2
+        den += float(torch.linalg.vector_norm(db)) ** 2
+    return (num / den) ** 0.5
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean milliseconds per call over ``reps`` calls, by CUDA events,
     after one warm-up call."""
@@ -172,10 +192,75 @@ def headline_data(n: int, dev, seed: int = 7):
 def reset_launches() -> None:
     for name, (mod, _, _) in KERNELS.items():
         getattr(mod, name).launches = 0
+    for name in SPREADS:
+        by = getattr(contract, name).launches_by_design
+        for design in by:
+            by[design] = 0
 
 
 def read_launches() -> dict:
     return {name: getattr(mod, name).launches for name, (mod, _, _) in KERNELS.items()}
+
+
+def read_designs() -> dict:
+    """Launches of each spread per design since the last reset_launches."""
+    return {name: dict(getattr(contract, name).launches_by_design) for name in SPREADS}
+
+
+def issued_flops(plan, C: int) -> float:
+    """Flops the contraction design issues for one spread of the plan's n
+    points at C columns: each point's multiply-adds over every row and
+    column of its bands' thread tiles, zero padding included (the operands'
+    formation not counted)."""
+    d = contract.spread_design(plan.dim, plan.H, plan.m, C, name="contraction")
+    return 2.0 * plan.n * d.issued_macs
+
+
+def spread_yardstick(plan, vals, chunk: int = 256) -> float:
+    """ms of the 3D contraction alone by PyTorch calls: torch.bmm of the
+    dense operands, (rows, C*H, K) x (rows, K, H^2) in full float32, over
+    every row of the plan, ``chunk`` rows a call. Each chunk's operands are
+    formed untimed, its bmm timed by CUDA events (mean of 3 after a
+    warm-up), and the chunks' times added. A yardstick only: the port never
+    calls it."""
+    K, H = plan.K, plan.H
+    C = vals.shape[0]
+    keep = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    total = 0.0
+    try:
+        for r0 in range(0, plan.S, chunk):
+            r1 = min(plan.S, r0 + chunk)
+            A, kmask = contract._chunk_inputs(plan, r0, r1)
+            xs = vals[:, r0 * K:r1 * K].reshape(C, r1 - r0, K).permute(1, 0, 2)
+            xs = xs * kmask[:, None]
+            X = (xs[:, :, None, :] * A[:, :, 0].permute(0, 2, 1)[:, None]).reshape(
+                r1 - r0, C * H, K).contiguous()
+            KR = (A[:, :, 1, :, None] * A[:, :, 2, None, :]).reshape(
+                r1 - r0, K, H * H).contiguous()
+            total += time_ms(lambda: torch.bmm(X, KR), 3)
+            del A, kmask, xs, X, KR
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = keep
+    return total
+
+
+def ptxas_report(log: str, kernel: str) -> list:
+    """(mangled name, registers, stack bytes, spill bytes) of each entry
+    function of the nvcc -Xptxas -v log whose name holds ``kernel``."""
+    out, name, stack, spill = [], None, None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "bytes stack frame" in line:
+            nums = [int(tok) for tok in line.replace(",", " ").split() if tok.isdigit()]
+            stack, spill = nums[0], nums[1] + nums[2]
+        elif name and "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split()[0])
+            if kernel in name:
+                out.append((name, regs, stack, spill))
+            name = None
+    return out
 
 
 def train_step(x, pos, w, plan, *, N: int, device=None):
@@ -468,6 +553,13 @@ def main() -> int:
             if "ptxas" in line and ("registers" in line or "Compiling" in line
                                     or "spill" in line or "smem" in line):
                 print("  " + line.strip())
+        if res.log:  # a fresh build: the contraction spread keeps no stack
+            rep_ptx = ptxas_report(res.log, "spread_contract_kernel")
+            for name, regs, stack, spill in rep_ptx:
+                print(f"spread_contract_kernel {name[-60:]}: {regs} registers, "
+                      f"{stack} bytes stack, {spill} bytes spilled")
+            assert rep_ptx and all(st == 0 and sp == 0 for _, _, st, sp in rep_ptx), \
+                "the contraction spread uses stack or spills"
 
     pos, x = headline_data(n, dev)
     pos_np = pos.cpu().numpy()
@@ -519,11 +611,22 @@ def main() -> int:
     with Phase("3 kernels vs plain"):
         vals = slot_values(plan, x)
         tid_spread = dense_tile_ids(plan)
+        reset_launches()
         tiles_k = contract.spread_tiles_dense(plan, vals, tid_spread, plan.NT)
+        designs_b1 = read_designs()["spread_tiles_dense"]
         tiles_p = contract.spread_tiles_dense_plain(plan, vals, tid_spread, plan.NT)
         err["spread_tiles_dense"] = (float((tiles_k - tiles_p).abs().max()),
                                      rel_l2(tiles_k, tiles_p))
-        del tiles_k, tiles_p
+        del tiles_p
+        again = contract.spread_tiles_dense(plan, vals, tid_spread, plan.NT)
+        design_b1 = contract.spread_design(DIM, plan.H, plan.m, 1)
+        print(f"spread_tiles_dense C=1: {design_b1.name} design ({designs_b1}; "
+              f"ratio {design_b1.ratio:.2f}, R={design_b1.R}, "
+              f"KC={design_b1.KC}); two launches "
+              f"bitwise equal: {torch.equal(again, tiles_k)}")
+        assert designs_b1["contraction"] == 1 and torch.equal(again, tiles_k), \
+            "B1 at the headline must run the contraction and repeat bit for bit"
+        del tiles_k, again
         gen = torch.Generator(device=dev).manual_seed(5)
         grid = torch.randn((1, 1) + (plan.M,) * DIM, device=dev, generator=gen)
         tiles = unfold_grid_to_tiles(grid, plan)
@@ -644,16 +747,23 @@ def main() -> int:
         errs = []
         for xc in (x, x8):
             v_e = slot_values(plan_e, xc)
+            reset_launches()
             t_k = contract.spread_tiles(plan_e, v_e)
+            designs = read_designs()["spread_tiles"]
             t_p = contract.spread_tiles_plain(plan_e, v_e)
             errs.append((float((t_k - t_p).abs().max()), rel_l2(t_k, t_p)))
             empty_zero = bool((t_k[-1] == 0).all())
+            del t_p
+            same = torch.equal(contract.spread_tiles(plan_e, v_e), t_k)
             print(f"spread_tiles C={xc.shape[1]} (headline plan + one empty row): kernel vs "
                   f"plain max_abs={errs[-1][0]:.3e} rel_l2={errs[-1][1]:.3e}; "
-                  f"empty row exactly zero: {empty_zero}")
+                  f"empty row exactly zero: {empty_zero}; {designs}; two launches "
+                  f"bitwise equal: {same}")
             assert errs[-1][1] <= 1e-5, f"spread_tiles disagrees: {errs[-1][1]:.3e}"
             assert empty_zero, "the empty row's tile is not zero"
-            del v_e, t_k, t_p
+            assert designs["contraction"] == 1 and same, \
+                "B7 at the headline must run the contraction and repeat bit for bit"
+            del v_e, t_k
         err["spread_tiles"] = tuple(map(max, zip(*errs)))
         del plan_e
 
@@ -745,12 +855,16 @@ def main() -> int:
         reset_launches()
         z, times = timed_pairs(plan)
         launches_pair = read_launches()
+        designs_pair = read_designs()
         t_pair = float(np.median(times[1:]))
         print(f"pair s: first {times[0]:.4f}, then {[round(t, 4) for t in times[1:]]}; "
               f"median {t_pair:.4f} s/pair = {n / t_pair / 1e6:.2f} M points/s")
-        print(f"launches on the pair path (4 pairs): {launches_pair}")
+        print(f"launches on the pair path (4 pairs): {launches_pair}; spread designs "
+              f"{designs_pair['spread_tiles_dense']}")
         assert launches_pair["spread_tiles_dense"] > 0 and launches_pair["gather_points"] > 0, \
             f"a kernel was not launched: {launches_pair}"
+        assert designs_pair["spread_tiles_dense"]["wide"] == 0, \
+            "the headline dense pair must run the contraction design"
         assert tuple(z.shape) == (n, 1) and bool(torch.isfinite(z).all()), "bad pair output"
         rel_h = sampled_frequency_check(plan, pos, x, dev)
         print(f"headline rel_l2 at 96 sampled frequencies: {rel_h:.3e}")
@@ -888,11 +1002,16 @@ def main() -> int:
         reset_launches()
         z8, times = timed_pairs(plan, x8)
         launches_fpair = read_launches()
+        designs_fpair = read_designs()
         t_fpair = float(np.median(times[1:]))
         print(f"C={C_WIDE} pair s: first {times[0]:.4f}, then {[round(t, 4) for t in times[1:]]}; "
               f"median {t_fpair:.4f} s/pair = {C_WIDE * n / t_fpair / 1e6:.2f} M column-points/s "
               f"(one column, dense route: {t_pair:.4f} s/pair = {n / t_pair / 1e6:.2f} M)")
-        print(f"launches on the C={C_WIDE} pair path (4 pairs): {launches_fpair}")
+        print(f"launches on the C={C_WIDE} pair path (4 pairs): {launches_fpair}; spread "
+              f"designs {designs_fpair['spread_tiles']}")
+        assert designs_fpair["spread_tiles"]["wide"] == 0 \
+            and designs_fpair["spread_tiles"]["contraction"] > 0, \
+            f"the C={C_WIDE} flat pair must run the contraction design"
         assert launches_fpair["spread_tiles"] > 0 and launches_fpair["gather_points"] > 0 \
             and launches_fpair["spread_tiles_dense"] == 0, \
             f"the C={C_WIDE} pair did not take the flat route: {launches_fpair}"
@@ -1106,10 +1225,31 @@ def main() -> int:
             next(r for r in report if r["name"] == name)[f"c{C_WIDE}"] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "library_ms": lib_ms}
         del stream_r, rows_r, ext_er, ext_cr, ragged_in
-        # the per-row spread at one column, the tile moves of the flat route
-        # (PyTorch index_add_ / indexing over per-row cell indices) at C=8
+        # the two spreads: their design, the share of the float32 peak the
+        # contraction's issued flops reach, and the yardstick of the
+        # contraction alone (torch.bmm of preformed operands); B7 also at C=1
         ms1 = time_ms(lambda: contract.spread_tiles(plan, vals), 10)
-        print(f"spread_tiles C=1: {ms1:.4f} ms (bound {b_rows[1][0]:.4f} ms by {b_rows[1][1]})")
+        for name, C_s, ms_s, b_s in (
+                ("spread_tiles_dense", 1, None, b_spread),
+                ("spread_tiles", 1, ms1, b_rows[1][0]),
+                ("spread_tiles", C_WIDE, None, b_rows[C_WIDE][0])):
+            entry = next(r for r in report if r["name"] == name)
+            ms_s = entry["ms"] if ms_s is None else ms_s
+            d = contract.spread_design(DIM, plan.H, plan.m, C_s)
+            share = issued_flops(plan, C_s) / (ms_s * 1e-3) / PEAK_F32_FLOPS
+            yard = spread_yardstick(plan, vals if C_s == 1 else vals8)
+            print(f"{name} C={C_s}: {ms_s:.4f} ms, {d.name} design (R={d.R}, KC={d.KC}, "
+                  f"{d.row_bands} band(s) of {d.threads} threads), "
+                  f"{b_s / ms_s:.1%} of its bound; issued flops {issued_flops(plan, C_s):.3e} "
+                  f"= {share:.1%} of the float32 peak; yardstick (contraction alone, "
+                  f"torch.bmm of preformed float32 operands over all {plan.S} rows, "
+                  f"256 a call, times added) {yard:.4f} ms")
+            info = {"design": d.name, "issued_flop_share": share, "yardstick_ms": yard,
+                    "bound_share": b_s / ms_s}
+            if name == "spread_tiles" and C_s == 1:
+                entry["c1"] = {"ms": ms_s, "bound_ms": b_s, **info}
+            else:
+                entry.update(info)
         tiles8 = contract.spread_tiles(plan, vals8)
         g8 = binned.tiles_to_grid(plan, tiles8)
         cells8 = 4 * plan.S * C_WIDE * plan.H**DIM
@@ -1120,7 +1260,7 @@ def main() -> int:
             bound_m = (cells8 + grid8) / PEAK_BYTES_PER_S * 1e3
             print(f"{label} C={C_WIDE}: {ms_m:.4f} ms (bound {bound_m:.4f} ms by bytes: "
                   f"{cells8 / 1e9:.3f} GB of tiles, {grid8 / 1e9:.3f} GB of grid)")
-        del tiles8, g8, vals8, plain_sort
+        del tiles8, g8, plain_sort
         # the whole sort and the permutation, against one PyTorch call each
         dest_l = dest.long()
         for label, fn, plain, lib, lib_name in (
@@ -1202,6 +1342,85 @@ def main() -> int:
                       f"bitwise equal to the defaults'")
             ragged.GROUP_LOG2 = keep
             del stream_r, rows_r, want_e, want_c
+        # the spreads' contraction with other chunk sizes KC and bands of R
+        # rows, each bitwise equal to the defaults'
+        grid_sp = {1: ((8, None), (32, None), (16, 8)),
+                   C_WIDE: ((16, None), (64, None), (32, 104), (32, 40))}
+        for name, C_s, fn in (
+                ("spread_tiles_dense", 1,
+                 lambda d: contract.spread_tiles_dense(plan, vals, tid_spread, plan.NT, d)),
+                ("spread_tiles", 1, lambda d: contract.spread_tiles(plan, vals, d)),
+                ("spread_tiles", C_WIDE, lambda d: contract.spread_tiles(plan, vals8, d))):
+            want = fn(None)
+            for KC_g, R_g in ((None, None),) + grid_sp[C_s]:
+                d = contract.spread_design(DIM, plan.H, plan.m, C_s, KC=KC_g, R=R_g)
+                assert torch.equal(fn(d), want), \
+                    f"{name} C={C_s} with KC={d.KC}, R={d.R} differs from the defaults'"
+                print(f"{name} C={C_s} KC={d.KC} R={d.R} ({d.row_bands} band(s) of "
+                      f"{d.threads} threads, {d.smem} B shared): "
+                      f"{time_ms(lambda: fn(d), 5):.4f} ms, bitwise equal to the defaults'")
+            del want
+        # both designs on the headline points binned at T = 8 (the plan's) and
+        # T = 16, each against the plain version on the same inputs
+        plans_t = {8: plan, 16: tp.build_plan_device(
+            pos, None, N=N, m=M_CUT, sigma=SIGMA, batch_size=1, window=WINDOW, T=16)}
+        for T_t, p_t in plans_t.items():
+            v1, v8, tid_t = slot_values(p_t, x), slot_values(p_t, x8), dense_tile_ids(p_t)
+            for name, C_s, fn, plain in (
+                    ("spread_tiles_dense", 1,
+                     lambda d: contract.spread_tiles_dense(p_t, v1, tid_t, p_t.NT, d),
+                     lambda: contract.spread_tiles_dense_plain(p_t, v1, tid_t, p_t.NT)),
+                    ("spread_tiles", 1, lambda d: contract.spread_tiles(p_t, v1, d),
+                     lambda: contract.spread_tiles_plain(p_t, v1)),
+                    ("spread_tiles", C_WIDE, lambda d: contract.spread_tiles(p_t, v8, d),
+                     lambda: contract.spread_tiles_plain(p_t, v8))):
+                ref = plain()
+                chosen = contract.spread_design(DIM, p_t.H, p_t.m, C_s)
+                line = []
+                for d_name in ("contraction", "wide"):
+                    d = contract.spread_design(DIM, p_t.H, p_t.m, C_s, name=d_name)
+                    out = fn(d)
+                    rel_d = rel_l2_rows(out, ref)
+                    del out
+                    assert rel_d <= 1e-5, f"{name} C={C_s} T={T_t} {d_name}: {rel_d:.3e}"
+                    ms_d = time_ms(lambda: fn(d), 1 if T_t > 8 and C_s > 1 else 3)
+                    line.append(f"{d_name} {ms_d:.4f} ms (vs plain rel_l2={rel_d:.3e})")
+                del ref
+                print(f"{name} C={C_s} at T={T_t} (H={p_t.H}, ratio {chosen.ratio:.2f}, "
+                      f"{p_t.S} rows): {'; '.join(line)}; the rule takes {chosen.name}")
+            del v1, v8, tid_t
+        del plans_t
+        # the per-row spread under both designs at more tile sizes and
+        # columns: the times behind contract.DENSE_RATIO_MAX (the two designs
+        # held against each other)
+        faster = {}
+        for T_t in (8, 10, 12, 16, 20, 24):
+            p_t = plan if T_t == plan.T else tp.build_plan_device(
+                pos, None, N=N, m=M_CUT, sigma=SIGMA, batch_size=1, window=WINDOW, T=T_t)
+            for C_s in (1, 2, 4, C_WIDE):
+                v_t = slot_values(p_t, x8[:, :C_s].contiguous())
+                designs = [contract.spread_design(DIM, p_t.H, p_t.m, C_s, name=d_name)
+                           for d_name in ("contraction", "wide")]
+                times_d = [time_ms(lambda: contract.spread_tiles(p_t, v_t, d),
+                                   3 if T_t * C_s <= 16 else 1) for d in designs]
+                outs = [contract.spread_tiles(p_t, v_t, d) for d in designs]
+                rel_d = rel_l2_rows(outs[0], outs[1])
+                del outs, v_t
+                assert rel_d <= 1e-5, f"the two designs disagree: {rel_d:.3e}"
+                chosen = contract.spread_design(DIM, p_t.H, p_t.m, C_s)
+                won = "contraction" if times_d[0] < times_d[1] else "wide"
+                faster.setdefault(C_s, []).append((chosen.ratio, won))
+                print(f"spread_tiles C={C_s} at T={T_t} (H={p_t.H}, ratio {chosen.ratio:.2f}, "
+                      f"{p_t.S} rows): contraction {times_d[0]:.4f} ms, wide {times_d[1]:.4f} "
+                      f"ms, faster {won}, the rule takes {chosen.name}; designs agree to "
+                      f"rel_l2={rel_d:.3e}")
+            del p_t
+        for C_s, runs in faster.items():
+            won_c = ", ".join(f"{r:.2f}" for r, w in runs if w == "contraction")
+            limit = contract.DENSE_RATIO_MAX[max(c for c in contract.DENSE_RATIO_MAX if c <= C_s)]
+            print(f"C={C_s}: the contraction was faster at ratios [{won_c}]; "
+                  f"contract.DENSE_RATIO_MAX takes it up to {limit}")
+        del vals8
 
     with Phase("7 stages and device busy share"):
         reps = 3

@@ -210,3 +210,131 @@ def test_binned_checks_shapes(rng):
     g = torch.zeros((1, 1, plan.M, plan.M))  # batch 1, the plan has 2
     with pytest.raises(ValueError, match="the grid has shape"):
         pbinned.gather_binned(plan, g)
+
+
+# The spread's design, bands and chunks (ops/contract.py:spread_design), the
+# pure-Python half of the CUDA launch: which design a geometry takes, and
+# bands of rows and columns that cover the tile matrix OUT (C*H rows,
+# H^{dim-1} columns) exactly, in blocks the kernel can launch.
+
+
+@pytest.mark.parametrize("dim,T,m,C,design", [
+    (3, 8, 2, 1, "contraction"),  # the 3D headline: (13 / 6)^3 = 10.2
+    (3, 8, 2, 8, "contraction"),
+    (3, 16, 2, 1, "wide"),  # (21 / 6)^3 = 43
+    (3, 16, 2, 8, "contraction"),
+    (2, 32, 2, 1, "wide"),  # (37 / 6)^2 = 38
+    (2, 32, 2, 8, "contraction"),
+    (3, 32, 3, 1, "wide"),  # (39 / 8)^3 = 116
+    (3, 32, 3, 8, "wide"),
+    (1, 64, 2, 1, "contraction"),  # 69 / 6 = 11.5
+    (1, 64, 2, 8, "contraction"),
+])
+def test_spread_design_by_geometry(dim, T, m, C, design):
+    H, L = T + 2 * m + 1, 2 * m + 2
+    d = pcontract.spread_design(dim, H, m, C)
+    assert d.name == design
+    assert (d.dim, d.H, d.C) == (dim, H, C)
+    assert d.ratio == pytest.approx((H / L) ** dim)
+
+
+def test_spread_design_limit_grows_with_the_columns():
+    """The limit for C is the entry of the largest key at or under C, and
+    never falls as C grows; the forced names override it."""
+    keys = sorted(pcontract.DENSE_RATIO_MAX)
+    assert keys[0] == 1
+    limits = [pcontract.DENSE_RATIO_MAX[k] for k in keys]
+    assert limits == sorted(limits)
+    for C in range(1, 2 * keys[-1] + 1):
+        limit = pcontract.DENSE_RATIO_MAX[max(k for k in keys if k <= C)]
+        for H in range(7, 60):
+            ratio = (H / 6) ** 3
+            want = "contraction" if ratio <= limit else "wide"
+            assert pcontract.spread_design(3, H, 2, C).name == want, (C, H)
+    assert pcontract.spread_design(3, 13, 2, 1, name="wide").name == "wide"
+    assert pcontract.spread_design(3, 59, 2, 1, name="contraction").name == "contraction"
+    with pytest.raises(ValueError, match="unknown spread design"):
+        pcontract.spread_design(3, 13, 2, 1, name="sparse")
+
+
+@pytest.mark.parametrize("KC,R", [(None, None), (8, None), (32, 8), (5, 13)])
+@pytest.mark.parametrize("C", [1, 3, 8, 16])
+@pytest.mark.parametrize("dim,H,m", [(3, 13, 2), (1, 69, 2), (2, 14, 3), (3, 25, 4)])
+def test_spread_bands_cover_the_tile(dim, H, m, C, KC, R):
+    d = pcontract.spread_design(dim, H, m, C, name="contraction", KC=KC, R=R)
+    rows, P = C * H, H ** (dim - 1)
+    row_bands = [(r0, min(r0 + d.R, rows)) for r0 in range(0, rows, d.R)]
+    col_bands = [(p0, min(p0 + d.PB, P)) for p0 in range(0, P, d.PB)]
+    assert (len(row_bands), len(col_bands)) == (d.row_bands, d.col_bands)
+    covered = np.zeros((rows, P), np.int32)
+    for r0, r1 in row_bands:
+        for p0, p1 in col_bands:
+            covered[r0:r1, p0:p1] += 1
+    assert (covered == 1).all()  # every output in exactly one band
+    assert d.KC == (KC or d.KC) and d.KC >= 1 and d.R == (R or d.R)
+    # one thread a TM x TN tile of the band, whole warps, within the limits
+    TM, TN = pcontract.TM, pcontract.TN
+    assert (d.RG, d.CG) == (-(-d.R // TM), -(-d.PB // TN))
+    need = d.RG * d.CG
+    assert d.threads % 32 == 0 and need <= d.threads < need + 32
+    assert d.threads <= pcontract.MAX_THREADS and d.smem <= pcontract.SMEM_MAX
+    if R is None:
+        assert d.threads <= max(pcontract.BAND_THREADS, 32 * -(-d.CG // 32))
+    # the channels a band touches, the chunk buffers and the band's way out
+    # fit the shared memory, and the launch carries the layout whole
+    nch = max(len(range(r0 // H, (min(r0 + d.R, rows) - 1) // H + 1)) for r0 in range(0, rows, d.R))
+    assert d.NCH == nch and d.buf % 4 == 0
+    assert d.buf >= d.KC * (d.RG * TM + d.CG * TN + dim * H + 2 + dim + d.NCH)
+    assert d.smem >= 4 * max(2 * (d.RG * TM + d.CG * TN) + 2 * d.buf, d.R * d.PB + 4)
+    assert d.layout() == (TM, TN, d.R, d.PB, d.KC, d.RG, d.CG, d.row_bands, d.col_bands,
+                          d.NCH, d.buf, d.threads, d.smem)
+    assert d.issued_macs == d.row_bands * d.RG * TM * d.col_bands * d.CG * TN >= rows * P
+
+
+def test_spread_design_defaults_at_the_headline():
+    """C = 1: one band of 13 rows, 16 points a chunk; C = 8: two bands of 56
+    and 48 rows, 32 points a chunk (8 x 8 outputs a thread)."""
+    d1 = pcontract.spread_design(3, 13, 2, 1)
+    d8 = pcontract.spread_design(3, 13, 2, 8)
+    assert (d1.R, d1.row_bands, d1.KC, d1.threads) == (13, 1, 16, 64)
+    assert (d8.R, d8.row_bands, d8.KC, d8.threads) == (56, 2, 32, 160)
+    assert (d1.PB, d1.col_bands) == (d8.PB, d8.col_bands) == (169, 1)
+    # per point: 16 x 176 multiply-adds at C = 1, 2 x 56 x 176 at C = 8
+    assert (d1.issued_macs, d8.issued_macs) == (16 * 176, 112 * 176)
+
+
+@pytest.mark.parametrize("dim,H,m,C,KC,R,match", [
+    (3, 13, 2, 1, None, 14, "R must be"),
+    (3, 13, 2, 1, 0, None, "KC"),
+    (3, 25, 4, 16, None, 56, "threads a block"),
+    (3, 13, 2, 8, 512, None, "shared memory"),
+])
+def test_spread_design_rejects_what_the_kernel_cannot_launch(dim, H, m, C, KC, R, match):
+    with pytest.raises(ValueError, match=match):
+        pcontract.spread_design(dim, H, m, C, name="contraction", KC=KC, R=R)
+
+
+def test_spread_rejects_a_design_for_another_geometry(rng):
+    """On either device: the design's layout is the kernel's launch."""
+    pos, x, jplan, plan = _setup(rng, 3, 8, 2, 2, "es")
+    vals = pbinned.slot_values(plan, torch.from_numpy(x))
+    other = pcontract.spread_design(3, plan.H + 1, plan.m, vals.shape[0])
+    with pytest.raises(ValueError, match="the design is for"):
+        pcontract.spread_tiles(plan, vals, design=other)
+
+
+def test_cpu_route_counts_no_design(rng, monkeypatch):
+    """The CPU route runs the plain versions: no launch, under either design."""
+    pos, x, jplan, plan = _setup(rng, 3, 8, 2, 2, "es")
+    vals = pbinned.slot_values(plan, torch.from_numpy(x))
+    tid = pbinned.dense_tile_ids(plan)
+    for ratio in (float("inf"), 0.0):
+        monkeypatch.setattr(pcontract, "DENSE_RATIO_MAX", {1: ratio})
+        before = [dict(f.launches_by_design) for f in (pcontract.spread_tiles_dense,
+                                                       pcontract.spread_tiles)]
+        a = pcontract.spread_tiles_dense(plan, vals, tid, plan.NT)
+        b = pcontract.spread_tiles(plan, vals)
+        assert torch.equal(a, pcontract.spread_tiles_dense_plain(plan, vals, tid, plan.NT))
+        assert torch.equal(b, pcontract.spread_tiles_plain(plan, vals))
+        assert before == [f.launches_by_design for f in (pcontract.spread_tiles_dense,
+                                                         pcontract.spread_tiles)]

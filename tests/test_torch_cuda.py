@@ -8,7 +8,10 @@ also runs on a machine with the card and without JAX:
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda.py
 
 Kernel and plain version agree to rel-L2 1e-5: they sum the same float32
-products in another order (the spread kernel in the order of its atomics).
+products in another order (the spread's wide-tile design in the order of its
+atomics). The spread's contraction design sums each output over the points
+in slot order, so two launches, and launches with other chunk and band
+sizes, give the same bits.
 The permutation kernels (ragged rows, Benes network) and the bitonic sort
 move words and agree with their plain versions bit for bit.
 Gradients on the card agree with the same call on the CPU (the plain
@@ -28,6 +31,7 @@ from torch_nfft_tpu_torch.ops import benes, binned, bitonic, contract, ragged
 from torch_nfft_tpu_torch.ops.tilefold import row_tile_ids, unfold_grid_to_tiles
 
 KERNELS = ("spread_tiles_dense", "gather_points", "pos_grad")
+DESIGNS = ("contraction", "wide")
 
 pytestmark = pytest.mark.cuda
 
@@ -48,7 +52,30 @@ def _rel(a, b):
     return float(torch.linalg.vector_norm((a - b).double()) / torch.linalg.vector_norm(b.double()))
 
 
-def _kernels_vs_plain(rng, dev, dim, N, m, sigma, window, n, B, C, K=None, T=None, blob=False):
+def _force_design(monkeypatch, design):
+    """Make every spread take ``design`` (None: the threshold decides)."""
+    if design is not None:
+        ratio = float("inf") if design == "contraction" else 0.0
+        monkeypatch.setattr(contract, "DENSE_RATIO_MAX", {1: ratio})
+
+
+class _Designs:
+    """Counts the launches of ``wrapper`` per design inside a with block."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+
+    def __enter__(self):
+        self.before = dict(self.wrapper.launches_by_design)
+        return self
+
+    def __exit__(self, *exc):
+        self.ran = {k: v - self.before[k] for k, v in self.wrapper.launches_by_design.items()}
+        return False
+
+
+def _kernels_vs_plain(rng, dev, dim, N, m, sigma, window, n, B, C, K=None, T=None, blob=False,
+                      design=None):
     pos, batch = points(rng, n, dim, B)
     if blob:  # crowd the points into a few tiles: many rows per tile
         pos *= 0.1
@@ -57,7 +84,10 @@ def _kernels_vs_plain(rng, dev, dim, N, m, sigma, window, n, B, C, K=None, T=Non
     x = torch.from_numpy(rng.standard_normal((n, C)).astype(np.float32)).to(dev)
     vals = binned.slot_values(plan, x)
     tid = binned.dense_tile_ids(plan)
-    got = contract.spread_tiles_dense(plan, vals, tid, plan.NT)
+    with _Designs(contract.spread_tiles_dense) as ran:
+        got = contract.spread_tiles_dense(plan, vals, tid, plan.NT)
+    if design is not None:
+        assert ran.ran[design] == 1
     ref = contract.spread_tiles_dense_plain(plan, vals, tid, plan.NT)
     torch.cuda.synchronize()
     assert _rel(got, ref) <= 1e-5
@@ -75,6 +105,7 @@ def _kernels_vs_plain(rng, dev, dim, N, m, sigma, window, n, B, C, K=None, T=Non
     return plan
 
 
+@pytest.mark.parametrize("design", DESIGNS)
 @pytest.mark.parametrize(
     "dim,N,m,sigma,window,n,B,C",
     [
@@ -82,10 +113,12 @@ def _kernels_vs_plain(rng, dev, dim, N, m, sigma, window, n, B, C, K=None, T=Non
         (2, 32, 3, 2.0, "es", 5000, 2, 2),
         (3, 16, 2, 1.625, "es", 20000, 1, 1),
         (3, 32, 4, 1.25, "kb", 20000, 2, 3),
+        (3, 16, 2, 1.625, "es", 20000, 1, 8),
     ],
 )
-def test_kernels_match_plain(card, rng, dim, N, m, sigma, window, n, B, C):
-    _kernels_vs_plain(rng, card, dim, N, m, sigma, window, n, B, C)
+def test_kernels_match_plain(card, rng, monkeypatch, dim, N, m, sigma, window, n, B, C, design):
+    _force_design(monkeypatch, design)
+    _kernels_vs_plain(rng, card, dim, N, m, sigma, window, n, B, C, design=design)
 
 
 def test_kernels_multirow_tiles(card, rng):
@@ -96,9 +129,56 @@ def test_kernels_multirow_tiles(card, rng):
 
 def test_spread_tile_beyond_shared_memory(card, rng):
     """T=32, m=3: a 39^3-cell tile (237 KB per channel) exceeds a block's
-    shared memory, so the spread accumulates straight in global memory."""
-    plan = _kernels_vs_plain(rng, card, 3, 32, 3, 2.0, "es", 4000, 1, 1, T=32)
+    shared memory, so the spread accumulates straight in global memory; its
+    window ratio (39/8)^3 = 116 takes the wide-tile design."""
+    plan = _kernels_vs_plain(rng, card, 3, 32, 3, 2.0, "es", 4000, 1, 1, T=32, design="wide")
     assert plan.H**3 * 4 > 232448
+
+
+def _headline_like(rng, dev, C, n=40000, K=None):
+    """A 3D plan binned like the headline (T=8, m=2, es, sigma=1.625: H=13)
+    and slot values of C columns."""
+    pos, batch = points(rng, n, 3, 1)
+    plan = tp.build_plan_device(pos, batch, N=32, m=2, sigma=1.625, batch_size=1, T=8, K=K,
+                                window="es", device=dev)
+    x = torch.from_numpy(rng.standard_normal((n, C)).astype(np.float32)).to(dev)
+    return plan, binned.slot_values(plan, x)
+
+
+@pytest.mark.parametrize("C", [1, 8])
+def test_headline_like_spreads_take_the_contraction(card, rng, C):
+    """3D, T=8, m=2 (the headline's tiles): both spreads run the contraction
+    design and agree with their plain versions."""
+    plan, vals = _headline_like(rng, card, C)
+    assert plan.H == 13
+    tid = binned.dense_tile_ids(plan)
+    with _Designs(contract.spread_tiles_dense) as dense, _Designs(contract.spread_tiles) as rows:
+        got_d = contract.spread_tiles_dense(plan, vals, tid, plan.NT)
+        got_r = contract.spread_tiles(plan, vals)
+    assert dense.ran == rows.ran == {"contraction": 1, "wide": 0}
+    assert _rel(got_d, contract.spread_tiles_dense_plain(plan, vals, tid, plan.NT)) <= 1e-5
+    assert _rel(got_r, contract.spread_tiles_plain(plan, vals)) <= 1e-5
+
+
+@pytest.mark.parametrize("C", [1, 8])
+def test_contraction_spreads_repeat_bit_for_bit(card, rng, C):
+    """Two launches on the same input give the same bits, and so do
+    launches with other chunk and band sizes."""
+    plan, vals = _headline_like(rng, card, C, K=128)
+    tid = binned.dense_tile_ids(plan)
+    runs = {
+        "dense": lambda: contract.spread_tiles_dense(plan, vals, tid, plan.NT),
+        "rows": lambda: contract.spread_tiles(plan, vals),
+    }
+    want = {k: f() for k, f in runs.items()}
+    for k, f in runs.items():
+        assert torch.equal(f(), want[k])
+    for KC, R in ((8, 8), (64, None), (5, 13)):
+        d = contract.spread_design(3, plan.H, plan.m, C, KC=KC, R=R)
+        assert d.name == "contraction"
+        assert torch.equal(contract.spread_tiles_dense(plan, vals, tid, plan.NT, design=d),
+                           want["dense"]), (KC, R)
+        assert torch.equal(contract.spread_tiles(plan, vals, design=d), want["rows"]), (KC, R)
 
 
 def test_entry_points_run_on_the_card_by_default(card, rng):
@@ -412,9 +492,10 @@ def test_benes_pair_on_the_card_matches_the_sort_pair(card, rng, compact):
         assert after[name] > before[name], name
 
 
-# pos.grad of the two routes' training steps: the spread kernel's float
-# atomics reorder its sums on every run, so two runs of one route differ by
-# rel-L2 up to 1.2e-6 (30 runs on an H100, tools/probe_route_noise.py)
+# pos.grad of the two routes' training steps: this test's tiles (T = 16)
+# take the spread's wide-tile design, whose float atomics reorder its sums
+# on every run, so two runs of one route differ by rel-L2 up to 1.2e-6 (30
+# runs on an H100, tools/probe_route_noise.py)
 POS_GRAD_ROUTES = 3e-6
 
 
@@ -457,15 +538,18 @@ def test_benes_training_step_launches_every_kernel(card, rng):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("design", DESIGNS)
 @pytest.mark.parametrize("dim,N,m,sigma,window,n,T", [
     (1, 64, 2, 2.0, "gaussian", 3000, None),
     (2, 32, 3, 2.0, "es", 5000, None),
     (3, 16, 2, 1.625, "es", 20000, None),
     (3, 16, 4, 1.25, "kb", 8000, None),
-    (3, 32, 3, 2.0, "es", 4000, 32),  # 39^3 cells: global atomics
+    (3, 32, 3, 2.0, "es", 4000, 32),  # 39^3 cells: global atomics in the wide design
 ])
-@pytest.mark.parametrize("C", [1, 3])
-def test_spread_tiles_match_plain(card, rng, dim, N, m, sigma, window, n, T, C):
+@pytest.mark.parametrize("C", [1, 3, 8])
+def test_spread_tiles_match_plain(card, rng, monkeypatch, dim, N, m, sigma, window, n, T, C,
+                                  design):
+    _force_design(monkeypatch, design)
     B = 2
     pos, batch = points(rng, n, dim, B)
     plan = tp.build_plan_device(pos, batch, N=N, m=m, sigma=sigma, batch_size=B,
@@ -473,10 +557,12 @@ def test_spread_tiles_match_plain(card, rng, dim, N, m, sigma, window, n, T, C):
     plan = _with_empty_row(plan, card)
     vals = torch.randn((C, plan.S * plan.K), device=card)
     before = contract.spread_tiles.launches
-    got = contract.spread_tiles(plan, vals)
+    with _Designs(contract.spread_tiles) as ran:
+        got = contract.spread_tiles(plan, vals)
     ref = contract.spread_tiles_plain(plan, vals)
     torch.cuda.synchronize()
     assert contract.spread_tiles.launches == before + 1
+    assert ran.ran[design] == 1
     assert _rel(got, ref) <= 1e-5
     assert bool((got[-1] == 0).all())  # the empty row
 

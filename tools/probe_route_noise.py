@@ -1,14 +1,17 @@
 """Run-to-run spread of the training-step gradients on one CUDA card.
 
-    python tools/probe_route_noise.py [--reps 30]
+    python tools/probe_route_noise.py [--reps 30] [--T 8]
 
 Repeats the training step of ``tests/test_torch_cuda.py::
 test_benes_training_step_launches_every_kernel`` (3D N=16, n=40000, es
 m=2, sigma=1.625, the loss sum(pair(x, pos)), the same seeded inputs) and
 prints, over ``--reps`` repetitions, the rel-L2 of x.grad and pos.grad
 between the Benes route and the sort route, and between two runs of the
-sort route, with the number of repetitions over each of several limits.
-The spread kernel's float atomics reorder its sums on every run, so the
+sort route, with the number of repetitions over each of several limits,
+and the spread design that ran. The plan bins the points as the test's
+does (T = 16, whose tiles take the spread's wide-tile design, whose float
+atomics reorder its sums on every run) or, with ``--T 8``, in the
+headline's tiles (the contraction design, which sums in slot order). The
 second comparison is the floor any limit on the first must clear.
 """
 
@@ -25,6 +28,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the checkout's port
 import torch_nfft_tpu_torch as tp  # noqa: E402
+from torch_nfft_tpu_torch.ops import contract  # noqa: E402
 
 LIMITS = (1e-6, 2e-6, 3e-6)
 
@@ -45,7 +49,9 @@ def grads(plan, x, pos):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=30)
-    reps = ap.parse_args().reps
+    ap.add_argument("--T", type=int, default=None, help="tile edge (default: the builder's)")
+    args = ap.parse_args()
+    reps = args.reps
     if not torch.cuda.is_available():
         raise SystemExit("probe_route_noise: needs a CUDA card")
     dev = tp.resolve_device(None)
@@ -53,11 +59,17 @@ def main() -> int:
     n = 40000
     pos = (rng.random((n, 3), dtype=np.float32) - 0.5)
     pos /= 4 * np.abs(pos).max()
-    plan_b = tp.build_plan(pos, N=16, m=2, sigma=1.625, window="es").with_benes_tables()
+    plan_b = tp.build_plan(pos, N=16, m=2, sigma=1.625, window="es",
+                           T=args.T).with_benes_tables()
     plan_s = dataclasses.replace(plan_b, benes=None)
     x = torch.from_numpy(rng.standard_normal((n, 1)).astype(np.float32)).to(dev)
     p = torch.from_numpy(pos).to(dev)
-    out = {}
+    before = dict(contract.spread_tiles_dense.launches_by_design)
+    grads(plan_s, x, p)
+    design = [k for k, v in contract.spread_tiles_dense.launches_by_design.items()
+              if v > before[k]]
+    print(f"T={plan_s.T} H={plan_s.H}: the spread ran the {design} design", flush=True)
+    out = {"T": plan_s.T, "spread_design": design}
     for label, first, second in (("benes_vs_sort", plan_b, plan_s),
                                  ("sort_vs_sort", plan_s, plan_s)):
         rx, rp = [], []

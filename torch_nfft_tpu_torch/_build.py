@@ -41,6 +41,9 @@ _FUNCTIONS = {
     "tnt_spread_tiles_dense": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_I, _P],
     # (pointers, S, K, C, dim, H, M, m, kind, window floats, device, stream)
     "tnt_spread_tiles": [_P] * 5 + [_I] * 8 + [_F] * 3 + [_I, _P],
+    # ... window floats, layout (int array, ops/contract.py:SpreadDesign), device, stream
+    "tnt_spread_tiles_dense_contract": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_P, _I, _P],
+    "tnt_spread_tiles_contract": [_P] * 5 + [_I] * 8 + [_F] * 3 + [_P, _I, _P],
     "tnt_gather_points": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_I, _P],
     # p0, p1, p2 and the derivative factor
     "tnt_pos_grad": [_P] * 7 + [_I] * 9 + [_F] * 4 + [_I, _P],

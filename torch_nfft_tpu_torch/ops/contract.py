@@ -26,12 +26,23 @@ function); ``gather_points`` replaces ``gather_points_pallas`` (and
 The kernels are in ``csrc/contract.cu``; the design and the bound on the
 H100 are in the note there.
 
+The two spreads have two designs, chosen per call by :func:`spread_design`
+from the tile's geometry and the columns: the register-tiled contraction
+(``"contraction"``, no atomics, bitwise reproducible), which does
+H^dim / L^dim times the sparse work, and, where that ratio exceeds
+``DENSE_RATIO_MAX``'s limit for C, the sparse kernel with shared-memory
+atomics (``"wide"``).
+
 Each wrapper launches its kernel for CUDA tensors, or raises; it takes the
 plain version only for CPU tensors. ``launches`` on each wrapper counts the
-kernel launches.
+kernel launches; the spreads also count them per design in
+``launches_by_design``.
 """
 
 from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -44,6 +55,8 @@ from .window import (
 )
 
 __all__ = [
+    "SpreadDesign",
+    "spread_design",
     "spread_tiles",
     "spread_tiles_dense",
     "gather_points",
@@ -55,6 +68,126 @@ __all__ = [
 ]
 
 _MAX_L = 20  # window cells per axis the kernels hold: 2m + 2 <= 20
+
+# The spread's contraction design runs while a tile's cells over a point's
+# window cells, (H / L)^dim, stay at or under DENSE_RATIO_MAX[c], c the
+# largest key at or under the columns C; wider tiles take the wide-tile
+# design. The wide design slows per column as C grows (its tile, C H^dim
+# floats, fills shared memory, then spills to global atomics) and the
+# contraction does not, so the limit grows with C. chip_smoke.py phase 6b
+# times both designs on the headline points binned at T = 8-24 (ratios
+# 10.2-112.9) at C = 1, 2, 4, 8: at C <= 2 the contraction is faster up to
+# 15.6 and not from 22.7; at C = 4 and 8 at every ratio measured.
+DENSE_RATIO_MAX = {1: 16.0, 4: 113.0}
+# Default bands of the contraction: at most BAND_THREADS threads, and 16
+# points a chunk for a band of at most 16 rows (C = 1 at the headline),
+# else 32, halved while a block needs more than SMEM_TARGET bytes.
+BAND_THREADS, SMEM_TARGET = 256, 100 * 1024
+# csrc/contract.cu:spread_contract_kernel holds TM x TN outputs a thread
+# (its kTM, kTN; the launch refuses others) in blocks of at most
+# MAX_THREADS threads (its __launch_bounds__) and SMEM_MAX bytes of shared
+# memory (the H100's opt-in limit per block). The rest of its launch is
+# laid out here, in SpreadDesign, and passed to it whole.
+TM, TN, MAX_THREADS, SMEM_MAX = 8, 8, 512, 232448
+
+
+@dataclass(frozen=True)
+class SpreadDesign:
+    """How a spread of ``C`` columns into tiles of edge ``H`` runs: ``name``
+    is ``"contraction"`` or ``"wide"``, ``ratio`` is (H / L)^dim. For the
+    contraction, the launch of csrc/contract.cu:spread_contract_kernel:
+    bands of ``R`` rows and ``PB`` columns of the tile matrix OUT (C*H rows,
+    H^{dim-1} columns), ``row_bands`` x ``col_bands`` blocks per plan row of
+    ``threads`` threads, each holding TM x TN outputs of a grid of ``RG`` x
+    ``CG`` thread tiles; ``KC`` points a chunk, the rows of a band touching
+    at most ``NCH`` columns C; two chunk buffers of ``buf`` floats and
+    ``smem`` bytes of shared memory a block."""
+
+    name: str
+    dim: int
+    H: int
+    C: int
+    ratio: float
+    R: int = 0
+    PB: int = 0
+    KC: int = 0
+    RG: int = 0
+    CG: int = 0
+    row_bands: int = 0
+    col_bands: int = 0
+    NCH: int = 0
+    buf: int = 0
+    threads: int = 0
+    smem: int = 0
+
+    @property
+    def issued_macs(self) -> int:
+        """Multiply-adds the contraction issues per point: every row and
+        column of its bands' thread tiles, zero padding included."""
+        return self.row_bands * self.RG * TM * self.col_bands * self.CG * TN
+
+    def layout(self) -> tuple:
+        """The contraction's launch as csrc/contract.cu:launch_spread_contract
+        reads it."""
+        return (TM, TN, self.R, self.PB, self.KC, self.RG, self.CG, self.row_bands,
+                self.col_bands, self.NCH, self.buf, self.threads, self.smem)
+
+
+def _contract_band(dim: int, H: int, C: int, R: int, PB: int, KC: int) -> dict:
+    """Thread grid and shared memory of a contraction block. The kernel's
+    shared memory: the band's row and column tables (2 (Rpad + Ppad) ints),
+    then two chunk buffers of KC points, each [KC][Rpad] X, [KC][Ppad] KR,
+    [KC][dim H + 2] windows, [dim][KC] coordinates and [NCH][KC] values,
+    rounded up to 16 bytes; the band on its way out (R PB floats, shifted
+    by up to 3 for 16-byte stores) reuses it."""
+    rows = C * H
+    RG, CG = -(-R // TM), -(-PB // TN)
+    Rpad, Ppad = RG * TM, CG * TN
+    NCH = max((min(r0 + R, rows) - 1) // H - r0 // H + 1 for r0 in range(0, rows, R))
+    buf = -(-KC * (Rpad + Ppad + dim * H + 2 + dim + NCH) // 4) * 4
+    return {"RG": RG, "CG": CG, "NCH": NCH, "buf": buf,
+            "threads": -(-RG * CG // 32) * 32,
+            "smem": 4 * max(2 * (Rpad + Ppad) + 2 * buf, R * PB + 4)}
+
+
+def spread_design(dim: int, H: int, m: int, C: int, *, name: str | None = None,
+                  KC: int | None = None, R: int | None = None) -> SpreadDesign:
+    """The spread design for tiles of edge ``H`` and windows of 2m+2 cells
+    per axis at ``C`` columns: the contraction while (H / L)^dim is at most
+    the ``DENSE_RATIO_MAX`` entry for C, else the wide-tile design; ``name``
+    forces one. ``KC`` and ``R`` fix the contraction's points per chunk and
+    rows per band (None: the defaults above); results do not depend on
+    them."""
+    L = 2 * m + 2
+    ratio = (H / L) ** dim
+    if name is None:
+        limit = DENSE_RATIO_MAX[max(c for c in DENSE_RATIO_MAX if c <= C)]
+        name = "contraction" if ratio <= limit else "wide"
+    _require(name in ("contraction", "wide"), f"unknown spread design {name!r}")
+    if name == "wide":
+        return SpreadDesign("wide", dim, H, C, ratio)
+    P, rows = H ** (dim - 1), C * H
+    col_bands = -(-P // (TN * MAX_THREADS))
+    CG = -(-P // (TN * col_bands))
+    PB = min(P, CG * TN)
+    col_bands = -(-P // PB)
+    if R is None:
+        rg_all = -(-rows // TM)
+        row_bands = -(-rg_all // max(1, min(BAND_THREADS, MAX_THREADS) // CG))
+        R = min(rows, -(-rg_all // row_bands) * TM)
+    _require(1 <= R <= rows, f"R must be in [1, {rows}]")
+    band = _contract_band(dim, H, C, R, PB, 1)
+    _require(band["threads"] <= MAX_THREADS, f"R={R} needs {band['threads']} threads a block")
+    if KC is None:
+        KC = 16 if R <= 16 else 32
+        while KC > 1 and _contract_band(dim, H, C, R, PB, KC)["smem"] > SMEM_TARGET:
+            KC //= 2
+    _require(KC >= 1, "KC must be at least 1")
+    band = _contract_band(dim, H, C, R, PB, KC)
+    _require(band["smem"] <= SMEM_MAX,
+             f"KC={KC}, R={R} need {band['smem']} bytes of shared memory")
+    return SpreadDesign("contraction", dim, H, C, ratio, R, PB, KC,
+                        row_bands=-(-rows // R), col_bands=col_bands, **band)
 
 
 def _row_windows(pos_rows, origin, M: int, m: int, H: int, phi):
@@ -250,54 +383,85 @@ def _check_vals(plan, vals: torch.Tensor, tile_index: torch.Tensor | None) -> No
              f"vals must be (C, {S * K})")
 
 
-def spread_tiles(plan, vals: torch.Tensor) -> torch.Tensor:
+def _design_for(plan, C: int, design: SpreadDesign | None) -> SpreadDesign:
+    if design is None:
+        return spread_design(plan.dim, plan.H, plan.m, C)
+    _require((design.dim, design.H, design.C) == (plan.dim, plan.H, C),
+             f"the design is for dim={design.dim}, H={design.H}, C={design.C}")
+    return design
+
+
+def _layout(d: SpreadDesign):
+    """The contraction's launch as a C int array (keep it alive for the call)."""
+    return (ctypes.c_int * len(d.layout()))(*d.layout())
+
+
+def spread_tiles(plan, vals: torch.Tensor, design: SpreadDesign | None = None) -> torch.Tensor:
     """Slot-ordered values (C, S*K) -> per-row tiles (S, C, H, H^{dim-1}):
     row s's points spread into its own tile (tile origin ``origin[s]``);
-    rows with no points give exact zeros."""
+    rows with no points give exact zeros. ``design`` (from
+    :func:`spread_design` for this geometry) overrides the default."""
     S, K = plan.slot_pt.shape
     C = vals.shape[0]
     _check_vals(plan, vals, None)
+    d = _design_for(plan, C, design)
     if not _route(vals):
         return spread_tiles_plain(plan, vals)
     dim, H, M, m, kind, p0, p1, p2, device, stream = _kernel_args(plan, vals)
     out = torch.empty((S, C, H, H ** (dim - 1)), dtype=torch.float32,
                       device=vals.device)
-    check(library().tnt_spread_tiles(
-        vals.data_ptr(), plan.slot_pos.data_ptr(), plan.row_count.data_ptr(),
-        plan.origin.data_ptr(), out.data_ptr(), S, K, C, dim, H, M, m, kind,
-        p0, p1, p2, device, stream))
+    args = (vals.data_ptr(), plan.slot_pos.data_ptr(), plan.row_count.data_ptr(),
+            plan.origin.data_ptr(), out.data_ptr(), S, K, C, dim, H, M, m, kind,
+            p0, p1, p2)
+    if d.name == "contraction":
+        layout = _layout(d)
+        check(library().tnt_spread_tiles_contract(*args, ctypes.addressof(layout), device,
+                                                  stream))
+    else:
+        check(library().tnt_spread_tiles(*args, device, stream))
     spread_tiles.launches += 1
+    spread_tiles.launches_by_design[d.name] += 1
     return out
 
 
 spread_tiles.launches = 0
+spread_tiles.launches_by_design = {"contraction": 0, "wide": 0}
 
 
 def spread_tiles_dense(plan, vals: torch.Tensor, tile_index: torch.Tensor,
-                       NT: int) -> torch.Tensor:
+                       NT: int, design: SpreadDesign | None = None) -> torch.Tensor:
     """Slot-ordered values (C, S*K) -> dense tiles (NT, C, H, H^{dim-1}).
 
     Rows of one tile accumulate into it; tiles no row visits are exactly 0.
     ``tile_index`` (S,) int32 gives each row's dense tile; each tile's rows
     must be consecutive (plan order, with empty rows pointed at the
-    preceding tile)."""
+    preceding tile). ``design`` as in :func:`spread_tiles`."""
     S, K = plan.slot_pt.shape
     C = vals.shape[0]
     _check_vals(plan, vals, tile_index)
+    d = _design_for(plan, C, design)
     if not _route(vals):
         return spread_tiles_dense_plain(plan, vals, tile_index, NT)
     H, dim = plan.H, plan.dim
     out = torch.zeros((NT, C, H, H ** (dim - 1)), dtype=torch.float32,
                       device=vals.device)
-    check(library().tnt_spread_tiles_dense(
-        vals.data_ptr(), plan.slot_pos.data_ptr(), plan.row_count.data_ptr(),
-        plan.origin.data_ptr(), tile_index.data_ptr(), out.data_ptr(),
-        S, K, C, NT, *_kernel_args(plan, vals)))
+    *window, device, stream = _kernel_args(plan, vals)
+    args = (vals.data_ptr(), plan.slot_pos.data_ptr(), plan.row_count.data_ptr(),
+            plan.origin.data_ptr(), tile_index.data_ptr(), out.data_ptr(),
+            S, K, C, NT, *window)
+    if d.name == "contraction":
+        layout = _layout(d)
+        check(library().tnt_spread_tiles_dense_contract(*args, ctypes.addressof(layout),
+                                                         device, stream))
+    else:
+        check(library().tnt_spread_tiles_dense(*args, device, stream))
     spread_tiles_dense.launches += 1
+    spread_tiles_dense.launches_by_design[d.name] += 1
     return out
 
 
 spread_tiles_dense.launches = 0
+spread_tiles_dense.launches_by_design = {"contraction": 0, "wide": 0}
 
 
 def gather_points(plan, tiles: torch.Tensor, tile_index: torch.Tensor) -> torch.Tensor:
