@@ -7,9 +7,11 @@ process per source) and, beside them, the host C++ plan builder and Benes
 router with g++. Builds the headline plan on the device and on the host
 (checked against each other field by field), routes the host plan's Benes
 tables cold, holds each kernel against its plain PyTorch version at the
-headline shapes (the position-gradient kernel with both of its weightings;
-the permutation kernels bit for bit, also at q = 20 with rows of K = 8,
-128 and 1024), runs the NDFT accuracy gates, then runs the headline
+headline shapes (the position-gradient kernel with both of its weightings,
+the gather and the position gradient also at C = 8 on the flat route's
+per-row tiles, each repeating bit for bit; the permutation kernels bit for
+bit, also at q = 20 with rows of K = 8, 128 and 1024), runs the NDFT
+accuracy gates, then runs the headline
 adjoint+forward pair (3D, N=256,
 n=2^24 points in [-1/4, 1/4)^3, es window, m=2, sigma=1.625) through the
 port's public entry points, checks the kernels were launched on that path
@@ -39,7 +41,11 @@ the spreads' contraction with other block, tile, row-group, chunk and band
 sizes (each bitwise equal to the defaults), holds both spread designs
 against the plain versions on the headline points binned at T = 8 and
 T = 16, times the per-row spread's two designs at T = 8-24 and C = 1-8
-(which set ``contract.DENSE_RATIO_MAX``), times the pair stage by stage on
+(which set ``contract.DENSE_RATIO_MAX``), times the gather and the
+position gradient at C = 1 and 8 in every launch layout (G lanes a point,
+rows and threads a block, lanes sorted by bank or not: the times behind
+``contract.POINTS_LAYOUT``; phase 1 requires every instantiation of their
+kernel to keep no stack), times the pair stage by stage on
 every route (the stages ``nfft_pair_planar`` runs) and reads the device's
 busy share of three traced pairs and three traced steps with
 ``torch.profiler``.
@@ -48,6 +54,12 @@ Every phase prints its seconds; any failure exits non-zero. The line before
 the last is a JSON object listing the kernels with their times and bounds;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA card it
 exits with code 2 and prints no result.
+
+    python3 chip_smoke.py --points
+
+times only the gather and the position gradient at the headline (C = 1 and
+C = 8); a copy of this script beside an older checkout's package times that
+package's kernels.
 """
 
 from __future__ import annotations
@@ -97,13 +109,15 @@ PEAK_F32_FLOPS = 67e12
 # kernel wrapper name -> (module holding its launch counter, the TPU kernel
 # it replaces, its CUDA source)
 CONTRACT_CU = "torch_nfft_tpu_torch/csrc/contract.cu"
+GATHER_CU = "torch_nfft_tpu_torch/csrc/gather.cu"  # its body: csrc/points.cuh
+POS_GRAD_CU = "torch_nfft_tpu_torch/csrc/pos_grad.cu"
 PERMUTE_CU = "torch_nfft_tpu_torch/csrc/permute.cu"
 BITONIC_CU = "torch_nfft_tpu_torch/csrc/bitonic.cu"
 JAX_BITONIC = "torch_nfft_tpu/ops/pallas/bitonic.py"
 KERNELS = {
     "spread_tiles_dense": (contract, "torch_nfft_tpu/ops/pallas/contract.py:369", CONTRACT_CU),
-    "gather_points": (contract, "torch_nfft_tpu/ops/pallas/contract.py:662", CONTRACT_CU),
-    "pos_grad": (contract, "torch_nfft_tpu/ops/pallas/contract.py:809", CONTRACT_CU),
+    "gather_points": (contract, "torch_nfft_tpu/ops/pallas/contract.py:662", GATHER_CU),
+    "pos_grad": (contract, "torch_nfft_tpu/ops/pallas/contract.py:809", POS_GRAD_CU),
     "expand_rows": (ragged, "torch_nfft_tpu/ops/pallas/ragged.py:78", PERMUTE_CU),
     "compact_rows": (ragged, "torch_nfft_tpu/ops/pallas/ragged.py:162", PERMUTE_CU),
     # the cross-block stages (_outer_fused, _cross_stage_pallas) of apply_benes
@@ -261,6 +275,16 @@ def ptxas_report(log: str, kernel: str) -> list:
                 out.append((name, regs, stack, spill))
             name = None
     return out
+
+
+def points_instance(mangled: str) -> str:
+    """The template arguments L, CW, kSmem, kGrad of a mangled
+    points_kernel name ('...points_kernelILi6ELi1ELb1ELb0EE...')."""
+    args = mangled.split("points_kernelI", 1)[1]
+    nums, flags = [], []
+    for tok in args.split("E")[:4]:
+        (nums if tok.startswith("Li") else flags).append(tok[2:])
+    return ", ".join(nums + ["true" if f == "1" else "false" for f in flags])
 
 
 def train_step(x, pos, w, plan, *, N: int, device=None):
@@ -560,6 +584,15 @@ def main() -> int:
                       f"{stack} bytes stack, {spill} bytes spilled")
             assert rep_ptx and all(st == 0 and sp == 0 for _, _, st, sp in rep_ptx), \
                 "the contraction spread uses stack or spills"
+            # nor does any instantiation of the gather and the position
+            # gradient (L = 2..20, staged at C = 1 / C > 1, or global)
+            rep_pts = ptxas_report(res.log, "points_kernel")
+            for name, regs, stack, spill in rep_pts:
+                print(f"points_kernel<{points_instance(name)}>: {regs} registers, "
+                      f"{stack} bytes stack, {spill} bytes spilled")
+            assert len(rep_pts) == 60, f"{len(rep_pts)} points_kernel instantiations, not 60"
+            assert all(st == 0 and sp == 0 for _, _, st, sp in rep_pts), \
+                "a gather or position-gradient kernel uses stack or spills"
 
     pos, x = headline_data(n, dev)
     pos_np = pos.cpu().numpy()
@@ -656,6 +689,14 @@ def main() -> int:
             del d_k, d_p
         err["pos_grad"] = tuple(map(max, zip(*errs)))  # the worse of the two
         del tiles_primal, w_ybar, ybar
+        same_pts = (torch.equal(contract.gather_points(plan, tiles, tid),
+                                contract.gather_points(plan, tiles, tid))
+                    and torch.equal(contract.pos_grad(plan, tiles, vals, tid),
+                                    contract.pos_grad(plan, tiles, vals, tid)))
+        print(f"gather_points C=1 ({contract.points_layout('gather_points', DIM, plan.H, 1, plan.K)}) "
+              f"and pos_grad C=1 ({contract.points_layout('pos_grad', DIM, plan.H, 1, plan.K)}): "
+              f"two launches bitwise equal: {same_pts}")
+        assert same_pts, "B2 or B5 at C=1 differs from one launch to the next"
         for name, (mx, rl) in err.items():
             print(f"{name}: kernel vs plain max_abs={mx:.3e} rel_l2={rl:.3e}")
             assert rl <= 1e-5, f"{name} disagrees with its plain version: {rl:.3e}"
@@ -830,6 +871,46 @@ def main() -> int:
               "equal to the plain network; keys equal torch.sort")
         perm_err.update(dict.fromkeys(BITONIC, 0.0))  # bitwise equal
         del k_t, keys_t
+
+    with Phase(f"3e gather and pos_grad at C={C_WIDE} on per-row tiles vs plain"):
+        # the flat route's tiles (binned.grid_to_tiles), each row its own
+        rows_id = torch.arange(plan.S, dtype=torch.int32, device=dev)
+        g8 = torch.randn((1, C_WIDE) + (plan.M,) * DIM, device=dev, generator=gen)
+        tiles_r8 = binned.grid_to_tiles(plan, g8)
+        del g8
+        vals8 = slot_values(plan, x8)
+        y_k = contract.gather_points(plan, tiles_r8, rows_id)
+        y_p = contract.gather_points_plain(plan, tiles_r8, rows_id)
+        e_g = (float((y_k - y_p).abs().max()), rel_l2(y_k, y_p))
+        same = torch.equal(contract.gather_points(plan, tiles_r8, rows_id), y_k)
+        print(f"gather_points C={C_WIDE} "
+              f"({contract.points_layout('gather_points', DIM, plan.H, C_WIDE, plan.K)}): "
+              f"kernel vs plain max_abs={e_g[0]:.3e} rel_l2={e_g[1]:.3e}; two launches "
+              f"bitwise equal: {same}")
+        assert e_g[1] <= 1e-5 and same, f"gather_points at C={C_WIDE}: {e_g[1]:.3e}, {same}"
+        err["gather_points"] = tuple(map(max, zip(err["gather_points"], e_g)))
+        del y_k, y_p
+        ybar8 = torch.randn((n, C_WIDE), device=dev, generator=gen)
+        w_ybar8 = slot_values(plan, ybar8)
+        g_primal8 = run_stages(pair_stages(plan, N=N, m=M_CUT, sigma=SIGMA, window=WINDOW,
+                                           C=C_WIDE)[:5], x8)
+        tiles_primal8 = binned.grid_to_tiles(plan, g_primal8)
+        del g_primal8, ybar8
+        for label, tl, wt in (("w=x, cotangent tiles", tiles_r8, vals8),
+                              ("w=ybar, primal tiles", tiles_primal8, w_ybar8)):
+            d_k = contract.pos_grad(plan, tl, wt, rows_id)
+            d_p = contract.pos_grad_plain(plan, tl, wt, rows_id)
+            e_p = (float((d_k - d_p).abs().max()), rel_l2(d_k, d_p))
+            same = torch.equal(contract.pos_grad(plan, tl, wt, rows_id), d_k)
+            print(f"pos_grad C={C_WIDE} ({label}; "
+                  f"{contract.points_layout('pos_grad', DIM, plan.H, C_WIDE, plan.K)}): "
+                  f"kernel vs plain max_abs={e_p[0]:.3e} "
+                  f"(max |plain| {float(d_p.abs().max()):.3e}) rel_l2={e_p[1]:.3e}; two "
+                  f"launches bitwise equal: {same}")
+            assert e_p[1] <= 1e-5 and same, f"pos_grad at C={C_WIDE}: {e_p[1]:.3e}, {same}"
+            err["pos_grad"] = tuple(map(max, zip(err["pos_grad"], e_p)))
+            del d_k, d_p
+        del tiles_primal8, w_ybar8
 
     with Phase("4 accuracy gates"):
         g2 = gate(2, 16, dev)
@@ -1225,6 +1306,19 @@ def main() -> int:
             next(r for r in report if r["name"] == name)[f"c{C_WIDE}"] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "library_ms": lib_ms}
         del stream_r, rows_r, ext_er, ext_cr, ragged_in
+        # B2 and B5 at C_WIDE on the per-row tiles of phase 3e
+        b8 = bounds(plan, C_WIDE, plan.S)
+        for name, kern, plain, (b_ms, b_by) in (
+                ("gather_points", lambda: contract.gather_points(plan, tiles_r8, rows_id),
+                 lambda: contract.gather_points_plain(plan, tiles_r8, rows_id), b8[1]),
+                ("pos_grad", lambda: contract.pos_grad(plan, tiles_r8, vals8, rows_id),
+                 lambda: contract.pos_grad_plain(plan, tiles_r8, vals8, rows_id), b8[2])):
+            ms, plain_ms = time_ms(kern, 10), time_ms(plain, 1)
+            print(f"{name} C={C_WIDE} (per-row tiles): {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+                  f"bound {b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of bound)")
+            next(r for r in report if r["name"] == name)[f"c{C_WIDE}"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None}
         # the two spreads: their design, the share of the float32 peak the
         # contraction's issued flops reach, and the yardstick of the
         # contraction alone (torch.bmm of preformed operands); B7 also at C=1
@@ -1420,7 +1514,40 @@ def main() -> int:
             limit = contract.DENSE_RATIO_MAX[max(c for c in contract.DENSE_RATIO_MAX if c <= C_s)]
             print(f"C={C_s}: the contraction was faster at ratios [{won_c}]; "
                   f"contract.DENSE_RATIO_MAX takes it up to {limit}")
-        del vals8
+        # the gather's and the position gradient's launch layouts: G lanes a
+        # point, rows and threads a block, the lanes' order sorted by bank or
+        # not, at C = 1 (dense tiles) and C_WIDE (per-row tiles); the same
+        # bits for one G, within float rounding across G. The times behind
+        # contract.POINTS_LAYOUT.
+        for C_s, tl_s, tid_s, w_s in ((1, tiles, tid, vals), (C_WIDE, tiles_r8, rows_id, vals8)):
+            for name, fn in (
+                    ("gather_points",
+                     lambda lay: contract.gather_points(plan, tl_s, tid_s, lay)),
+                    ("pos_grad", lambda lay: contract.pos_grad(plan, tl_s, w_s, tid_s, lay))):
+                want, best, same_g = fn(None), None, {}
+                for G_l, rows_l, threads_l, sort_l in [
+                        (g, r, t, srt) for g in (1, 2, 4, 8)
+                        for r, t, srt in ((1, 256, True), (2, 256, True), (4, 256, True),
+                                          (1, 128, True), (1, 256, False), (1, 128, False))]:
+                    lay = contract.points_layout(name, DIM, plan.H, C_s, plan.K, G=G_l,
+                                                 rows=rows_l, threads=threads_l, sort=sort_l)
+                    out = fn(lay)
+                    rel_g = rel_l2(out, want)
+                    same = torch.equal(out, same_g.setdefault(G_l, out))
+                    del out
+                    assert rel_g <= 1e-5 and same, \
+                        f"{name} C={C_s} G={G_l} rows={rows_l}: {rel_g:.3e}, {same}"
+                    ms_l = time_ms(lambda: fn(lay), 5)
+                    best = min(best or (ms_l, lay), (ms_l, lay), key=lambda b: b[0])
+                    print(f"{name} C={C_s} G={G_l} rows={rows_l} threads={threads_l} "
+                          f"sorted={sort_l}: {ms_l:.4f} ms (vs the default rel_l2={rel_g:.3e}; "
+                          f"bitwise equal to G={G_l}, rows=1)")
+                del want, same_g
+                print(f"{name} C={C_s}: fastest G={best[1].G} rows={best[1].rows} "
+                      f"threads={best[1].threads} sorted={best[1].sorted} ({best[0]:.4f} ms); "
+                      f"the default is "
+                      f"{contract.points_layout(name, DIM, plan.H, C_s, plan.K)}")
+        del vals8, tiles_r8
 
     with Phase("7 stages and device busy share"):
         reps = 3
@@ -1460,5 +1587,43 @@ def main() -> int:
     return 0
 
 
+def main_points() -> int:
+    """``--points``: time the gather and the position gradient alone at the
+    headline, C = 1 on dense tiles and C = C_WIDE on per-row tiles, through
+    the wrappers' signatures of every tree since the port's first slice,
+    so that a copy of this script beside an older checkout's package times
+    that package's kernels (parent against change in one call)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script needs one card", file=sys.stderr)
+        return 2
+    dev = tp.resolve_device(None)
+    n = 1 << N_LOG2
+    card = nvidia_smi_line()
+    print(card)
+    pos, x = headline_data(n, dev)
+    plan = tp.build_plan_device(pos, None, N=N, m=M_CUT, sigma=SIGMA, batch_size=1,
+                                window=WINDOW)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g1 = torch.randn((1, 1) + (plan.M,) * DIM, device=dev, generator=gen)
+    g8 = torch.randn((1, C_WIDE) + (plan.M,) * DIM, device=dev, generator=gen)
+    x8 = torch.randn((n, C_WIDE), device=dev, generator=gen)
+    cases = {1: (unfold_grid_to_tiles(g1, plan), row_tile_ids(plan), slot_values(plan, x)),
+             C_WIDE: (binned.grid_to_tiles(plan, g8),
+                      torch.arange(plan.S, dtype=torch.int32, device=dev),
+                      slot_values(plan, x8))}
+    del g1, g8
+    out = {}
+    for C, (tiles, tid, w) in cases.items():
+        b = bounds(plan, C, int(torch.unique(tid).numel()))
+        for name, fn, (b_ms, b_by) in (
+                ("gather_points", lambda: contract.gather_points(plan, tiles, tid), b[1]),
+                ("pos_grad", lambda: contract.pos_grad(plan, tiles, w, tid), b[2])):
+            ms = time_ms(fn, 10)
+            print(f"{name} C={C}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by})")
+            out[f"{name}_c{C}"] = ms
+    print(json.dumps({"points_ms": out, "card": card, "package": tp.__file__}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_points() if sys.argv[1:] == ["--points"] else main())

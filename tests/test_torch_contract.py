@@ -195,6 +195,63 @@ def test_wrappers_check_inputs(rng):
         pcontract.gather_points(plan, tiles.to("meta"), tid)
 
 
+@pytest.mark.parametrize("m,device,raises", [
+    (9, "cuda", False), (10, "cuda", True), (0, "cuda", False), (10, "cpu", False),
+])
+def test_check_window_width(m, device, raises):
+    """The card's kernels hold 2m + 2 <= MAX_L = 20 window cells; the CPU
+    any m. The entry points call this before any plan or launch."""
+    if raises:
+        with pytest.raises(ValueError, match="2m\\+2 <= 20"):
+            pcontract.check_window_width(m, device)
+    else:
+        pcontract.check_window_width(m, device)
+
+
+@pytest.mark.parametrize("C,H,dim,staged,Cp,tile", [
+    (1, 13, 3, True, 1, 4 * 2200),  # the headline's tile, as it lies (+3, to 16 bytes)
+    (8, 13, 3, True, 8, 4 * 8 * 13**3),  # cell-major, 70.3 KB
+    (3, 13, 3, True, 4, 4 * 4 * 13**3),  # columns padded to 4
+    (16, 25, 3, False, 16, 0),  # 1 MB: read from global memory
+    (1, 39, 3, False, 1, 0),  # 237 KB
+])
+def test_points_layout_stages_what_fits(C, H, dim, staged, Cp, tile):
+    K = 1024
+    lay = pcontract.points_layout("gather_points", dim, H, C, K, sort=staged)
+    # a sorted lane order takes K + 32 ints after the tile
+    assert (lay.staged, lay.sorted, lay.Cp) == (staged, staged, Cp)
+    assert lay.smem == (tile + 4 * (K + 32) if staged else 0)
+    assert lay.threads <= pcontract.POINTS_THREADS and lay.G in (1, 2, 4, 8)
+    for name in pcontract.POINTS_LAYOUT:
+        assert pcontract.points_layout(name, 1, H, C, K).G == 1  # one line of cells in 1D
+        assert pcontract.points_layout(name, dim, H, C, K).staged == staged
+    if staged:
+        assert not pcontract.points_layout("pos_grad", dim, H, C, K, staged=False).staged
+        assert pcontract.points_layout("pos_grad", dim, H, C, K, sort=False).smem == tile
+    else:
+        with pytest.raises(ValueError, match="exceeds shared memory"):
+            pcontract.points_layout("gather_points", dim, H, C, K, staged=True)
+        with pytest.raises(ValueError, match="only a staged tile"):
+            pcontract.points_layout("gather_points", dim, H, C, K, sort=True)
+
+
+def test_points_layout_drops_the_order_that_does_not_fit():
+    """A tile that fits shared memory only without the lanes' order (38^3
+    floats fit, 8192 + 32 more ints do not) is staged unsorted."""
+    lay = pcontract.points_layout("gather_points", 3, 38, 1, 8192)
+    assert lay.staged and not lay.sorted and lay.smem == 4 * -(-(38**3 + 3) // 4) * 4
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(kernel="spread"), "unknown kernel"), (dict(G=3), "G must be"), (dict(threads=100), "threads must be"),
+    (dict(threads=512), "threads must be"), (dict(rows=0), "rows must be"),
+])
+def test_points_layout_rejects_what_the_kernel_cannot_launch(kw, match):
+    with pytest.raises(ValueError, match=match):
+        kernel = kw.pop("kernel", "gather_points")
+        pcontract.points_layout(kernel, 3, 13, 1, 1024, **kw)
+
+
 def test_cpu_route_launches_no_kernel(rng):
     pos, x, jplan, plan = _setup(rng, 2, 16, 1, 1, "es")
     before = (pcontract.spread_tiles_dense.launches, pcontract.gather_points.launches)

@@ -241,6 +241,114 @@ def test_pos_grad_matches_plain(card, rng, dim, N, m, sigma, window, n, C):
     assert bool((got.transpose(1, 2)[~kmask] == 0).all())  # padded slots
 
 
+# The gather (B2) and the position gradient (B5) in every launch layout:
+# G lanes a point (None: the default), the row's tile staged in shared
+# memory or, beyond the opt-in limit, read from global memory.
+POINT_CASES = [
+    # dim, N, m, sigma, window, n, C, T, staged
+    (1, 64, 1, 2.0, "gaussian", 3000, 1, None, True),
+    (1, 64, 9, 2.0, "es", 3000, 3, None, True),
+    (2, 32, 2, 2.0, "kb", 5000, 8, None, True),
+    (2, 32, 3, 2.0, "es", 5000, 1, None, True),
+    (2, 16, 9, 2.0, "gaussian", 4000, 3, None, True),
+    (3, 16, 1, 2.0, "es", 20000, 3, None, True),
+    (3, 16, 2, 1.625, "es", 20000, 8, 8, True),  # the headline's tiles, H = 13
+    (3, 16, 3, 2.0, "kb", 8000, 1, None, True),
+    (3, 16, 4, 1.25, "gaussian", 8000, 8, None, False),  # 8 x 25^3 floats
+    (3, 8, 9, 2.0, "kb", 3000, 1, None, True),  # L = 20
+    (3, 32, 4, 2.0, "es", 3000, 16, 16, False),  # 16 x 25^3 floats
+    (3, 32, 3, 2.0, "es", 3000, 1, 32, False),  # 39^3 floats
+]
+
+
+@pytest.mark.parametrize("G", [None, 1, 2, 4, 8])
+@pytest.mark.parametrize("dim,N,m,sigma,window,n,C,T,staged", POINT_CASES)
+def test_points_kernels_match_plain(card, rng, dim, N, m, sigma, window, n, C, T, staged, G):
+    """Both kernels against their plain versions (rel-L2 1e-5), padded slots
+    and an empty row exactly 0, per-row tiles at C = 8 (the flat route's)
+    and dense tiles else, the tile staged in shared memory or read from
+    global memory; the default layout bit for bit across launches."""
+    B = 2
+    pos, batch = points(rng, n, dim, B)
+    plan = tp.build_plan_device(pos, batch, N=N, m=m, sigma=sigma, batch_size=B, T=T,
+                                window=window, device=card)
+    plan = _with_empty_row(plan, card)
+    g = torch.randn((B, C) + (plan.M,) * dim, device=card)
+    if C == 8:
+        tiles = binned.grid_to_tiles(plan, g)
+        tid = torch.arange(plan.S, dtype=torch.int32, device=card)
+    else:
+        tiles, tid = unfold_grid_to_tiles(g, plan), row_tile_ids(plan)
+    w = torch.randn((C, plan.S * plan.K), device=card)
+    lays = {name: None if G is None else contract.points_layout(name, dim, plan.H, C, plan.K,
+                                                                 G=G)
+            for name in ("gather_points", "pos_grad")}
+    assert contract.points_layout("pos_grad", dim, plan.H, C, plan.K).staged == staged
+    kmask = torch.arange(plan.K, device=card)[None, :] < plan.row_count[:, None]
+    for name, run, plain in (
+            ("gather_points", lambda: contract.gather_points(plan, tiles, tid,
+                                                             lays["gather_points"]),
+             lambda: contract.gather_points_plain(plan, tiles, tid)),
+            ("pos_grad", lambda: contract.pos_grad(plan, tiles, w, tid, lays["pos_grad"]),
+             lambda: contract.pos_grad_plain(plan, tiles, w, tid))):
+        before = getattr(contract, name).launches
+        got = run()
+        ref = plain()
+        torch.cuda.synchronize()
+        assert getattr(contract, name).launches == before + 1
+        assert _rel(got, ref) <= 1e-5, name
+        assert bool((got[-1] == 0).all()), name  # the empty row
+        assert bool((got.transpose(1, 2)[~kmask] == 0).all()), name  # padded slots
+        if G is None:
+            assert torch.equal(run(), got), name
+
+
+@pytest.mark.parametrize("C", [1, 8])
+def test_points_layouts_repeat_bit_for_bit(card, rng, C):
+    """Rows and threads a block and the lanes' order do not change a bit; G
+    only the rounding."""
+    plan, vals = _headline_like(rng, card, C)
+    g = torch.randn((1, C) + (plan.M,) * 3, device=card)
+    tiles = binned.grid_to_tiles(plan, g)
+    tid = torch.arange(plan.S, dtype=torch.int32, device=card)
+    for G in (1, 2, 4, 8):
+        kw = [dict(G=G, rows=r, threads=t, sort=srt)
+              for r, t, srt in ((1, 256, True), (3, 256, True), (2, 64, False), (1, 128, False))]
+        outs = [(contract.gather_points(plan, tiles, tid, contract.points_layout(
+                    "gather_points", 3, plan.H, C, plan.K, **k)),
+                 contract.pos_grad(plan, tiles, vals, tid, contract.points_layout(
+                     "pos_grad", 3, plan.H, C, plan.K, **k)))
+                for k in kw]
+        assert outs[0][0].shape == (plan.S, C, plan.K)
+        for y, d in outs[1:]:
+            assert torch.equal(y, outs[0][0]) and torch.equal(d, outs[0][1]), G
+
+
+@pytest.mark.parametrize("entry", ["adjoint", "forward", "pair", "adjoint_planar",
+                                   "forward_planar"])
+def test_card_entry_points_raise_beyond_the_window_widths(card, rng, entry):
+    """m = 10 (22 window cells, past contract.MAX_L): every entry point
+    raises ValueError on the card before it builds a plan or launches."""
+    n, m = 500, 10
+    pos, _ = points(rng, n, 1)
+    x = rng.standard_normal((n, 1)).astype(np.float32)
+    spec = rng.standard_normal((1, 32, 1)).astype(np.float32)
+    kw = dict(m=m, sigma=2.0, window="gaussian")
+    calls = {
+        "adjoint": lambda: tp.nfft_adjoint(x, pos, N=32, **kw),
+        "forward": lambda: tp.nfft_forward(spec, pos, **kw),
+        "pair": lambda: tp.nfft_pair_planar(x, pos, batch_size=1, N=32, **kw),
+        "adjoint_planar": lambda: tp.nfft_adjoint_planar(x, pos, batch_size=1, N=32, **kw),
+        "forward_planar": lambda: tp.nfft_forward_planar(spec, None, pos, batch_size=1,
+                                                         dim=1, **kw),
+    }
+    names = KERNELS + ("spread_tiles",)
+    before = {k: getattr(contract, k).launches for k in names}
+    with pytest.raises(ValueError, match="2m\\+2 <= 20"):
+        calls[entry]()
+    assert {k: getattr(contract, k).launches for k in names} == before
+
+
 def _loss_grads(fn, x, pos, w, dev):
     """x.grad and pos.grad of <fn(x, pos), w> with x, pos as leaves on dev."""
     xl = torch.as_tensor(x, device=dev).clone().requires_grad_()

@@ -59,6 +59,22 @@ def test_adjoint_forward_match_jax(rng, complex_, real_output):
     assert rel_l2(got.numpy(), np.asarray(ref)) <= REL
 
 
+def test_adjoint_at_m10_matches_jax_on_the_cpu(rng):
+    """m = 10: 22 window cells per axis, past what the card's kernels hold
+    (contract.MAX_L); the CPU's plain versions take any m, as JAX does.
+    1D, N=32, sigma=2, gaussian, n=100: JAX's binned adjoint is ~8e-7 from
+    the NDFT."""
+    N, n = 32, 100
+    pos, batch, jplan, plan, kw = _case(rng, dim=1, N=N, B=1, m=10, window="gaussian", n=n)
+    x = _values(rng, (n, 1), False)
+    ref = tn.nfft_adjoint(jnp.asarray(x), pos, batch, N=N, plan=jplan, **kw)
+    oracle = tp.ndft_adjoint(torch.from_numpy(x), torch.from_numpy(pos), N=N)
+    for p in (plan, None):  # JAX's plan carried across, and the port's own
+        got = tp.nfft_adjoint(x, pos, batch, N=N, plan=p, device="cpu", **kw)
+        assert rel_l2(got.numpy(), np.asarray(ref)) <= REL
+        assert rel_l2(got.numpy(), oracle.numpy()) <= 1e-5
+
+
 @pytest.mark.parametrize("with_batch_size", [False, True])
 def test_batch_vector_with_and_without_batch_size(rng, with_batch_size):
     """batch_size inferred as batch[-1] + 1, or given; the positional

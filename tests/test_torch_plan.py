@@ -162,6 +162,22 @@ def test_entry_points_cache_their_plans(rng):
     assert not pnfft._PLAN_CACHE
 
 
+@pytest.mark.parametrize("bad_id", ["batch_size", "-1"])
+@pytest.mark.parametrize("builder", ["host", "device"])
+def test_builders_raise_on_batch_ids_outside_the_batch(rng, builder, bad_id):
+    """A batch id outside [0, batch_size) raises ValueError in both
+    builders (the JAX builders drop such points silently: a documented
+    deviation). 2D, N=16, m=3, sigma=2, es, n=200, ids 0-2 with
+    batch_size=2, or one id -1."""
+    pos, batch = points(rng, 200, 2, 3)
+    if bad_id == "-1":
+        batch = np.maximum(batch - 1, -1)  # ids -1..1
+        assert batch.min() == -1
+    build = tp.build_plan if builder == "host" else tp.build_plan_device
+    with pytest.raises(ValueError, match="outside the bin range"):
+        build(pos, batch, N=16, m=3, sigma=2.0, batch_size=2, window="es", device="cpu")
+
+
 def test_host_builder_raises_without_a_card(rng, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pos, _ = points(rng, 50, 2)

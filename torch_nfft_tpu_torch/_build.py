@@ -44,9 +44,10 @@ _FUNCTIONS = {
     # ... window floats, layout (int array, ops/contract.py:SpreadDesign), device, stream
     "tnt_spread_tiles_dense_contract": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_P, _I, _P],
     "tnt_spread_tiles_contract": [_P] * 5 + [_I] * 8 + [_F] * 3 + [_P, _I, _P],
-    "tnt_gather_points": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_I, _P],
-    # p0, p1, p2 and the derivative factor
-    "tnt_pos_grad": [_P] * 7 + [_I] * 9 + [_F] * 4 + [_I, _P],
+    # ... window floats, layout (int array, ops/contract.py:PointsLayout), device, stream
+    "tnt_gather_points": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_P, _I, _P],
+    # p0, p1, p2 and the derivative factor, layout, device, stream
+    "tnt_pos_grad": [_P] * 7 + [_I] * 9 + [_F] * 4 + [_P, _I, _P],
     # stream, row_start, row_count, out, ld, L, S, K, C, R, K's divisor, device, stream
     "tnt_expand_rows": [_P] * 4 + [_L] * 2 + [_I] * 4 + [_U, _I, _I, _P],
     # padded, row_start, row_count, out, 3 strides, size, n, S, K, C, layout,

@@ -1,13 +1,11 @@
-// Spread, gather and position-gradient window contractions of the binned
-// NFFT, for Hopper.
+// Spread window contractions of the binned NFFT, for Hopper. (The gather
+// and the position gradient are in points.cuh, gather.cu and pos_grad.cu;
+// the window functions in window.cuh.)
 //
 // Replaces the TPU kernels of the JAX package's ops/pallas/contract.py:
 //   tnt_spread_tiles_dense_contract, tnt_spread_tiles_dense
 //                           <- spread_tiles_dense_pallas (kernel
 //       _spread_dense_kernel) and its row-batched twin spread_tiles_rb_pallas;
-//   tnt_gather_points       <- gather_points_pallas (kernel _gather_kernel)
-//       and its row-batched twin gather_points_rb_pallas;
-//   tnt_pos_grad            <- pos_grad_pallas (kernel _pos_grad_kernel);
 //   tnt_spread_tiles_contract, tnt_spread_tiles
 //                           <- spread_tiles_pallas (kernel _spread_kernel),
 //       the per-row tiles of the flat-grid route.
@@ -17,8 +15,7 @@
 // window start cell w = (floor(M x_kd) - m) mod M, offset o = (w - o_sd) mod M
 // in [0, T), and window values phi(frac + m - l), l in [0, 2m+2), at tile
 // cells u = o + l. Spread adds x_k * prod_d phi_d into those L^dim cells of
-// the row's dense tile; gather sums the same cells of the tile weighted by
-// the same products.
+// the row's dense tile.
 //
 // Design of the spreads: two designs, chosen per call by the tile's
 // geometry (ops/contract.py:spread_design).
@@ -45,14 +42,10 @@
 //   in global memory (B7 zeroes its tile first). The float sums follow the
 //   atomics' order, so results agree with the plain version to float32
 //   rounding, not bits, and vary from run to run.
-//   gather: one block per row; each thread sums the support cells of its
-//   point from the row's tile (read through the read-only cache; the 8.8 KB
-//   tile stays in L1 for the block) and writes y[s, c, k]; empty slots get 0.
-//
 // Bound on the H100 at the 3D headline (n = 2^24, N = 256, sigma = 1.625,
 // m = 2, T = 8, K = 1024, 19,860 rows, NT = 52^3 tiles of H^3 = 2197 cells),
-// counting only the n filled slots' values and coordinates (neither kernel
-// reads a padded slot):
+// counting only the n filled slots' values and coordinates (no kernel reads
+// a padded slot):
 //   spread reads ~0.27 GB (values and coordinates) and writes the 1.24 GB
 //   dense tile array: bytes bound, ~0.45 ms at 3.35 TB/s; its ~9.7e9 flops
 //   (per point 3 x 6 window values at ~8 flops, 216 cells at 2 flops) take
@@ -66,35 +59,15 @@
 //   padded to 8) multiply-adds, 16 x 176 per point at C = 1 (one band of
 //   13 rows) and 112 x 176 at C = 8 (bands of R = 56 rows, the second
 //   holding 48, each issuing 7 x 8) (9.4e10 and 6.6e11 flops: 1.4 and 9.9
-//   ms at 67 TFLOP/s), besides forming each point's operands once per band. chip_smoke.py prints both the share of the bound and the
-//   issued flops' share of the float32 peak.
-//   gather reads the ~0.17 GB of tiles the rows name and ~0.2 GB of
-//   coordinates, and writes its (S, C, K) output, padded zeros included
-//   (~0.08 GB): ~0.14 ms of bytes against ~0.14 ms of the same flops, so
-//   it is bound by operations, by a hair. chip_smoke.py computes the
-//   bounds from its run's plan (bounds()) and prints them beside the times.
+//   ms at 67 TFLOP/s), besides forming each point's operands once per
+//   band. chip_smoke.py computes the bounds from its run's plan (bounds())
+//   and prints both the share of the bound and the issued flops' share of
+//   the float32 peak.
 // What holds the kernels back: the wide spread, its shared-memory atomics
 // (about 1.7 a clock per SM at C = 8); the contraction, the issue of its
 // FMAs and 16-byte shared loads (8 x 8 outputs a thread: 4 loads per 64
 // FMAs) and, at C = 1 where the band has only 13 rows, forming each
-// point's operands (its windows, one row of X and of KR); the gather, the
-// per-point window evaluation (expf, sqrtf).
-//
-// Position gradient (the position cotangent of both spread and gather).
-// For each filled slot k of row s, with D_d = M phi'(t) the derivative
-// window on axis d and w the per-point weights (the values x for the
-// spread's backward, the point cotangent for the gather's):
-//   dpos[s, d, k] = sum_c w[c, k] sum_cells T[c, cells] D_d prod_{e!=d} A_e
-// The kernel takes the gather's design: one block per row, one thread per
-// point, A and D built once per axis in registers, the row's tile read
-// through __ldg. The three axes share one pass over the L^dim support: the
-// innermost sums s = sum_w A_2 T and d = sum_w D_2 T (2 multiply-adds per
-// cell), then per (u, v) A_1 s, D_1 s, A_1 d, and per u D_0 (A_1 s),
-// A_0 (D_1 s), A_0 (A_1 d). Padded slots are written as 0. At the 3D
-// headline it reads the same tiles and coordinates as the gather, plus the
-// n weights, and writes the (S, 3, K) output (~0.24 GB): ~4 flops per cell
-// and channel against the gather's 2, so it is bound by operations
-// (chip_smoke.py:bounds).
+// point's operands (its windows, one row of X and of KR).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (torch_nfft_tpu_torch/_build.py). Plain C interface:
@@ -102,89 +75,20 @@
 
 #include <cuda_runtime.h>
 
+#include "tile.cuh"
+#include "window.cuh"
+
 namespace {
+
+using tnt::cp_async4;
+using tnt::cp_async_wait_all;
+using tnt::phi;
+using tnt::Window;
 
 constexpr int kMaxL = 20;  // window cells per axis: 2m + 2 <= 20
 constexpr int kThreads = 256;
 constexpr size_t kSmemDefault = 48 * 1024;
 constexpr size_t kSmemOptIn = 232448;  // 227 KB, the H100's per-block limit
-
-struct Window {
-  int kind;  // 0 gaussian, 1 es, 2 kb (ops/window.py:window_params)
-  float p0, p1, p2;
-};
-
-// Modified Bessel I0 for x >= 0, Abramowitz-Stegun 9.8.1/9.8.2.
-__device__ __forceinline__ float bessel_i0(float x) {
-  if (x < 3.75f) {
-    float y = x / 3.75f;
-    y = y * y;
-    return 1.0f + y * (3.5156229f + y * (3.0899424f + y * (1.2067492f +
-           y * (0.2659732f + y * (0.0360768f + y * 0.0045813f)))));
-  }
-  const float z = 3.75f / x;
-  const float p = 0.39894228f + z * (0.01328592f + z * (0.00225319f + z * (
-      -0.00157565f + z * (0.00916281f + z * (-0.02057706f + z * (
-      0.02635537f + z * (-0.01647633f + z * 0.00392377f)))))));
-  return expf(x) * rsqrtf(x) * p;
-}
-
-__device__ __forceinline__ float phi(const Window& w, float t) {
-  const float t2 = __fmul_rn(t, t);
-  if (w.kind == 0) return expf(-t2 * w.p0) * w.p1;
-  const float s2 = __fsub_rn(1.0f, __fmul_rn(t2, w.p1));
-  if (!(s2 > 0.0f)) return 0.0f;
-  const float s = sqrtf(s2);
-  if (w.kind == 1) return expf(w.p0 * (s - 1.0f));
-  return bessel_i0(w.p0 * s) * w.p2;
-}
-
-// Modified Bessel I1 for x >= 0, Abramowitz-Stegun 9.8.3/9.8.4.
-__device__ __forceinline__ float bessel_i1(float x) {
-  if (x < 3.75f) {
-    float y = x / 3.75f;
-    y = y * y;
-    return x * (0.5f + y * (0.87890594f + y * (0.51498869f + y * (
-        0.15084934f + y * (0.02658733f + y * (0.00301532f + y * 0.00032411f))))));
-  }
-  const float z = 3.75f / x;
-  const float inner = 0.02282967f + z * (-0.02895312f + z * (0.01787654f - z * 0.00420059f));
-  const float p = 0.39894228f + z * (-0.03988024f + z * (-0.00362018f + z * (
-      0.00163801f + z * (-0.01031555f + z * inner))));
-  return expf(x) * rsqrtf(x) * p;
-}
-
-// phi(t) and d phi / d pos = c t phi (gaussian), c t / s phi (es),
-// c t / s I1(beta s) / I0(beta) (kb), with c = dcoef
-// (ops/window.py:window_deriv_param) and 1/s clamped at s = 1e-6.
-__device__ __forceinline__ void phi_and_deriv(const Window& w, float dcoef,
-                                              float t, float* val,
-                                              float* der) {
-  const float t2 = __fmul_rn(t, t);
-  if (w.kind == 0) {
-    const float v = expf(-t2 * w.p0) * w.p1;
-    *val = v;
-    *der = dcoef * t * v;
-    return;
-  }
-  const float s2 = __fsub_rn(1.0f, __fmul_rn(t2, w.p1));
-  if (!(s2 > 0.0f)) {
-    *val = 0.0f;
-    *der = 0.0f;
-    return;
-  }
-  const float s = sqrtf(s2);
-  const float q = dcoef * t / fmaxf(s, 1e-6f);
-  if (w.kind == 1) {
-    const float v = expf(w.p0 * (s - 1.0f));
-    *val = v;
-    *der = q * v;
-    return;
-  }
-  const float bs = w.p0 * s;
-  *val = bessel_i0(bs) * w.p2;
-  *der = q * bessel_i1(bs) * w.p2;
-}
 
 // Window values of one coordinate on its L cells; returns the offset o of
 // the first cell inside the row's tile. The _rn intrinsics keep the window
@@ -200,24 +104,6 @@ __device__ __forceinline__ int axis_window(float p, int org, int M, int m,
   int o = (s - org) % M;
   if (o < 0) o += M;
   for (int l = 0; l < L; ++l) v[l] = phi(w, __fadd_rn(frac, static_cast<float>(m - l)));
-  return o;
-}
-
-// axis_window with the derivative windows dv beside the values v.
-__device__ __forceinline__ int axis_window_deriv(float p, int org, int M,
-                                                 int m, int L, const Window& w,
-                                                 float dcoef, float* v,
-                                                 float* dv) {
-  const float scaled = __fmul_rn(p, static_cast<float>(M));
-  const float fl = floorf(scaled);
-  const float frac = __fsub_rn(scaled, fl);
-  int s = (static_cast<int>(fl) - m) % M;
-  if (s < 0) s += M;
-  int o = (s - org) % M;
-  if (o < 0) o += M;
-  for (int l = 0; l < L; ++l)
-    phi_and_deriv(w, dcoef, __fadd_rn(frac, static_cast<float>(m - l)), v + l,
-                  dv + l);
   return o;
 }
 
@@ -339,15 +225,6 @@ struct Band {
   int buf;         // floats a chunk buffer: at least
                    // KC (RG kTM + CG kTN + dim H + 2 + dim + NCH), 16 B aligned
 };
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 template <bool kPerRow>
 __global__ void __launch_bounds__(kMaxThreadsRT) spread_contract_kernel(
@@ -586,103 +463,6 @@ __global__ void __launch_bounds__(kMaxThreadsRT) spread_contract_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) gather_kernel(
-    const float* __restrict__ tiles, const float* __restrict__ slot_pos,
-    const int* __restrict__ row_count, const int* __restrict__ origin,
-    const int* __restrict__ tile_index, float* __restrict__ y, int S, int K,
-    int C, int NT, int dim, int H, int M, int m, Window w) {
-  const int s = blockIdx.x;
-  const int tile = tile_index[s];
-  const int cnt = (tile >= 0 && tile < NT) ? row_count[s] : 0;
-  const Geometry g(dim, H, m);
-  const size_t SK = static_cast<size_t>(S) * K;
-  float* ys = y + static_cast<size_t>(s) * C * K;
-  const float* tl = tiles + static_cast<size_t>(cnt > 0 ? tile : 0) * C * g.cells;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    if (k >= cnt) {
-      for (int c = 0; c < C; ++c) ys[c * K + k] = 0.0f;
-      continue;
-    }
-    int o[3];
-    float v[3][kMaxL];
-    point_windows(slot_pos, origin, SK, static_cast<size_t>(s) * K + k, s, g,
-                  M, m, w, o, v);
-    for (int c = 0; c < C; ++c) {
-      const float* a = tl + c * g.cells;
-      float sum = 0.0f;
-      for (int l0 = 0; l0 < g.L && o[0] + l0 < g.H; ++l0) {
-        float s1 = 0.0f;
-        for (int l1 = 0; l1 < g.L1 && o[1] + l1 < g.H1; ++l1) {
-          const float* r = a + ((o[0] + l0) * g.H1 + o[1] + l1) * g.H2 + o[2];
-          float s2 = 0.0f;
-          for (int l2 = 0; l2 < g.L2 && o[2] + l2 < g.H2; ++l2)
-            s2 += v[2][l2] * __ldg(r + l2);
-          s1 += v[1][l1] * s2;
-        }
-        sum += v[0][l0] * s1;
-      }
-      ys[c * K + k] = sum;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) pos_grad_kernel(
-    const float* __restrict__ tiles, const float* __restrict__ wts,
-    const float* __restrict__ slot_pos, const int* __restrict__ row_count,
-    const int* __restrict__ origin, const int* __restrict__ tile_index,
-    float* __restrict__ dpos, int S, int K, int C, int NT, int dim, int H,
-    int M, int m, Window w, float dcoef) {
-  const int s = blockIdx.x;
-  const int tile = tile_index[s];
-  const int cnt = (tile >= 0 && tile < NT) ? row_count[s] : 0;
-  const Geometry g(dim, H, m);
-  const size_t SK = static_cast<size_t>(S) * K;
-  float* out = dpos + static_cast<size_t>(s) * dim * K;
-  const float* tl = tiles + static_cast<size_t>(cnt > 0 ? tile : 0) * C * g.cells;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    if (k >= cnt) {
-      for (int d = 0; d < dim; ++d) out[d * K + k] = 0.0f;
-      continue;
-    }
-    const size_t j = static_cast<size_t>(s) * K + k;
-    int o[3] = {0, 0, 0};
-    float v[3][kMaxL], dv[3][kMaxL];
-    v[1][0] = v[2][0] = 1.0f;  // absent axes: value 1, derivative 0
-    dv[1][0] = dv[2][0] = 0.0f;
-    for (int d = 0; d < dim; ++d)
-      o[d] = axis_window_deriv(slot_pos[d * SK + j], origin[s * dim + d], M, m,
-                               g.L, w, dcoef, v[d], dv[d]);
-    float grad[3] = {0.0f, 0.0f, 0.0f};
-    for (int c = 0; c < C; ++c) {
-      const float* a = tl + c * g.cells;
-      float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f;
-      for (int l0 = 0; l0 < g.L && o[0] + l0 < g.H; ++l0) {
-        float sv = 0.0f, sd1 = 0.0f, sd2 = 0.0f;
-        for (int l1 = 0; l1 < g.L1 && o[1] + l1 < g.H1; ++l1) {
-          const float* r = a + ((o[0] + l0) * g.H1 + o[1] + l1) * g.H2 + o[2];
-          float s2 = 0.0f, d2 = 0.0f;
-          for (int l2 = 0; l2 < g.L2 && o[2] + l2 < g.H2; ++l2) {
-            const float tv = __ldg(r + l2);
-            s2 += v[2][l2] * tv;
-            d2 += dv[2][l2] * tv;
-          }
-          sv += v[1][l1] * s2;
-          sd1 += dv[1][l1] * s2;
-          sd2 += v[1][l1] * d2;
-        }
-        acc0 += dv[0][l0] * sv;
-        acc1 += v[0][l0] * sd1;
-        acc2 += v[0][l0] * sd2;
-      }
-      const float wc = wts[c * SK + j];
-      grad[0] += wc * acc0;
-      grad[1] += wc * acc1;
-      grad[2] += wc * acc2;
-    }
-    for (int d = 0; d < dim; ++d) out[d * K + k] = grad[d];
-  }
-}
-
 // Launches spread_kernel<kPerRow> with S blocks, the accumulator in
 // dynamic shared memory when C * H^dim floats fit the opt-in limit.
 template <bool kPerRow>
@@ -792,32 +572,6 @@ int tnt_spread_tiles_contract(const float* vals, const float* slot_pos,
   return launch_spread_contract<true>(vals, slot_pos, row_count, origin,
                                       nullptr, out, S, K, C, S, dim, H, M, m,
                                       kind, p0, p1, p2, layout, device, stream);
-}
-
-int tnt_gather_points(const float* tiles, const float* slot_pos,
-                      const int* row_count, const int* origin,
-                      const int* tile_index, float* y, int S, int K, int C,
-                      int NT, int dim, int H, int M, int m, int kind, float p0,
-                      float p1, float p2, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess || S == 0) return static_cast<int>(err);
-  gather_kernel<<<S, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tiles, slot_pos, row_count, origin, tile_index, y, S, K, C, NT, dim, H,
-      M, m, Window{kind, p0, p1, p2});
-  return static_cast<int>(cudaGetLastError());
-}
-
-int tnt_pos_grad(const float* tiles, const float* wts, const float* slot_pos,
-                 const int* row_count, const int* origin,
-                 const int* tile_index, float* dpos, int S, int K, int C,
-                 int NT, int dim, int H, int M, int m, int kind, float p0,
-                 float p1, float p2, float dcoef, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess || S == 0) return static_cast<int>(err);
-  pos_grad_kernel<<<S, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tiles, wts, slot_pos, row_count, origin, tile_index, dpos, S, K, C, NT,
-      dim, H, M, m, Window{kind, p0, p1, p2}, dcoef);
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* tnt_error_string(int code) {

@@ -7,7 +7,8 @@
 // thread's other bits. A stage at tile bit d < 5 exchanges across lanes, at
 // a bit inside the register bits within a thread; a stage elsewhere first
 // moves the tile through shared memory into a layout whose register bits
-// cover it (each kernel's relayout).
+// cover it (each kernel's relayout). Also the launch and copy helpers the
+// kernels share.
 
 #pragma once
 
@@ -52,6 +53,23 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
   if (smem <= kSmemDefault) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
+}
+
+// Asynchronous copies from global to shared memory (cp.async): 4 bytes,
+// or 16 with both addresses 16-byte aligned; wait_all waits for the
+// thread's own copies (a barrier then publishes them to the block).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 }  // namespace tnt

@@ -281,7 +281,9 @@ def build_plan_device(pos, batch=None, *, N: int, m: int, sigma: float = 2.0,
     """Build a :class:`BinnedPlan` with every O(n) step on ``device`` (the
     CUDA card unless ``device="cpu"``; raises when no card is there and no
     device was asked for). The host lays out only the O(rows) row tables
-    from the per-bin histogram."""
+    from the per-bin histogram. A batch id outside [0, batch_size) raises
+    ``ValueError``, as in the host builder (the JAX builders drop such
+    points)."""
     check_window(window)
     dev = resolve_device(device)
     # binning must match the float32 kernels
@@ -294,6 +296,13 @@ def build_plan_device(pos, batch=None, *, N: int, m: int, sigma: float = 2.0,
         batch_t = torch.as_tensor(batch, device=pos.device).to(torch.int32)
         if batch_size is None:
             batch_size = int(batch_t[-1]) + 1
+        if n:
+            # the host builder's check (_native.plan_tables), as one min/max
+            # pass on the device: the JAX builders drop such points silently
+            lo, hi = torch.aminmax(batch_t)
+            if int(lo) < 0 or int(hi) >= batch_size:
+                raise ValueError("a point's bin lies outside the bin range (batch id "
+                                 "outside [0, batch_size)?)")
     M = int(round(sigma * N))
 
     def histogram(t):

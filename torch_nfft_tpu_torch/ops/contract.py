@@ -23,20 +23,28 @@ JAX package's TPU kernel
 its row-batched twin ``spread_tiles_rb_pallas``, which computes the same
 function); ``gather_points`` replaces ``gather_points_pallas`` (and
 ``gather_points_rb_pallas``); ``pos_grad`` replaces ``pos_grad_pallas``.
-The kernels are in ``csrc/contract.cu``; the design and the bound on the
-H100 are in the note there.
+The spreads are in ``csrc/contract.cu``, the gather and the position
+gradient in ``csrc/points.cuh`` (built by ``gather.cu`` and
+``pos_grad.cu``); the design and the bound on the H100 are in the notes
+there.
 
 The two spreads have two designs, chosen per call by :func:`spread_design`
 from the tile's geometry and the columns: the register-tiled contraction
 (``"contraction"``, no atomics, bitwise reproducible), which does
 H^dim / L^dim times the sparse work, and, where that ratio exceeds
 ``DENSE_RATIO_MAX``'s limit for C, the sparse kernel with shared-memory
-atomics (``"wide"``).
+atomics (``"wide"``). The gather and the position gradient launch as
+:func:`points_layout` lays them out: the row's tile staged in shared memory
+(cell-major at C > 1) where it fits, G lanes a point, rows a block, the
+row's points given to the lanes in the order of their banks; the launch
+refuses a layout that does not fit the call.
 
 Each wrapper launches its kernel for CUDA tensors, or raises; it takes the
-plain version only for CPU tensors. ``launches`` on each wrapper counts the
-kernel launches; the spreads also count them per design in
-``launches_by_design``.
+plain version only for CPU tensors. On the card the kernels take windows of
+2m + 2 <= ``MAX_L`` cells (m <= 9); :func:`check_window_width` raises
+before any launch beyond that. The plain versions take any m.
+``launches`` on each wrapper counts the kernel launches; the spreads also
+count them per design in ``launches_by_design``.
 """
 
 from __future__ import annotations
@@ -55,8 +63,12 @@ from .window import (
 )
 
 __all__ = [
+    "MAX_L",
     "SpreadDesign",
     "spread_design",
+    "PointsLayout",
+    "points_layout",
+    "check_window_width",
     "spread_tiles",
     "spread_tiles_dense",
     "gather_points",
@@ -67,7 +79,10 @@ __all__ = [
     "pos_grad_plain",
 ]
 
-_MAX_L = 20  # window cells per axis the kernels hold: 2m + 2 <= 20
+# Window cells per axis the kernels hold on the card: 2m + 2 <= MAX_L
+# (csrc/points.cuh instantiates the gather and the position gradient at
+# every even L from 2 to MAX_L; csrc/contract.cu's wide spread holds MAX_L).
+MAX_L = 20
 
 # The spread's contraction design runs while a tile's cells over a point's
 # window cells, (H / L)^dim, stay at or under DENSE_RATIO_MAX[c], c the
@@ -188,6 +203,78 @@ def spread_design(dim: int, H: int, m: int, C: int, *, name: str | None = None,
              f"KC={KC}, R={R} need {band['smem']} bytes of shared memory")
     return SpreadDesign("contraction", dim, H, C, ratio, R, PB, KC,
                         row_bands=-(-rows // R), col_bands=col_bands, **band)
+
+
+# The launch of the gather and the position gradient
+# (csrc/points.cuh:points_kernel) per column class (1: C = 1, 2: C > 1):
+# (G lanes a point, threads a block, plan rows a block, lanes sorted by
+# bank). chip_smoke.py phase 6b times every G, rows, threads and order at
+# C = 1 (dense tiles) and C = 8 (per-row tiles) on the headline points;
+# these were the fastest there. G = 1 won everywhere.
+POINTS_LAYOUT = {
+    "gather_points": {1: (1, 256, 1, True), 2: (1, 256, 1, True)},
+    "pos_grad": {1: (1, 128, 1, False), 2: (1, 256, 1, True)},
+}
+POINTS_THREADS = 256  # csrc/points.cuh:kMaxThreads (its __launch_bounds__)
+
+
+@dataclass(frozen=True)
+class PointsLayout:
+    """How a gather or position-gradient launch runs: ``G`` lanes a point,
+    ``threads`` a block, ``rows`` plan rows a block; ``staged``: the row's
+    tile copied into shared memory (as it lies at C = 1, cell-major with
+    ``Cp`` columns a cell at C > 1), else read from global memory;
+    ``sorted``: the row's points given to the lanes in the order of the
+    banks their cells lie on (K + 32 ints after the tile); ``smem`` bytes
+    of shared memory."""
+
+    G: int
+    threads: int
+    rows: int
+    staged: bool
+    Cp: int
+    smem: int
+    sorted: bool
+
+    def args(self):
+        """The launch as csrc/points.cuh:launch reads it (keep the array
+        alive for the call)."""
+        vals = (self.G, self.threads, self.rows, int(self.staged), self.Cp, self.smem,
+                int(self.sorted))
+        return (ctypes.c_int * len(vals))(*vals)
+
+
+def points_layout(kernel: str, dim: int, H: int, C: int, K: int, *, G: int | None = None,
+                  threads: int | None = None, rows: int | None = None,
+                  staged: bool | None = None, sort: bool | None = None) -> PointsLayout:
+    """The launch of ``kernel`` ("gather_points" or "pos_grad") for tiles of
+    edge ``H``, ``C`` columns and rows of ``K`` slots: ``POINTS_LAYOUT``'s
+    entry (G = 1 in 1D, where a point has one line of cells), the tile
+    staged in shared memory when it fits the opt-in limit (C H^dim floats,
+    C rounded up to 4 at C > 1), the lanes sorted as the entry says when
+    that fits too. ``G``, ``threads``, ``rows``, ``staged`` and ``sort``
+    override; results do not depend on them beyond float rounding (G)."""
+    _require(kernel in POINTS_LAYOUT, f"unknown kernel {kernel!r}")
+    G0, t0, r0, s0 = POINTS_LAYOUT[kernel][1 if C == 1 else 2]
+    G = (1 if dim == 1 else G0) if G is None else G
+    threads = t0 if threads is None else threads
+    rows = r0 if rows is None else rows
+    _require(G in (1, 2, 4, 8), f"G must be 1, 2, 4 or 8, not {G}")
+    _require(threads % 32 == 0 and 32 <= threads <= POINTS_THREADS,
+             f"threads must be a multiple of 32 in [32, {POINTS_THREADS}]")
+    _require(rows >= 1, "rows must be at least 1")
+    cells = H**dim
+    Cp = 1 if C == 1 else -(-C // 4) * 4
+    tile = 4 * (-(-(cells + 3) // 4) * 4 if C == 1 else Cp * cells)
+    order = 4 * (K + 32)
+    staged = tile <= SMEM_MAX if staged is None else staged
+    _require(tile <= SMEM_MAX or not staged, f"a tile of {tile} bytes exceeds shared memory")
+    sort = s0 and staged and tile + order <= SMEM_MAX if sort is None else sort
+    _require(staged or not sort, "only a staged tile sorts its lanes")
+    _require(tile + order <= SMEM_MAX or not sort,
+             f"a tile of {tile} bytes and the order of {K} slots exceed shared memory")
+    smem = (tile + (order if sort else 0)) if staged else 0
+    return PointsLayout(G, threads, rows, staged, Cp, smem, sort)
 
 
 def _row_windows(pos_rows, origin, M: int, m: int, H: int, phi):
@@ -347,16 +434,32 @@ def _check_plan_tensors(plan, t: torch.Tensor, tile_index: torch.Tensor | None) 
     _require(tuple(plan.slot_pos.shape) == (plan.dim, S * plan.K),
              "slot_pos must be (dim, S*K)")
     _require(1 <= plan.dim <= 3, "the kernels take dim 1, 2 or 3")
-    _require(2 * plan.m + 2 <= _MAX_L, f"the kernels take 2m+2 <= {_MAX_L}")
 
 
-def _route(t: torch.Tensor) -> bool:
-    """True to launch the CUDA kernel, False for the plain version."""
+def check_window_width(m: int, device) -> None:
+    """Raise ``ValueError`` when the CUDA kernels hold no window of 2m + 2
+    cells and ``device`` is a card: the entry points call it before they
+    build a plan or launch anything. The CPU takes any m."""
+    if torch.device(device).type == "cuda" and not 2 <= 2 * m + 2 <= MAX_L:
+        raise ValueError(f"the CUDA kernels take windows of 2m+2 <= {MAX_L} cells "
+                         f"(m <= {MAX_L // 2 - 1}), not m={m}; device='cpu' takes any m")
+
+
+def _route(t: torch.Tensor, plan=None) -> bool:
+    """True to launch the CUDA kernel, False for the plain version; a window
+    kernel's ``plan`` is checked against the widths the card holds."""
     if t.device.type == "cuda":
+        if plan is not None:
+            check_window_width(plan.m, t.device)
         return True
     if t.device.type == "cpu":
         return False
     raise ValueError(f"unsupported device {t.device}")
+
+
+def _stream(t: torch.Tensor) -> tuple:
+    """(device index, CUDA stream) of a launch on ``t``'s card."""
+    return t.device.index or 0, torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _check_tiles(plan, tiles: torch.Tensor, tile_index: torch.Tensor) -> None:
@@ -370,8 +473,7 @@ def _check_tiles(plan, tiles: torch.Tensor, tile_index: torch.Tensor) -> None:
 
 def _kernel_args(plan, t: torch.Tensor):
     kind, p0, p1, p2 = window_params(plan.m, plan.sigma, plan.window)
-    return (plan.dim, plan.H, plan.M, plan.m, kind, p0, p1, p2,
-            t.device.index or 0, torch.cuda.current_stream(t.device).cuda_stream)
+    return (plan.dim, plan.H, plan.M, plan.m, kind, p0, p1, p2, *_stream(t))
 
 
 def _check_vals(plan, vals: torch.Tensor, tile_index: torch.Tensor | None) -> None:
@@ -405,7 +507,7 @@ def spread_tiles(plan, vals: torch.Tensor, design: SpreadDesign | None = None) -
     C = vals.shape[0]
     _check_vals(plan, vals, None)
     d = _design_for(plan, C, design)
-    if not _route(vals):
+    if not _route(vals, plan):
         return spread_tiles_plain(plan, vals)
     dim, H, M, m, kind, p0, p1, p2, device, stream = _kernel_args(plan, vals)
     out = torch.empty((S, C, H, H ** (dim - 1)), dtype=torch.float32,
@@ -440,7 +542,7 @@ def spread_tiles_dense(plan, vals: torch.Tensor, tile_index: torch.Tensor,
     C = vals.shape[0]
     _check_vals(plan, vals, tile_index)
     d = _design_for(plan, C, design)
-    if not _route(vals):
+    if not _route(vals, plan):
         return spread_tiles_dense_plain(plan, vals, tile_index, NT)
     H, dim = plan.H, plan.dim
     out = torch.zeros((NT, C, H, H ** (dim - 1)), dtype=torch.float32,
@@ -464,19 +566,25 @@ spread_tiles_dense.launches = 0
 spread_tiles_dense.launches_by_design = {"contraction": 0, "wide": 0}
 
 
-def gather_points(plan, tiles: torch.Tensor, tile_index: torch.Tensor) -> torch.Tensor:
+def gather_points(plan, tiles: torch.Tensor, tile_index: torch.Tensor,
+                  layout: PointsLayout | None = None) -> torch.Tensor:
     """Dense tiles (NT, C, H, H^{dim-1}) -> slot values (S, C, K); row s
-    reads tile ``tile_index[s]``, empty slots are 0."""
+    reads tile ``tile_index[s]``, empty slots are 0. ``layout`` (from
+    :func:`points_layout` for this call) overrides the default."""
     S, K = plan.slot_pt.shape
     _check_tiles(plan, tiles, tile_index)
     NT, C = tiles.shape[:2]
-    if not _route(tiles):
+    lay = layout or points_layout("gather_points", plan.dim, plan.H, C, plan.K)
+    if not _route(tiles, plan):
         return gather_points_plain(plan, tiles, tile_index)
     y = torch.empty((S, C, K), dtype=torch.float32, device=tiles.device)
+    dim, H, M, m, kind, p0, p1, p2, device, stream = _kernel_args(plan, tiles)
+    args = lay.args()
     check(library().tnt_gather_points(
         tiles.data_ptr(), plan.slot_pos.data_ptr(), plan.row_count.data_ptr(),
         plan.origin.data_ptr(), tile_index.data_ptr(), y.data_ptr(),
-        S, K, C, NT, *_kernel_args(plan, tiles)))
+        S, K, C, NT, dim, H, M, m, kind, p0, p1, p2, ctypes.addressof(args), device,
+        stream))
     gather_points.launches += 1
     return y
 
@@ -485,10 +593,11 @@ gather_points.launches = 0
 
 
 def pos_grad(plan, tiles: torch.Tensor, w_slot: torch.Tensor,
-             tile_index: torch.Tensor) -> torch.Tensor:
+             tile_index: torch.Tensor, layout: PointsLayout | None = None) -> torch.Tensor:
     """Dense tiles (NT, C, H, H^{dim-1}) and slot-ordered weights (C, S*K)
     -> slot-ordered position cotangent (S, dim, K); row s reads tile
-    ``tile_index[s]``, empty slots are 0."""
+    ``tile_index[s]``, empty slots are 0. ``layout`` as in
+    :func:`gather_points`."""
     S, K = plan.slot_pt.shape
     _check_tiles(plan, tiles, tile_index)
     NT, C = tiles.shape[:2]
@@ -497,16 +606,18 @@ def pos_grad(plan, tiles: torch.Tensor, w_slot: torch.Tensor,
     _require(w_slot.dtype == torch.float32 and w_slot.is_contiguous(),
              "w_slot must be contiguous float32")
     _require(tuple(w_slot.shape) == (C, S * K), f"w_slot must be ({C}, {S * K})")
-    if not _route(tiles):
+    lay = layout or points_layout("pos_grad", plan.dim, plan.H, C, plan.K)
+    if not _route(tiles, plan):
         return pos_grad_plain(plan, tiles, w_slot, tile_index)
     out = torch.empty((S, plan.dim, K), dtype=torch.float32, device=tiles.device)
     dim, H, M, m, kind, p0, p1, p2, device, stream = _kernel_args(plan, tiles)
+    args = lay.args()
     check(library().tnt_pos_grad(
         tiles.data_ptr(), w_slot.data_ptr(), plan.slot_pos.data_ptr(),
         plan.row_count.data_ptr(), plan.origin.data_ptr(), tile_index.data_ptr(),
         out.data_ptr(), S, K, C, NT, dim, H, M, m, kind, p0, p1, p2,
         window_deriv_param(plan.m, plan.sigma, plan.window, M=plan.M),
-        device, stream))
+        ctypes.addressof(args), device, stream))
     pos_grad.launches += 1
     return out
 

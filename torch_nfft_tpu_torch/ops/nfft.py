@@ -20,7 +20,9 @@ grad, in the positions. Only the binned strategy is ported: ``"auto"`` and
 a point set and kept in a least-recently-used cache of four plans keyed by
 the content of (pos, batch) and the geometry, as the JAX package does;
 :func:`clear_plan_cache` empties it. Each call runs on the CUDA card unless
-``device="cpu"`` is given.
+``device="cpu"`` is given; on the card m is at most 9 (2m + 2 <= 20 window
+cells, ``ops/contract.py:check_window_width``), checked before any plan is
+built or kernel launched.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from .._device import resolve_device
 from .binned import build_plan, gather_binned, host_array, spread_binned
+from .contract import check_window_width
 from .fft import spectral_adjoint, spectral_forward
 from .planar import check_strategy, grad_pos, setup_plan, shape_of
 from .window import DEFAULT_SIGMA, DEFAULT_WINDOW
@@ -55,6 +58,7 @@ def _cached_plan(pos, batch, *, N, m, sigma, batch_size, window, device):
     the cache when the same content was planned before. The key hashes the
     float32 positions and the batch vector, read on the host."""
     dev = resolve_device(device)
+    check_window_width(m, dev)
     p = host_array(pos, np.float32)
     h = hashlib.blake2b(p.tobytes(), digest_size=16)
     b = None if batch is None else host_array(batch, np.int32)

@@ -16,7 +16,9 @@ for NumPy positions, against the bin-id fingerprint of the points it was
 built for (host plans carry one).
 
 Every entry point runs on the CUDA card unless ``device="cpu"`` is given,
-and raises when no card is there and no device was asked for.
+and raises when no card is there and no device was asked for. On the card
+m is at most 9 (``ops/contract.py:check_window_width``), checked before any
+plan is built or kernel launched; the CPU takes any m.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from .binned import (
     spread_binned,
     spread_route,
 )
+from .contract import check_window_width
 from .fft import spectral_adjoint, spectral_forward
 from .window import DEFAULT_SIGMA, DEFAULT_WINDOW
 
@@ -99,6 +102,7 @@ def setup_plan(pos, batch, plan, *, batch_size, N, m, sigma, window, device):
     """Resolve the device and return a plan for (pos, batch) that matches the
     transform's geometry."""
     dev = resolve_device(device)
+    check_window_width(m, dev)
     M = int(round(sigma * N))
     if plan is None:
         if isinstance(pos, torch.Tensor):
