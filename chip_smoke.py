@@ -42,8 +42,8 @@ sizes (each bitwise equal to the defaults), holds both spread designs
 against the plain versions on the headline points binned at T = 8 and
 T = 16, times the per-row spread's two designs at T = 8-24 and C = 1-8
 (which set ``contract.DENSE_RATIO_MAX``), times the gather and the
-position gradient at C = 1 and 8 in every launch layout (G lanes a point,
-rows and threads a block, lanes sorted by bank or not: the times behind
+position gradient at C = 1 and 8 in every launch layout (threads a
+block, lanes sorted by bank or not: the times behind
 ``contract.POINTS_LAYOUT``; phase 1 requires every instantiation of their
 kernel to keep no stack), times the pair stage by stage on
 every route (the stages ``nfft_pair_planar`` runs) and reads the device's
@@ -54,12 +54,6 @@ Every phase prints its seconds; any failure exits non-zero. The line before
 the last is a JSON object listing the kernels with their times and bounds;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA card it
 exits with code 2 and prints no result.
-
-    python3 chip_smoke.py --points
-
-times only the gather and the position gradient at the headline (C = 1 and
-C = 8); a copy of this script beside an older checkout's package times that
-package's kernels.
 """
 
 from __future__ import annotations
@@ -1514,38 +1508,31 @@ def main() -> int:
             limit = contract.DENSE_RATIO_MAX[max(c for c in contract.DENSE_RATIO_MAX if c <= C_s)]
             print(f"C={C_s}: the contraction was faster at ratios [{won_c}]; "
                   f"contract.DENSE_RATIO_MAX takes it up to {limit}")
-        # the gather's and the position gradient's launch layouts: G lanes a
-        # point, rows and threads a block, the lanes' order sorted by bank or
-        # not, at C = 1 (dense tiles) and C_WIDE (per-row tiles); the same
-        # bits for one G, within float rounding across G. The times behind
-        # contract.POINTS_LAYOUT.
+        # the gather's and the position gradient's launch layouts: threads a
+        # block, the lanes' order sorted by bank or not, at C = 1 (dense
+        # tiles) and C_WIDE (per-row tiles); every layout gives the same
+        # bits. The times behind contract.POINTS_LAYOUT.
         for C_s, tl_s, tid_s, w_s in ((1, tiles, tid, vals), (C_WIDE, tiles_r8, rows_id, vals8)):
             for name, fn in (
                     ("gather_points",
                      lambda lay: contract.gather_points(plan, tl_s, tid_s, lay)),
                     ("pos_grad", lambda lay: contract.pos_grad(plan, tl_s, w_s, tid_s, lay))):
-                want, best, same_g = fn(None), None, {}
-                for G_l, rows_l, threads_l, sort_l in [
-                        (g, r, t, srt) for g in (1, 2, 4, 8)
-                        for r, t, srt in ((1, 256, True), (2, 256, True), (4, 256, True),
-                                          (1, 128, True), (1, 256, False), (1, 128, False))]:
-                    lay = contract.points_layout(name, DIM, plan.H, C_s, plan.K, G=G_l,
-                                                 rows=rows_l, threads=threads_l, sort=sort_l)
+                want, best = fn(None), None
+                for threads_l, sort_l in ((256, True), (128, True), (256, False), (128, False)):
+                    lay = contract.points_layout(name, DIM, plan.H, C_s, plan.K,
+                                                 threads=threads_l, sort=sort_l)
                     out = fn(lay)
-                    rel_g = rel_l2(out, want)
-                    same = torch.equal(out, same_g.setdefault(G_l, out))
+                    same = torch.equal(out, want)
                     del out
-                    assert rel_g <= 1e-5 and same, \
-                        f"{name} C={C_s} G={G_l} rows={rows_l}: {rel_g:.3e}, {same}"
+                    assert same, f"{name} C={C_s} threads={threads_l} sorted={sort_l}: " \
+                                 f"not bitwise equal to the default"
                     ms_l = time_ms(lambda: fn(lay), 5)
                     best = min(best or (ms_l, lay), (ms_l, lay), key=lambda b: b[0])
-                    print(f"{name} C={C_s} G={G_l} rows={rows_l} threads={threads_l} "
-                          f"sorted={sort_l}: {ms_l:.4f} ms (vs the default rel_l2={rel_g:.3e}; "
-                          f"bitwise equal to G={G_l}, rows=1)")
-                del want, same_g
-                print(f"{name} C={C_s}: fastest G={best[1].G} rows={best[1].rows} "
-                      f"threads={best[1].threads} sorted={best[1].sorted} ({best[0]:.4f} ms); "
-                      f"the default is "
+                    print(f"{name} C={C_s} threads={threads_l} sorted={sort_l}: {ms_l:.4f} ms "
+                          f"(bitwise equal to the default)")
+                del want
+                print(f"{name} C={C_s}: fastest threads={best[1].threads} "
+                      f"sorted={best[1].sorted} ({best[0]:.4f} ms); the default is "
                       f"{contract.points_layout(name, DIM, plan.H, C_s, plan.K)}")
         del vals8, tiles_r8
 
@@ -1587,43 +1574,5 @@ def main() -> int:
     return 0
 
 
-def main_points() -> int:
-    """``--points``: time the gather and the position gradient alone at the
-    headline, C = 1 on dense tiles and C = C_WIDE on per-row tiles, through
-    the wrappers' signatures of every tree since the port's first slice,
-    so that a copy of this script beside an older checkout's package times
-    that package's kernels (parent against change in one call)."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script needs one card", file=sys.stderr)
-        return 2
-    dev = tp.resolve_device(None)
-    n = 1 << N_LOG2
-    card = nvidia_smi_line()
-    print(card)
-    pos, x = headline_data(n, dev)
-    plan = tp.build_plan_device(pos, None, N=N, m=M_CUT, sigma=SIGMA, batch_size=1,
-                                window=WINDOW)
-    gen = torch.Generator(device=dev).manual_seed(5)
-    g1 = torch.randn((1, 1) + (plan.M,) * DIM, device=dev, generator=gen)
-    g8 = torch.randn((1, C_WIDE) + (plan.M,) * DIM, device=dev, generator=gen)
-    x8 = torch.randn((n, C_WIDE), device=dev, generator=gen)
-    cases = {1: (unfold_grid_to_tiles(g1, plan), row_tile_ids(plan), slot_values(plan, x)),
-             C_WIDE: (binned.grid_to_tiles(plan, g8),
-                      torch.arange(plan.S, dtype=torch.int32, device=dev),
-                      slot_values(plan, x8))}
-    del g1, g8
-    out = {}
-    for C, (tiles, tid, w) in cases.items():
-        b = bounds(plan, C, int(torch.unique(tid).numel()))
-        for name, fn, (b_ms, b_by) in (
-                ("gather_points", lambda: contract.gather_points(plan, tiles, tid), b[1]),
-                ("pos_grad", lambda: contract.pos_grad(plan, tiles, w, tid), b[2])):
-            ms = time_ms(fn, 10)
-            print(f"{name} C={C}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by})")
-            out[f"{name}_c{C}"] = ms
-    print(json.dumps({"points_ms": out, "card": card, "package": tp.__file__}))
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main_points() if sys.argv[1:] == ["--points"] else main())
+    sys.exit(main())

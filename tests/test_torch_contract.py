@@ -221,9 +221,8 @@ def test_points_layout_stages_what_fits(C, H, dim, staged, Cp, tile):
     # a sorted lane order takes K + 32 ints after the tile
     assert (lay.staged, lay.sorted, lay.Cp) == (staged, staged, Cp)
     assert lay.smem == (tile + 4 * (K + 32) if staged else 0)
-    assert lay.threads <= pcontract.POINTS_THREADS and lay.G in (1, 2, 4, 8)
+    assert lay.threads <= pcontract.POINTS_THREADS
     for name in pcontract.POINTS_LAYOUT:
-        assert pcontract.points_layout(name, 1, H, C, K).G == 1  # one line of cells in 1D
         assert pcontract.points_layout(name, dim, H, C, K).staged == staged
     if staged:
         assert not pcontract.points_layout("pos_grad", dim, H, C, K, staged=False).staged
@@ -243,8 +242,9 @@ def test_points_layout_drops_the_order_that_does_not_fit():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(kernel="spread"), "unknown kernel"), (dict(G=3), "G must be"), (dict(threads=100), "threads must be"),
-    (dict(threads=512), "threads must be"), (dict(rows=0), "rows must be"),
+    (dict(kernel="spread"), "unknown kernel"), (dict(threads=100), "threads must be"),
+    (dict(threads=512), "threads must be"), (dict(threads=0), "threads must be"),
+    (dict(threads=288), "threads must be"),
 ])
 def test_points_layout_rejects_what_the_kernel_cannot_launch(kw, match):
     with pytest.raises(ValueError, match=match):

@@ -241,9 +241,10 @@ def test_pos_grad_matches_plain(card, rng, dim, N, m, sigma, window, n, C):
     assert bool((got.transpose(1, 2)[~kmask] == 0).all())  # padded slots
 
 
-# The gather (B2) and the position gradient (B5) in every launch layout:
-# G lanes a point (None: the default), the row's tile staged in shared
-# memory or, beyond the opt-in limit, read from global memory.
+# The gather (B2) and the position gradient (B5) in several launch layouts
+# (None: the default; threads a block, the lanes' order), the row's tile
+# staged in shared memory or, beyond the opt-in limit, read from global
+# memory.
 POINT_CASES = [
     # dim, N, m, sigma, window, n, C, T, staged
     (1, 64, 1, 2.0, "gaussian", 3000, 1, None, True),
@@ -261,9 +262,10 @@ POINT_CASES = [
 ]
 
 
-@pytest.mark.parametrize("G", [None, 1, 2, 4, 8])
+@pytest.mark.parametrize("lay_kw", [None, dict(threads=64), dict(sort=False)])
 @pytest.mark.parametrize("dim,N,m,sigma,window,n,C,T,staged", POINT_CASES)
-def test_points_kernels_match_plain(card, rng, dim, N, m, sigma, window, n, C, T, staged, G):
+def test_points_kernels_match_plain(card, rng, dim, N, m, sigma, window, n, C, T, staged,
+                                    lay_kw):
     """Both kernels against their plain versions (rel-L2 1e-5), padded slots
     and an empty row exactly 0, per-row tiles at C = 8 (the flat route's)
     and dense tiles else, the tile staged in shared memory or read from
@@ -280,8 +282,8 @@ def test_points_kernels_match_plain(card, rng, dim, N, m, sigma, window, n, C, T
     else:
         tiles, tid = unfold_grid_to_tiles(g, plan), row_tile_ids(plan)
     w = torch.randn((C, plan.S * plan.K), device=card)
-    lays = {name: None if G is None else contract.points_layout(name, dim, plan.H, C, plan.K,
-                                                                 G=G)
+    lays = {name: None if lay_kw is None else contract.points_layout(name, dim, plan.H, C,
+                                                                      plan.K, **lay_kw)
             for name in ("gather_points", "pos_grad")}
     assert contract.points_layout("pos_grad", dim, plan.H, C, plan.K).staged == staged
     kmask = torch.arange(plan.K, device=card)[None, :] < plan.row_count[:, None]
@@ -299,29 +301,27 @@ def test_points_kernels_match_plain(card, rng, dim, N, m, sigma, window, n, C, T
         assert _rel(got, ref) <= 1e-5, name
         assert bool((got[-1] == 0).all()), name  # the empty row
         assert bool((got.transpose(1, 2)[~kmask] == 0).all()), name  # padded slots
-        if G is None:
+        if lay_kw is None:
             assert torch.equal(run(), got), name
 
 
 @pytest.mark.parametrize("C", [1, 8])
 def test_points_layouts_repeat_bit_for_bit(card, rng, C):
-    """Rows and threads a block and the lanes' order do not change a bit; G
-    only the rounding."""
+    """Threads a block and the lanes' order do not change a bit."""
     plan, vals = _headline_like(rng, card, C)
     g = torch.randn((1, C) + (plan.M,) * 3, device=card)
     tiles = binned.grid_to_tiles(plan, g)
     tid = torch.arange(plan.S, dtype=torch.int32, device=card)
-    for G in (1, 2, 4, 8):
-        kw = [dict(G=G, rows=r, threads=t, sort=srt)
-              for r, t, srt in ((1, 256, True), (3, 256, True), (2, 64, False), (1, 128, False))]
-        outs = [(contract.gather_points(plan, tiles, tid, contract.points_layout(
-                    "gather_points", 3, plan.H, C, plan.K, **k)),
-                 contract.pos_grad(plan, tiles, vals, tid, contract.points_layout(
-                     "pos_grad", 3, plan.H, C, plan.K, **k)))
-                for k in kw]
-        assert outs[0][0].shape == (plan.S, C, plan.K)
-        for y, d in outs[1:]:
-            assert torch.equal(y, outs[0][0]) and torch.equal(d, outs[0][1]), G
+    kw = [dict(threads=t, sort=srt) for t, srt in ((256, True), (64, True), (128, False),
+                                                    (32, False))]
+    outs = [(contract.gather_points(plan, tiles, tid, contract.points_layout(
+                "gather_points", 3, plan.H, C, plan.K, **k)),
+             contract.pos_grad(plan, tiles, vals, tid, contract.points_layout(
+                 "pos_grad", 3, plan.H, C, plan.K, **k)))
+            for k in kw]
+    assert outs[0][0].shape == (plan.S, C, plan.K)
+    for (y, d), k in zip(outs[1:], kw[1:]):
+        assert torch.equal(y, outs[0][0]) and torch.equal(d, outs[0][1]), k
 
 
 @pytest.mark.parametrize("entry", ["adjoint", "forward", "pair", "adjoint_planar",

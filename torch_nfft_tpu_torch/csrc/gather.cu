@@ -17,6 +17,6 @@ extern "C" int tnt_gather_points(const float* tiles, const float* slot_pos,
                                  const int* layout, int device, void* stream) {
   const tnt::points::Args a{tiles, nullptr, slot_pos, row_count, origin, tile_index, y,
                             S, K, C, NT, dim, H, M, tnt::Window{kind, p0, p1, p2},
-                            0.0f, 0, 0, 0, 0};
+                            0.0f, 0, 0};
   return tnt::points::launch<false>(a, m, layout, device, stream);
 }

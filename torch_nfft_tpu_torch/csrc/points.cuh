@@ -21,7 +21,7 @@
 // Padded slots (k >= row_count[s]) and rows whose tile lies outside [0, NT)
 // get exact zeros.
 //
-// Design. A block owns `rows` consecutive plan rows, one after another.
+// Design. A block owns one plan row; a thread computes one point at a time.
 //   Staging: it copies the row's tile once into dynamic shared memory with
 //   cp.async, as it lies at C = 1 (16-byte copies, the tile shifted by up
 //   to 3 floats so that they align), cell-major at C > 1: the Cp (C rounded
@@ -34,12 +34,10 @@
 //   one (axis 1 in 3D), are unrolled loops over registers; O (axis 0 from 2D
 //   on) is a loop over the point's cells, its window value picked from
 //   registers by a chain of selects. No window lives on the stack.
-//   Lanes: G = 1, 2, 4 or 8 lanes per point (ops/contract.py:points_layout
-//   picks by measurement). Each lane evaluates the point's windows itself
-//   and takes the O cells l0 = j, j + G, ...; the lanes' sums are reduced
-//   with __shfl_xor_sync in a fixed order. Every output sums its terms in
-//   one fixed order, so two launches give the same bits; layouts with other
-//   G differ by float rounding only.
+//   Every output sums its terms in one fixed order, so two launches, and
+//   every launch layout (threads, lane order), give the same bits.
+//   (Splitting a point's O cells over 2, 4 or 8 lanes with shuffle sums
+//   measured slower on the H100 once the lanes were sorted by bank.)
 //   Banks: all lanes of a warp add the same offset to their point's first
 //   cell at each load, so two lanes meet on a bank when their first cells
 //   do (32 random points: ~3.5 wavefronts a 4-byte load). With the tile
@@ -94,7 +92,7 @@ struct Args {
   int S, K, C, NT, dim, H, M;
   Window w;
   float dcoef;            // ops/window.py:window_deriv_param
-  int G, rows, Cp;        // lanes a point, rows a block, columns a staged cell
+  int Cp;                 // columns a staged cell
   int order_at;           // the lane order's place in shared memory (floats), 0: none
 };
 
@@ -245,15 +243,14 @@ struct Cell<4, true> {
   }
 };
 
-// The gather's sum over the point's cells, t at its first cell; the lane's
-// O cells are l0, l0 + G, ...; cells cs floats apart along I, sM along
-// Mi, sO along O.
+// The gather's sum over the point's cells, t at its first cell; cells cs
+// floats apart along I, sM along Mi, sO along O.
 template <int L, int CW, bool kSmem>
 __device__ __forceinline__ typename Cell<CW, kSmem>::V gather_cells(
-    const float* t, const PointWindows<L>& p, int l0, int G, int cs, int sO, int sM) {
+    const float* t, const PointWindows<L>& p, int cs, int sO, int sM) {
   using X = Cell<CW, kSmem>;
   typename X::V acc = X::zero();
-  for (; l0 < p.lim0; l0 += G) {
+  for (int l0 = 0; l0 < p.lim0; ++l0) {
     const float* r1 = t + l0 * sO;
     typename X::V s1 = X::zero();
 #pragma unroll
@@ -288,10 +285,9 @@ __device__ __forceinline__ float grad_cell(const float* p, const float4& w) {
 
 template <int L, int CW, bool kSmem>
 __device__ __forceinline__ Sums3 grad_cells(const float* t, const PointWindows<L>& p,
-                                            const float4& w, int l0, int G, int cs, int sO,
-                                            int sM) {
+                                            const float4& w, int cs, int sO, int sM) {
   Sums3 acc{0.0f, 0.0f, 0.0f};
-  for (; l0 < p.lim0; l0 += G) {
+  for (int l0 = 0; l0 < p.lim0; ++l0) {
     const float* r1 = t + l0 * sO;
     float sv = 0.0f, sd1 = 0.0f, sd2 = 0.0f;
 #pragma unroll
@@ -315,13 +311,6 @@ __device__ __forceinline__ Sums3 grad_cells(const float* t, const PointWindows<L
     acc.i = fmaf(a0, sd2, acc.i);
   }
   return acc;
-}
-
-// The sum over the G lanes of a point, in a fixed order (every lane gets
-// the same bits: each step adds the same two values on both sides).
-__device__ __forceinline__ float group_sum(float v, int G) {
-  for (int off = 1; off < G; off <<= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
 }
 
 // Copies the row's tile tl into shared memory; returns where it starts.
@@ -407,9 +396,7 @@ __device__ __forceinline__ void sort_lanes(const Args& a, int m, size_t SK, int 
 template <int L, int CW, bool kSmem, bool kGrad>
 __global__ void __launch_bounds__(kMaxThreads, 1) points_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, G = a.G;
-  const int j = tid & (G - 1), grp = tid / G, groups = blockDim.x / G;
-  const int warp_first = (tid & ~31) / G;  // the first point of the thread's warp
+  const int tid = threadIdx.x, s = blockIdx.x;
   const int dim = a.dim, H = a.H, K = a.K, C = a.C;
   const int HM = dim == 3 ? H : 1;
   const int cells = H * (dim >= 2 ? H : 1) * HM;
@@ -418,110 +405,89 @@ __global__ void __launch_bounds__(kMaxThreads, 1) points_kernel(Args a) {
   const int sM = H * cs, sO = HM * H * cs;
   const int n_out = kGrad ? dim : C;  // output planes of a row
   const int n_col = kSmem && CW == 1 ? 1 : C;  // column planes the CW = 1 path walks
-  for (int r = 0; r < a.rows; ++r) {
-    const int s = blockIdx.x * a.rows + r;
-    if (s >= a.S) break;
-    const int tile = a.tile_index[s];
-    const int cnt = (tile >= 0 && tile < a.NT) ? a.row_count[s] : 0;
-    float* out = a.out + static_cast<size_t>(s) * n_out * K;
-    for (int c = 0; c < n_out; ++c)
-      for (int k = cnt + tid; k < K; k += blockDim.x) out[c * K + k] = 0.0f;
-    if (cnt == 0) continue;
-    const float* t = a.tiles + static_cast<size_t>(tile) * C * cells;
-    int org[3] = {0, 0, 0};
+  const int tile = a.tile_index[s];
+  const int cnt = (tile >= 0 && tile < a.NT) ? a.row_count[s] : 0;
+  float* out = a.out + static_cast<size_t>(s) * n_out * K;
+  for (int c = 0; c < n_out; ++c)
+    for (int k = cnt + tid; k < K; k += blockDim.x) out[c * K + k] = 0.0f;
+  if (cnt == 0) return;  // (the whole block: cnt is the row's)
+  const float* t = a.tiles + static_cast<size_t>(tile) * C * cells;
+  int org[3] = {0, 0, 0};
 #pragma unroll
-    for (int d = 0; d < 3; ++d)
-      if (d < dim) org[d] = a.origin[s * dim + d];
-    const bool sorted = kSmem && a.order_at > 0;
-    int* order = reinterpret_cast<int*>(smem + a.order_at);
-    if constexpr (kSmem) {
-      if (r > 0) __syncthreads();  // every thread is done with the last row's tile
-      t = stage<CW>(smem, t, C, a.Cp, cells);
-      // the lane order while the copies fly
-      if (sorted) sort_lanes<CW>(a, L / 2 - 1, SK, s, cnt, org, order, order + K);
-      cp_async_wait_all();
-      __syncthreads();
+  for (int d = 0; d < 3; ++d)
+    if (d < dim) org[d] = a.origin[s * dim + d];
+  const bool sorted = kSmem && a.order_at > 0;
+  int* order = reinterpret_cast<int*>(smem + a.order_at);
+  if constexpr (kSmem) {
+    t = stage<CW>(smem, t, C, a.Cp, cells);
+    // the lane order while the copies fly
+    if (sorted) sort_lanes<CW>(a, L / 2 - 1, SK, s, cnt, org, order, order + K);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  // virtual points v: sorted, v = i KB + b takes sorted position b stride + i
+  constexpr int KB = CW == 1 ? 32 : 8;
+  const int stride = (cnt + KB - 1) / KB;
+  const int V = sorted ? KB * stride : cnt;
+  // At C > 1 the passes over 4 columns start at chunk k mod nq: at Cp = 8
+  // a cell's chunk 0 lies on 4 of the 8 quads of banks, chunk 1 on the
+  // other 4, so neighbouring points read both halves at once.
+  const int nq = a.Cp / 4;
+  for (int v = tid; v < V; v += blockDim.x) {
+    int k = v;
+    if (sorted) {
+      const int pos = (v % KB) * stride + v / KB;
+      if (pos >= cnt) continue;
+      k = order[pos];
     }
-    // virtual points v: sorted, v = i KB + b takes sorted position b stride + i
-    constexpr int KB = CW == 1 ? 32 : 8;
-    const int stride = (cnt + KB - 1) / KB;
-    const int V = sorted ? KB * stride : cnt;
-    for (int v0 = 0; v0 < V; v0 += groups) {
-      if (v0 + warp_first >= V) break;  // nothing left for the warp
-      const int v = v0 + grp;
-      int k = -1;
-      if (sorted) {
-        const int pos = (v % KB) * stride + v / KB;
-        if (v < V && pos < cnt) k = order[pos];
-      } else if (v < cnt) {
-        k = v;
-      }
-      const bool live = k >= 0;
-      if (G == 1 && !live) continue;  // (lanes of a group > 1 all stay for the shuffles)
-      if (!live) k = 0;  // any filled slot: computed, not stored
-      const size_t jg = static_cast<size_t>(s) * K + k;
-      PointWindows<L> p;
-      point_windows<L, kGrad>(a, SK, jg, org, p);
-      const float* tp = t + static_cast<size_t>(p.base) * cs;
-      const bool store = live && j == 0;
-      // At C > 1 the passes over 4 columns start at chunk k mod nq: at Cp = 8
-      // a cell's chunk 0 lies on 4 of the 8 quads of banks, chunk 1 on the
-      // other 4, so neighbouring points read both halves at once.
-      const int nq = a.Cp / 4;
-      if constexpr (!kGrad) {
-        if constexpr (CW == 1) {
-          for (int c = 0; c < n_col; ++c) {
-            const float v = group_sum(
-                gather_cells<L, 1, kSmem>(tp + static_cast<size_t>(c) * cells, p, j, G, 1, sO, sM),
-                G);
-            if (store) out[c * K + k] = v;
-          }
-        } else {
-          for (int i = 0; i < nq; ++i) {
-            const int q = (i + k) % nq;
-            const float4 v = gather_cells<L, 4, true>(tp + 4 * q, p, j, G, cs, sO, sM);
-            const float e[4] = {group_sum(v.x, G), group_sum(v.y, G), group_sum(v.z, G),
-                                group_sum(v.w, G)};
+    const size_t jg = static_cast<size_t>(s) * K + k;
+    PointWindows<L> p;
+    point_windows<L, kGrad>(a, SK, jg, org, p);
+    const float* tp = t + static_cast<size_t>(p.base) * cs;
+    if constexpr (!kGrad) {
+      if constexpr (CW == 1) {
+        for (int c = 0; c < n_col; ++c)
+          out[c * K + k] =
+              gather_cells<L, 1, kSmem>(tp + static_cast<size_t>(c) * cells, p, 1, sO, sM);
+      } else {
+        for (int i = 0; i < nq; ++i) {
+          const int q = (i + k) % nq;
+          const float4 e = gather_cells<L, 4, true>(tp + 4 * q, p, cs, sO, sM);
+          const float ev[4] = {e.x, e.y, e.z, e.w};
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-              if (store && 4 * q + i < C) out[(4 * q + i) * K + k] = e[i];
-          }
+          for (int u = 0; u < 4; ++u)
+            if (4 * q + u < C) out[(4 * q + u) * K + k] = ev[u];
+        }
+      }
+    } else {
+      Sums3 g{0.0f, 0.0f, 0.0f};
+      if constexpr (CW == 1) {
+        const float4 none = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int c = 0; c < n_col; ++c) {
+          const Sums3 sc = grad_cells<L, 1, kSmem>(tp + static_cast<size_t>(c) * cells, p,
+                                                   none, 1, sO, sM);
+          const float wc = __ldg(a.wts + c * SK + jg);
+          g.o = fmaf(wc, sc.o, g.o);
+          g.m = fmaf(wc, sc.m, g.m);
+          g.i = fmaf(wc, sc.i, g.i);
         }
       } else {
-        Sums3 g{0.0f, 0.0f, 0.0f};
-        if constexpr (CW == 1) {
-          const float4 none = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          for (int c = 0; c < n_col; ++c) {
-            const Sums3 sc = grad_cells<L, 1, kSmem>(tp + static_cast<size_t>(c) * cells, p,
-                                                     none, j, G, 1, sO, sM);
-            const float wc = __ldg(a.wts + c * SK + jg);
-            g.o = fmaf(wc, sc.o, g.o);
-            g.m = fmaf(wc, sc.m, g.m);
-            g.i = fmaf(wc, sc.i, g.i);
-          }
-        } else {
-          for (int i = 0; i < nq; ++i) {
-            const int q = (i + k) % nq;
-            float wq[4];
+        for (int i = 0; i < nq; ++i) {
+          const int q = (i + k) % nq;
+          float wq[4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-              wq[i] = 4 * q + i < C ? __ldg(a.wts + (4 * q + i) * SK + jg) : 0.0f;
-            const Sums3 sc = grad_cells<L, 4, true>(
-                tp + 4 * q, p, make_float4(wq[0], wq[1], wq[2], wq[3]), j, G, cs, sO, sM);
-            g.o += sc.o;
-            g.m += sc.m;
-            g.i += sc.i;
-          }
-        }
-        g.o = group_sum(g.o, G);
-        g.m = group_sum(g.m, G);
-        g.i = group_sum(g.i, G);
-        if (store) {
-          if (dim >= 2) out[k] = g.o;
-          if (dim == 3) out[K + k] = g.m;
-          out[(dim - 1) * K + k] = g.i;
+          for (int u = 0; u < 4; ++u)
+            wq[u] = 4 * q + u < C ? __ldg(a.wts + (4 * q + u) * SK + jg) : 0.0f;
+          const Sums3 sc = grad_cells<L, 4, true>(
+              tp + 4 * q, p, make_float4(wq[0], wq[1], wq[2], wq[3]), cs, sO, sM);
+          g.o += sc.o;
+          g.m += sc.m;
+          g.i += sc.i;
         }
       }
+      if (dim >= 2) out[k] = g.o;
+      if (dim == 3) out[K + k] = g.m;
+      out[(dim - 1) * K + k] = g.i;
     }
   }
 }
@@ -542,32 +508,30 @@ cudaError_t go_L(const Args& a, bool staged, int blocks, int threads, size_t sme
   return go<L, 4, true, kGrad>(a, blocks, threads, smem, stream);
 }
 
-// Launches points_kernel as ops/contract.py:points_layout laid it out;
-// layout holds G, threads, rows, staged, Cp, shared bytes, sorted (the lane
-// order after the staged tile: K + 32 ints).
+// Launches points_kernel, a block a plan row, as ops/contract.py:points_layout
+// laid it out; layout holds threads, staged, Cp, shared bytes, sorted (the
+// lane order after the staged tile: K + 32 ints).
 template <bool kGrad>
 int launch(Args a, int m, const int* layout, int device, void* stream_) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess || a.S == 0) return static_cast<int>(err);
-  const int G = layout[0], threads = layout[1], rows = layout[2], Cp = layout[4];
-  const bool staged = layout[3] != 0, sorted = layout[6] != 0;
-  const size_t smem = static_cast<size_t>(layout[5]);
+  const int threads = layout[0], Cp = layout[2];
+  const bool staged = layout[1] != 0, sorted = layout[4] != 0;
+  const size_t smem = static_cast<size_t>(layout[3]);
   size_t cells = a.H;
   for (int d = 1; d < a.dim; ++d) cells *= a.H;
   // floats of the staged tile (shifted by up to 3 at C = 1), 16-byte aligned
   const size_t tile = a.C == 1 ? (cells + 3 + 3) / 4 * 4 : Cp * cells;
   const size_t need = (tile + (sorted ? a.K + 32 : 0)) * sizeof(float);
-  if ((G != 1 && G != 2 && G != 4 && G != 8) || threads % 32 != 0 || threads < 32 ||
-      threads > kMaxThreads || rows < 1 || a.dim < 1 || a.dim > 3 || (sorted && !staged))
+  if (threads % 32 != 0 || threads < 32 || threads > kMaxThreads || a.dim < 1 || a.dim > 3 ||
+      (sorted && !staged))
     return static_cast<int>(cudaErrorInvalidConfiguration);
   if (staged && (smem < need || smem > kSmemOptIn ||
                  (a.C == 1 ? Cp != 1 : (Cp % 4 != 0 || Cp < a.C))))
     return static_cast<int>(cudaErrorInvalidValue);
-  a.G = G;
-  a.rows = rows;
   a.Cp = Cp;
   a.order_at = sorted ? static_cast<int>(tile) : 0;
-  const int blocks = (a.S + rows - 1) / rows;
+  const int blocks = a.S;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   switch (2 * m + 2) {
     case 2: err = go_L<2, kGrad>(a, staged, blocks, threads, smem, stream); break;

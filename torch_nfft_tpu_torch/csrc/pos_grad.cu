@@ -17,6 +17,6 @@ extern "C" int tnt_pos_grad(const float* tiles, const float* wts, const float* s
                             int device, void* stream) {
   const tnt::points::Args a{tiles, wts, slot_pos, row_count, origin, tile_index, dpos,
                             S, K, C, NT, dim, H, M, tnt::Window{kind, p0, p1, p2},
-                            dcoef, 0, 0, 0, 0};
+                            dcoef, 0, 0};
   return tnt::points::launch<true>(a, m, layout, device, stream);
 }

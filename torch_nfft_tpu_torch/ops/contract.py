@@ -34,9 +34,9 @@ from the tile's geometry and the columns: the register-tiled contraction
 H^dim / L^dim times the sparse work, and, where that ratio exceeds
 ``DENSE_RATIO_MAX``'s limit for C, the sparse kernel with shared-memory
 atomics (``"wide"``). The gather and the position gradient launch as
-:func:`points_layout` lays them out: the row's tile staged in shared memory
-(cell-major at C > 1) where it fits, G lanes a point, rows a block, the
-row's points given to the lanes in the order of their banks; the launch
+:func:`points_layout` lays them out: a block a plan row, a thread a point,
+the row's tile staged in shared memory (cell-major at C > 1) where it fits,
+the row's points given to the lanes in the order of their banks; the launch
 refuses a layout that does not fit the call.
 
 Each wrapper launches its kernel for CUDA tensors, or raises; it takes the
@@ -207,30 +207,27 @@ def spread_design(dim: int, H: int, m: int, C: int, *, name: str | None = None,
 
 # The launch of the gather and the position gradient
 # (csrc/points.cuh:points_kernel) per column class (1: C = 1, 2: C > 1):
-# (G lanes a point, threads a block, plan rows a block, lanes sorted by
-# bank). chip_smoke.py phase 6b times every G, rows, threads and order at
-# C = 1 (dense tiles) and C = 8 (per-row tiles) on the headline points;
-# these were the fastest there. G = 1 won everywhere.
+# (threads a block, lanes sorted by bank). chip_smoke.py phase 6b times
+# both threads and orders at C = 1 (dense tiles) and C = 8 (per-row tiles)
+# on the headline points; these were the fastest there (at C = 1 within
+# 2% of the other settings, at C = 8 sorting saves a third).
 POINTS_LAYOUT = {
-    "gather_points": {1: (1, 256, 1, True), 2: (1, 256, 1, True)},
-    "pos_grad": {1: (1, 128, 1, False), 2: (1, 256, 1, True)},
+    "gather_points": {1: (128, True), 2: (256, True)},
+    "pos_grad": {1: (256, False), 2: (256, True)},
 }
 POINTS_THREADS = 256  # csrc/points.cuh:kMaxThreads (its __launch_bounds__)
 
 
 @dataclass(frozen=True)
 class PointsLayout:
-    """How a gather or position-gradient launch runs: ``G`` lanes a point,
-    ``threads`` a block, ``rows`` plan rows a block; ``staged``: the row's
-    tile copied into shared memory (as it lies at C = 1, cell-major with
-    ``Cp`` columns a cell at C > 1), else read from global memory;
-    ``sorted``: the row's points given to the lanes in the order of the
-    banks their cells lie on (K + 32 ints after the tile); ``smem`` bytes
-    of shared memory."""
+    """How a gather or position-gradient launch runs, a block a plan row and
+    a thread a point: ``threads`` a block; ``staged``: the row's tile copied
+    into shared memory (as it lies at C = 1, cell-major with ``Cp`` columns
+    a cell at C > 1), else read from global memory; ``sorted``: the row's
+    points given to the lanes in the order of the banks their cells lie on
+    (K + 32 ints after the tile); ``smem`` bytes of shared memory."""
 
-    G: int
     threads: int
-    rows: int
     staged: bool
     Cp: int
     smem: int
@@ -239,30 +236,24 @@ class PointsLayout:
     def args(self):
         """The launch as csrc/points.cuh:launch reads it (keep the array
         alive for the call)."""
-        vals = (self.G, self.threads, self.rows, int(self.staged), self.Cp, self.smem,
-                int(self.sorted))
+        vals = (self.threads, int(self.staged), self.Cp, self.smem, int(self.sorted))
         return (ctypes.c_int * len(vals))(*vals)
 
 
-def points_layout(kernel: str, dim: int, H: int, C: int, K: int, *, G: int | None = None,
-                  threads: int | None = None, rows: int | None = None,
-                  staged: bool | None = None, sort: bool | None = None) -> PointsLayout:
+def points_layout(kernel: str, dim: int, H: int, C: int, K: int, *,
+                  threads: int | None = None, staged: bool | None = None,
+                  sort: bool | None = None) -> PointsLayout:
     """The launch of ``kernel`` ("gather_points" or "pos_grad") for tiles of
     edge ``H``, ``C`` columns and rows of ``K`` slots: ``POINTS_LAYOUT``'s
-    entry (G = 1 in 1D, where a point has one line of cells), the tile
-    staged in shared memory when it fits the opt-in limit (C H^dim floats,
-    C rounded up to 4 at C > 1), the lanes sorted as the entry says when
-    that fits too. ``G``, ``threads``, ``rows``, ``staged`` and ``sort``
-    override; results do not depend on them beyond float rounding (G)."""
+    entry, the tile staged in shared memory when it fits the opt-in limit
+    (C H^dim floats, C rounded up to 4 at C > 1), the lanes sorted as the
+    entry says when that fits too. ``threads``, ``staged`` and ``sort``
+    override; results do not depend on them."""
     _require(kernel in POINTS_LAYOUT, f"unknown kernel {kernel!r}")
-    G0, t0, r0, s0 = POINTS_LAYOUT[kernel][1 if C == 1 else 2]
-    G = (1 if dim == 1 else G0) if G is None else G
+    t0, s0 = POINTS_LAYOUT[kernel][1 if C == 1 else 2]
     threads = t0 if threads is None else threads
-    rows = r0 if rows is None else rows
-    _require(G in (1, 2, 4, 8), f"G must be 1, 2, 4 or 8, not {G}")
     _require(threads % 32 == 0 and 32 <= threads <= POINTS_THREADS,
              f"threads must be a multiple of 32 in [32, {POINTS_THREADS}]")
-    _require(rows >= 1, "rows must be at least 1")
     cells = H**dim
     Cp = 1 if C == 1 else -(-C // 4) * 4
     tile = 4 * (-(-(cells + 3) // 4) * 4 if C == 1 else Cp * cells)
@@ -274,7 +265,7 @@ def points_layout(kernel: str, dim: int, H: int, C: int, K: int, *, G: int | Non
     _require(tile + order <= SMEM_MAX or not sort,
              f"a tile of {tile} bytes and the order of {K} slots exceed shared memory")
     smem = (tile + (order if sort else 0)) if staged else 0
-    return PointsLayout(G, threads, rows, staged, Cp, smem, sort)
+    return PointsLayout(threads, staged, Cp, smem, sort)
 
 
 def _row_windows(pos_rows, origin, M: int, m: int, H: int, phi):
