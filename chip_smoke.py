@@ -48,7 +48,19 @@ block, lanes sorted by bank or not: the times behind
 kernel to keep no stack), times the pair stage by stage on
 every route (the stages ``nfft_pair_planar`` runs) and reads the device's
 busy share of three traced pairs and three traced steps with
-``torch.profiler``.
+``torch.profiler``. Then phases 8-8e drive the Gram matvec of the JAX
+package's fastsum bench at full width through ``GaussianKernel(0.4,
+dim=3, bandwidth=256, cutoff=4)`` on 2^22 points uniform in [-1, 1)^3
+(gaussian window, m = 4, sigma = 2): the spread, gather and
+position-gradient kernels against their plain versions at that geometry
+(bit for bit across two launches) and both spread designs timed; the
+matvec at C = 1 (dense route) and 8 (flat route) with its launches,
+stages and peak memory, 96 sampled targets against the exact Gaussian
+sum in float64 for the symmetric and an asymmetric operator, and C = 8
+column by column against C = 1; 8 power-iteration steps in user and
+slot order; the CG solve, its residual held to the CG's own; the ``sym``
+adjacency operator against its composition from ``G @``; and a gradient
+step in x and the points (x.grad against G w, B5 launched).
 
 Every phase prints its seconds; any failure exits non-zero. The line before
 the last is a JSON object listing the kernels with their times and bounds;
@@ -80,7 +92,7 @@ from torch_nfft_tpu_torch.ops.binned import (
     unslot_values,
 )
 from torch_nfft_tpu_torch.ops.tilefold import FOLD_BUDGET, tile_array_bytes
-from torch_nfft_tpu_torch.ops.planar import pair_stages
+from torch_nfft_tpu_torch.ops.planar import fastsum_stages, pair_stages
 from torch_nfft_tpu_torch.ops.tilefold import row_tile_ids, unfold_grid_to_tiles
 
 # headline configuration of the JAX bench (bench.py); the sort route is its
@@ -94,6 +106,11 @@ Q_CHECK, SLOT_LOG2 = 20, 20
 C_WIDE = 8
 # the bitonic sort's ties-and-extremes check at 2^TIES_LOG2 keys
 TIES_LOG2 = 20
+# the Gram matvec of the JAX package's fastsum bench (BASELINE.md,
+# examples/bench_fastsum_slot.py): GaussianKernel(0.4, dim=3, bandwidth=256,
+# cutoff=4) on n = 2^GRAM_LOG2 points uniform in [-1, 1)^3 (the asymmetric
+# operator on 2^GRAM_TARGETS_LOG2 more), gaussian window, sigma = 2
+GRAM_LOG2, GRAM_TARGETS_LOG2, GRAM_N, GRAM_M, GRAM_SIGMA = 22, 21, 256, 4, 0.4
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and float32 outside the
 # tensor cores; the kernels do float32 arithmetic on the CUDA cores
@@ -251,6 +268,21 @@ def spread_yardstick(plan, vals, chunk: int = 256) -> float:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = keep
     return total
+
+
+def design_ms(spread, plan, C: int, reps: int):
+    """([contraction ms, wide ms], rel-L2 between the two): ``spread(d)``,
+    a spread of C columns on ``plan`` under the design ``d``, timed and run
+    once under each design, the two outputs held against each other
+    (1e-5)."""
+    designs = [contract.spread_design(plan.dim, plan.H, plan.m, C, name=d_name)
+               for d_name in ("contraction", "wide")]
+    times = [time_ms(lambda: spread(d), reps) for d in designs]
+    outs = [spread(d) for d in designs]
+    rel = rel_l2_rows(outs[0], outs[1])
+    del outs
+    assert rel <= 1e-5, f"the two designs disagree: {rel:.3e}"
+    return times, rel
 
 
 def ptxas_report(log: str, kernel: str) -> list:
@@ -532,6 +564,299 @@ def check_host_plan(ph, pd) -> None:
         assert torch.equal(getattr(ph, name), getattr(pd, name)), f"host and device {name} differ"
     for name in ("n", "T", "K", "S_occ", "active"):
         assert getattr(ph, name) == getattr(pd, name), f"host and device {name} differ"
+
+
+def exact_gauss_sum(sources, targets, x, width: float, chunk: int = 1 << 18):
+    """sum_s exp(-||t - s||^2 / width^2) x_s at each target t, in float64,
+    over every source: the exact Gaussian sum the Gram matvec approximates."""
+    t = targets.double()
+    acc = torch.zeros((t.shape[0], x.shape[1]), dtype=torch.float64, device=t.device)
+    for c0 in range(0, sources.shape[0], chunk):
+        s = sources[c0:c0 + chunk].double()
+        d2 = ((t[:, None, :] - s[None, :, :]) ** 2).sum(-1)
+        acc += torch.exp(-d2 / width**2) @ x[c0:c0 + chunk].double()
+    return acc
+
+
+def host_median(fn, reps: int = 3):
+    """(result, median seconds) of ``reps`` calls of ``fn`` after a warm-up
+    call, host clock to torch.cuda.synchronize()."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, float(np.median(times))
+
+
+def gram_phases(dev, gen, report: list) -> None:
+    """Phases 8-8e: the Gram matvec of the JAX package's fastsum bench at
+    full width (3D, N = 256, n = 2^22 points, gaussian window, m = 4,
+    sigma = 2) through GaussianKernel and its operators. Adds each kernel's
+    launches per Gram matvec and per gradient step, and its times at the
+    Gram geometry, to ``report``."""
+    n = 1 << GRAM_LOG2
+    rng = np.random.default_rng(41)
+    pts = torch.from_numpy(rng.random((n, DIM), dtype=np.float32) * 2 - 1).to(dev)
+    x1 = torch.randn((n, 1), device=dev, generator=gen)
+    x8 = torch.randn((n, C_WIDE), device=dev, generator=gen)
+    entry = {r["name"]: r for r in report}
+
+    with Phase("8 Gram kernels vs plain"):
+        t0 = time.perf_counter()
+        kernel = tp.GaussianKernel(GRAM_SIGMA, dim=DIM, bandwidth=GRAM_N, cutoff=GRAM_M)
+        G = kernel(pts)
+        plan = G._plans()[0]
+        torch.cuda.synchronize()
+        width = kernel.factor * kernel.sigma
+        S, H = plan.S, plan.H
+        print(f"Gram operator built in {time.perf_counter() - t0:.3f} s (coefficients "
+              f"{tuple(kernel.coeffs.shape)} {kernel.coeffs.dtype}, host plan): n=2^{GRAM_LOG2}, "
+              f"window {plan.window} m={plan.m} (L={2 * plan.m + 2}) sigma={plan.sigma} M={plan.M}, "
+              f"rows={S} K={plan.K} T={plan.T} H={H} NT={plan.NT}; kernel width "
+              f"{width:.4f} on the scaled points (max |p| {float(G.sources.abs().max()):.4f})")
+        assert (plan.window, plan.m, plan.M, plan.H) == ("gaussian", GRAM_M, 2 * GRAM_N, 25)
+        dense = {C: tile_array_bytes(plan, C, 4, 1) for C in (1, C_WIDE)}
+        tid_s, tid = dense_tile_ids(plan), row_tile_ids(plan)
+        tiles_read = int(torch.unique(tid).numel())
+        print(f"dense tile array {dense[1] / 1e9:.3f} GB at C=1, {dense[C_WIDE] / 1e9:.3f} GB at "
+              f"C={C_WIDE} (budget {FOLD_BUDGET / 1e9:.3f} GB), {tiles_read} of its {plan.NT} "
+              f"tiles holding points; per-row tiles at C={C_WIDE}: "
+              f"{4 * S * C_WIDE * H**DIM / 1e9:.3f} GB")
+        assert binned.use_fold(plan, 1, 4, 1) and not binned.use_fold(plan, C_WIDE, 4, 1)
+        vals1, vals8 = slot_values(plan, x1), slot_values(plan, x8)
+        rows_id = torch.arange(S, dtype=torch.int32, device=dev)
+        tiles1 = unfold_grid_to_tiles(
+            torch.randn((1, 1) + (plan.M,) * DIM, device=dev, generator=gen), plan)
+        tiles8 = binned.grid_to_tiles(
+            plan, torch.randn((1, C_WIDE) + (plan.M,) * DIM, device=dev, generator=gen))
+        # B5 as the gather's backward weights it: the tiles of the grid the
+        # target gather reads, w = a point cotangent
+        stages1 = fastsum_stages(plan, plan, G.coeffs, m=GRAM_M, sigma=2.0,
+                                 window="gaussian", C=1)
+        tiles_primal = unfold_grid_to_tiles(run_stages(stages1[:6], x1), plan)
+        w_ybar = slot_values(plan, torch.randn((n, 1), device=dev, generator=gen))
+        b1, b8 = bounds(plan, 1, tiles_read), bounds(plan, C_WIDE, S)
+        checks = [  # (what, wrapper, columns, kernel, plain version, bound)
+            ("", "spread_tiles_dense", 1,
+             lambda: contract.spread_tiles_dense(plan, vals1, tid_s, plan.NT),
+             lambda: contract.spread_tiles_dense_plain(plan, vals1, tid_s, plan.NT), b1[0]),
+            ("", "spread_tiles", 1, lambda: contract.spread_tiles(plan, vals1),
+             lambda: contract.spread_tiles_plain(plan, vals1), b1[3]),
+            ("", "spread_tiles", C_WIDE, lambda: contract.spread_tiles(plan, vals8),
+             lambda: contract.spread_tiles_plain(plan, vals8), b8[3]),
+            ("", "gather_points", 1, lambda: contract.gather_points(plan, tiles1, tid),
+             lambda: contract.gather_points_plain(plan, tiles1, tid), b1[1]),
+            ("", "gather_points", C_WIDE, lambda: contract.gather_points(plan, tiles8, rows_id),
+             lambda: contract.gather_points_plain(plan, tiles8, rows_id), b8[1]),
+            (" (w=x, cotangent tiles)", "pos_grad", 1,
+             lambda: contract.pos_grad(plan, tiles1, vals1, tid),
+             lambda: contract.pos_grad_plain(plan, tiles1, vals1, tid), b1[2]),
+            (" (w=ybar, primal tiles)", "pos_grad", 1,
+             lambda: contract.pos_grad(plan, tiles_primal, w_ybar, tid),
+             lambda: contract.pos_grad_plain(plan, tiles_primal, w_ybar, tid), b1[2]),
+        ]
+        for what, name, C, kern, plain, (b_ms, b_by) in checks:
+            reset_launches()
+            got = kern()
+            design = read_designs().get(name)
+            ref = plain()
+            mx, rl = float((got - ref).abs().max()), rel_l2_rows(got, ref)
+            del ref
+            same = torch.equal(kern(), got)
+            del got
+            ms = time_ms(kern, 5)
+            label = f"{name} C={C}{what}"
+            ran = "" if design is None else f"; design {design}"
+            print(f"{label} at the Gram geometry: kernel vs plain max_abs={mx:.3e} "
+                  f"rel_l2={rl:.3e}; two launches bitwise equal: {same}{ran}; {ms:.4f} ms "
+                  f"(bound {b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of bound)")
+            assert rl <= 1e-5 and same, f"{label} at the Gram geometry: {rl:.3e}, {same}"
+            gram = entry[name].setdefault("gram", {})
+            if f"c{C}" not in gram:
+                gram[f"c{C}"] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                                 "max_abs_err": mx}
+            entry[name]["max_abs_err"] = max(entry[name]["max_abs_err"], mx)
+        del tiles1, tiles8, tiles_primal, w_ybar
+        # the spread designs at this ratio: the first reading of the rule at m = 4
+        for name, C, fn in (
+                ("spread_tiles_dense", 1,
+                 lambda d: contract.spread_tiles_dense(plan, vals1, tid_s, plan.NT, d)),
+                ("spread_tiles", 1, lambda d: contract.spread_tiles(plan, vals1, d)),
+                ("spread_tiles", C_WIDE, lambda d: contract.spread_tiles(plan, vals8, d))):
+            (t_c, t_w), rel_d = design_ms(fn, plan, C, 3)
+            chosen = contract.spread_design(DIM, H, plan.m, C)
+            print(f"{name} C={C} at the Gram geometry (H={H}, L={2 * plan.m + 2}, ratio "
+                  f"{chosen.ratio:.2f}): contraction {t_c:.4f} ms, wide {t_w:.4f} ms, faster "
+                  f"{'contraction' if t_c < t_w else 'wide'}, the rule takes {chosen.name}; "
+                  f"designs agree to rel_l2={rel_d:.3e}")
+        del vals1, vals8
+
+    launches = {}
+    with Phase("8b Gram matvec"):
+        ys = {}
+        for C, xv, spread in ((1, x1, "spread_tiles_dense"), (C_WIDE, x8, "spread_tiles")):
+            G @ xv  # warm-up
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            y = G @ xv
+            torch.cuda.synchronize()
+            launches[C] = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            assert launches[C] == {k: 1 if k in (spread, "gather_points") else 0
+                                   for k in KERNELS}, \
+                f"a C={C} Gram matvec must launch {spread} and gather_points once: {launches[C]}"
+            y, t_mv = host_median(lambda: G @ xv)
+            assert tuple(y.shape) == (n, C) and y.dtype == torch.float32 \
+                and bool(torch.isfinite(y).all()), "bad Gram output"
+            ys[C] = y
+            print(f"Gram matvec C={C}: median {t_mv * 1e3:.3f} ms (of 3 after a warm-up) = "
+                  f"{C * n / t_mv / 1e6:.2f} M column-points/s; launches {launches[C]}; peak "
+                  f"memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the "
+                  f"{base / 2**30:.2f} GiB held)")
+            stages = fastsum_stages(plan, plan, G.coeffs, m=GRAM_M, sigma=2.0,
+                                    window="gaussian", C=C)
+            # bit for bit on the dense route; on the flat route tiles_to_grid's
+            # index_add_ adds in another order on every run
+            rel_st = rel_l2(run_stages(stages, xv), y)
+            assert rel_st <= (0.0 if C == 1 else 1e-6), f"the stages are not the matvec: {rel_st}"
+            med = stage_ms(stages, xv, reps=3)
+            print(f"Gram matvec C={C} by stage, ms (CUDA events, median of 3):")
+            for (name, _), ms in zip(stages, med):
+                print(f"  {name:20s} {ms:9.3f} ms  {ms / med.sum():6.1%}")
+            print(f"  {'sum':20s} {med.sum():9.3f} ms")
+        idx = torch.from_numpy(rng.choice(n, 96, replace=False)).to(dev)
+        exact = exact_gauss_sum(G.sources, G.targets[idx], x1, width)
+        rel_g = rel_l2(ys[1][idx], exact)
+        print(f"Gram C=1 at 96 sampled targets vs the exact Gaussian sum over all 2^{GRAM_LOG2} "
+              f"sources (float64): rel_l2={rel_g:.3e}")
+        assert rel_g <= 1e-3, f"the Gram matvec is off the Gaussian sum: {rel_g:.3e}"
+        worst = max(rel_l2(ys[C_WIDE][:, c:c + 1], G @ x8[:, c:c + 1].contiguous())
+                    for c in range(C_WIDE))
+        print(f"Gram C={C_WIDE} (flat route) column by column vs C=1 (dense route): worst "
+              f"rel_l2={worst:.3e}")
+        assert worst <= 1e-5, f"the C={C_WIDE} Gram matvec disagrees: {worst:.3e}"
+        del ys
+        tgts = torch.from_numpy(rng.random((1 << GRAM_TARGETS_LOG2, DIM), dtype=np.float32)
+                                * 2 - 1).to(dev)
+        t0 = time.perf_counter()
+        Ga = kernel(pts, tgts)
+        Ga._plans()
+        torch.cuda.synchronize()
+        t_pa = time.perf_counter() - t0
+        assert not Ga.is_symmetric() and Ga._plans()[0] is not Ga._plans()[1]
+        reset_launches()
+        ya = Ga @ x1
+        torch.cuda.synchronize()
+        launches_a = read_launches()
+        ya, t_a = host_median(lambda: Ga @ x1)
+        idx_a = torch.from_numpy(rng.choice(1 << GRAM_TARGETS_LOG2, 96, replace=False)).to(dev)
+        rel_a = rel_l2(ya[idx_a], exact_gauss_sum(Ga.sources, Ga.targets[idx_a], x1, width))
+        print(f"asymmetric Gram ({n} sources, {1 << GRAM_TARGETS_LOG2} targets; two plans in "
+              f"{t_pa:.3f} s): matvec {t_a * 1e3:.3f} ms, launches {launches_a}; 96 sampled "
+              f"targets vs the exact sum: rel_l2={rel_a:.3e}")
+        assert launches_a["spread_tiles_dense"] == 1 and launches_a["gather_points"] == 1
+        assert rel_a <= 1e-3, f"the asymmetric Gram matvec is off: {rel_a:.3e}"
+        del Ga, ya, tgts
+
+    with Phase("8c slot order and solve"):
+        def power(step, v, iters=8):
+            for _ in range(iters):
+                v = step(v)
+                v = v / torch.linalg.vector_norm(v)
+            return v
+
+        u, t_user = host_median(lambda: power(lambda v: G @ v, x1))
+        v, t_slot = host_median(lambda: G.from_slot(power(G.apply_slot, G.to_slot(x1))))
+        rel_s = rel_l2(v, u)
+        print(f"8 power-iteration steps: user order {t_user * 1e3:.3f} ms "
+              f"({t_user / 8 * 1e3:.3f} ms a matvec), slot order {t_slot * 1e3:.3f} ms "
+              f"({t_slot / 8 * 1e3:.3f} ms a matvec, conversions included): "
+              f"{t_user / t_slot:.3f}x; slot vs user rel_l2={rel_s:.3e}")
+        assert rel_s <= 1e-5, f"slot and user order disagree: {rel_s:.3e}"
+        # G.solve's CG with its own account (G._solve: solve's z, the steps
+        # taken and the recursively updated residual): the true residual is
+        # held to the one the iteration reached, and the CG's objective
+        # 1/2 z.(G + reg I)z - b.z must fall as the steps grow
+        b = torch.randn(n, device=dev, generator=gen)
+        phi = {}
+        for iters in (10, 20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            z, steps, rec = G._solve(b, reg=1e-2, tol=1e-5, maxiter=iters)
+            torch.cuda.synchronize()
+            t_cg = time.perf_counter() - t0
+            Az = (G @ z) + 1e-2 * z
+            true = rel_l2(Az, b)
+            phi[iters] = float(0.5 * torch.dot(z.double(), Az.double()) - torch.dot(
+                b.double(), z.double()))
+            print(f"G.solve(b, reg=1e-2, maxiter={iters}): {t_cg:.3f} s, {steps} CG steps; "
+                  f"||(G + reg I) z - b|| / ||b|| = {true:.6e} (the CG's own residual "
+                  f"{rec:.6e}); objective {phi[iters]:.6e}")
+            assert steps == iters and abs(true / rec - 1.0) <= 1e-3, \
+                f"the solve's residual {true:.6e} is not the CG's {rec:.6e}"
+        assert phi[20] < phi[10] < 0.0, f"the CG's objective did not fall: {phi}"
+        del u, v, z, b
+
+    with Phase("8d adjacency"):
+        t0 = time.perf_counter()
+        A = kernel.adjacency_matrix(pts, normalization="sym")
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        ya, t_adj = host_median(lambda: A @ x1)
+        va, t_adj_s = host_median(lambda: A.apply_slot(A.gram_matrix.to_slot(x1)))
+        d = torch.rsqrt(G.row_sums())[:, None]
+        rel_c = rel_l2(ya, d * (G @ (d * x1)))
+        rel_as = rel_l2(A.gram_matrix.from_slot(va), ya)
+        print(f"adjacency (sym) built in {t_build:.3f} s (plan and degrees); matvec "
+              f"{t_adj * 1e3:.3f} ms, apply_slot {t_adj_s * 1e3:.3f} ms (slot conversion of x "
+              f"included); vs D^-1/2 G D^-1/2 from G @: rel_l2={rel_c:.3e}; slot vs user "
+              f"rel_l2={rel_as:.3e}")
+        assert rel_c <= 1e-5 and rel_as <= 1e-5, f"adjacency: {rel_c:.3e}, {rel_as:.3e}"
+        del A, ya, va, d
+
+    with Phase("8e Gram gradient"):
+        pl = pts.clone().requires_grad_()
+        xl = x1.clone().requires_grad_()
+        w = torch.randn((n, 1), device=dev, generator=gen)
+        # the operator's scaled points are a function of pl, so its graph
+        # is backpropagated once; the plans are built before the clock
+        # starts, and the matvec's kernels and FFT sizes ran warm in 8b
+        Gg = kernel(pl)
+        Gg._plans()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss = ((Gg @ xl) * w).sum()
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        torch.cuda.synchronize()
+        fwd_ms, bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        launches_g = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        rel_x = rel_l2(xl.grad, G @ w)
+        print(f"Gram gradient step (x and the points): forward {fwd_ms:.3f} ms, backward "
+              f"{bwd_ms:.3f} ms (CUDA events); launches {launches_g}; peak memory "
+              f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above the "
+              f"{base / 2**30:.2f} held); x.grad vs G w rel_l2={rel_x:.3e}; points grad rms "
+              f"{float(pl.grad.square().mean().sqrt()):.4e}")
+        assert launches_g["pos_grad"] > 0, "the Gram backward did not launch B5"
+        assert rel_x <= 3e-5, f"x.grad disagrees with G w: {rel_x:.3e}"
+        assert tuple(pl.grad.shape) == (n, DIM) and bool(torch.isfinite(pl.grad).all()), \
+            "bad points gradient"
+    for name in KERNELS:
+        entry[name]["launches_gram_c1"] = launches[1][name]
+        entry[name][f"launches_gram_c{C_WIDE}"] = launches[C_WIDE][name]
+        entry[name]["launches_gram_step"] = launches_g[name]
 
 
 def nvidia_smi_line() -> str:
@@ -1487,14 +1812,9 @@ def main() -> int:
                 pos, None, N=N, m=M_CUT, sigma=SIGMA, batch_size=1, window=WINDOW, T=T_t)
             for C_s in (1, 2, 4, C_WIDE):
                 v_t = slot_values(p_t, x8[:, :C_s].contiguous())
-                designs = [contract.spread_design(DIM, p_t.H, p_t.m, C_s, name=d_name)
-                           for d_name in ("contraction", "wide")]
-                times_d = [time_ms(lambda: contract.spread_tiles(p_t, v_t, d),
-                                   3 if T_t * C_s <= 16 else 1) for d in designs]
-                outs = [contract.spread_tiles(p_t, v_t, d) for d in designs]
-                rel_d = rel_l2_rows(outs[0], outs[1])
-                del outs, v_t
-                assert rel_d <= 1e-5, f"the two designs disagree: {rel_d:.3e}"
+                times_d, rel_d = design_ms(lambda d: contract.spread_tiles(p_t, v_t, d),
+                                           p_t, C_s, 3 if T_t * C_s <= 16 else 1)
+                del v_t
                 chosen = contract.spread_design(DIM, p_t.H, p_t.m, C_s)
                 won = "contraction" if times_d[0] < times_d[1] else "wide"
                 faster.setdefault(C_s, []).append((chosen.ratio, won))
@@ -1565,6 +1885,11 @@ def main() -> int:
                       f"x{e.count // reps:<4d} {e.key[:160]}")
 
     peak_all = max(peak_before, torch.cuda.max_memory_allocated())
+    # the headline's arrays make room for the Gram phases
+    del tiles, plan, plan_b, plan_h, pos, x, xl, pl, w, x8, dest, vals_s, vals
+    torch.cuda.empty_cache()
+    gram_phases(dev, gen, report)
+    peak_all = max(peak_all, torch.cuda.max_memory_allocated())
     print(f"total {time.perf_counter() - t_all:.1f} s; peak memory "
           f"{peak_all / 2**30:.2f} GiB; card {card}")
     print(json.dumps({"kernels": report}))

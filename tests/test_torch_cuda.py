@@ -785,3 +785,72 @@ def test_bitonic_block_sizes(card, rng, b, monkeypatch):
     got = bitonic.sort_pairs(k, v)
     want = bitonic.sort_pairs_plain(k, v)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# The fastsum's geometry: gaussian window, m = 4, sigma = 2, 3D tiles of
+# T = 16 (H = 25, window ratio (25/10)^3 = 15.6)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("C", [1, 8])
+def test_gram_geometry_kernels_match_plain(card, rng, C):
+    """At the Gram path's geometry: the per-row spread (B7) and, at C = 1,
+    the dense spread (B1), the gather (B2) and the position gradient (B5),
+    each against its plain version and bit for bit across two launches."""
+    pos, batch = points(rng, 20000, 3, 1)
+    plan = tp.build_plan_device(pos, batch, N=32, m=4, sigma=2.0, batch_size=1, T=16,
+                                window="gaussian", device=card)
+    assert plan.H == 25
+    x = torch.from_numpy(rng.standard_normal((20000, C)).astype(np.float32)).to(card)
+    vals = binned.slot_values(plan, x)
+    runs = {"spread_tiles": (lambda: contract.spread_tiles(plan, vals),
+                             lambda: contract.spread_tiles_plain(plan, vals))}
+    g = torch.randn((1, C) + (plan.M,) * 3, device=card)
+    if C == 1:
+        tid_s = binned.dense_tile_ids(plan)
+        runs["spread_tiles_dense"] = (
+            lambda: contract.spread_tiles_dense(plan, vals, tid_s, plan.NT),
+            lambda: contract.spread_tiles_dense_plain(plan, vals, tid_s, plan.NT))
+        tiles, tid = unfold_grid_to_tiles(g, plan), row_tile_ids(plan)
+    else:
+        tiles = binned.grid_to_tiles(plan, g)
+        tid = torch.arange(plan.S, dtype=torch.int32, device=card)
+    runs["gather_points"] = (lambda: contract.gather_points(plan, tiles, tid),
+                             lambda: contract.gather_points_plain(plan, tiles, tid))
+    runs["pos_grad"] = (lambda: contract.pos_grad(plan, tiles, vals, tid),
+                        lambda: contract.pos_grad_plain(plan, tiles, vals, tid))
+    for name, (run, plain) in runs.items():
+        got = run()
+        assert _rel(got, plain()) <= 1e-5, name
+        assert torch.equal(run(), got), name
+
+
+@pytest.mark.parametrize("kind", ["gram", "adjacency"])
+def test_gram_and_adjacency_matvecs_on_the_card_match_the_cpu(card, rng, kind):
+    """n = 2^12 points, 3D, N = 32, gaussian window, m = 4: the operator on
+    the card (its default device) against the same operator on the CPU (the
+    plain chain), in user and in slot order; a Gram matvec launches the
+    spread and the gather once each."""
+    n = 1 << 12
+    pts = (rng.random((n, 3)) * 2 - 1).astype(np.float32)
+    x = rng.standard_normal((n, 2)).astype(np.float32)
+    ops = []
+    for device in (None, "cpu"):
+        kernel = tp.GaussianKernel(0.4, dim=3, bandwidth=32, cutoff=4, device=device)
+        ops.append(kernel(pts) if kind == "gram"
+                   else kernel.adjacency_matrix(pts, normalization="sym"))
+    card_op, cpu_op = ops
+    assert card_op.device.type == "cuda"
+    gram = card_op if kind == "gram" else card_op.gram_matrix
+    gram.apply(x)  # plans built
+    s0, g0 = contract.spread_tiles_dense.launches, contract.gather_points.launches
+    y = card_op @ x
+    torch.cuda.synchronize()
+    if kind == "gram":
+        assert (contract.spread_tiles_dense.launches, contract.gather_points.launches) \
+            == (s0 + 1, g0 + 1)
+    assert y.device.type == "cuda"
+    assert _rel(y.cpu(), cpu_op @ x) <= 1e-5
+    ys = gram.from_slot(card_op.apply_slot(gram.to_slot(x)))
+    assert _rel(ys, y) <= 1e-5

@@ -173,6 +173,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "z = tp.nfft_pair_planar(x, pos, None, batch_size=1, N=8, m=2, sigma=2.0,\n"
         "                        window='es', device='cpu')\n"
         "assert z.shape == (300, 1)\n"
+        "G = tp.GaussianKernel(0.4, dim=3, bandwidth=8, cutoff=3, device='cpu')(pos)\n"
+        "y = G @ x\n"
+        "assert y.shape == (300, 1) and bool(y.isfinite().all())\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'torch_nfft_tpu' or m.startswith('torch_nfft_tpu.'))\n"
         "print('loaded:', bad)\n"

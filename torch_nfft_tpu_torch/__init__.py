@@ -1,7 +1,8 @@
 """PyTorch and CUDA port of the JAX NFFT package, for NVIDIA Hopper (H100).
 
 The binned adjoint and forward NFFT of the JAX package (``nfft_adjoint``,
-``nfft_forward`` and the planar entry points), with the spread, gather and
+``nfft_forward`` and the planar entry points) and its fastsum
+(``nfft_fastsum``, ``nfft_fastsum_real``), with the spread, gather and
 position-gradient window contractions and the user <-> slot permutations
 (Benes network and ragged row passes) as hand-written CUDA kernels
 (``csrc/*.cu``, built by ``nvcc`` at first CUDA use) and the spectral stage
@@ -11,12 +12,24 @@ C++ in ``csrc/*.cpp`` built by ``g++`` at first use) or the device builder
 network. Every transform is differentiable in its values and in the point
 positions. It imports neither JAX nor the JAX package.
 
+The kernel-matrix layer sits on the fastsum: ``GaussianKernel`` (an
+``nn.Module`` holding its coefficients) gives a ``GramMatrix`` or an
+``AdjacencyMatrix`` per point set, with slot-layout matvecs and a
+conjugate-gradient ``solve``; the coefficient generators
+(``gaussian_analytic_coeffs``, ``gaussian_interpolated_coeffs``,
+``interpolated_kernel_coeffs`` and the interpolation grids), the point
+utilities and the dense oracles (``ndft_fastsum``,
+``exact_trigonometric_matrix``, ``exact_gaussian_matrix``,
+``exact_radial_matrix``) come with it. ``operator_from_numpy`` carries a
+JAX kernel or operator across.
+
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card and without ``device=`` they raise.
 """
 
 from ._device import resolve_device
-from .convert import plan_from_numpy, plan_to_numpy
+from .convert import operator_from_numpy, plan_from_numpy, plan_to_numpy
+from .models import AbstractMatrix, AdjacencyMatrix, GaussianKernel, GramMatrix
 from .ops.benes import BenesTables
 from .ops.binned import (
     BinnedPlan,
@@ -28,29 +41,74 @@ from .ops.binned import (
     spread_binned,
     to_slot_order,
 )
-from .ops.ndft import ndft_adjoint, ndft_forward
-from .ops.nfft import clear_plan_cache, nfft_adjoint, nfft_forward
-from .ops.planar import nfft_adjoint_planar, nfft_forward_planar, nfft_pair_planar
+from .ops.coeffs import (
+    gaussian_analytic_coeffs,
+    gaussian_interpolated_coeffs,
+    interpolated_kernel_coeffs,
+    interpolation_grid,
+    radial_interpolation_grid,
+)
+from .ops.ndft import (
+    exact_gaussian_matrix,
+    exact_radial_matrix,
+    exact_trigonometric_matrix,
+    ndft_adjoint,
+    ndft_fastsum,
+    ndft_forward,
+)
+from .ops.nfft import clear_plan_cache, nfft_adjoint, nfft_fastsum, nfft_forward
+from .ops.planar import (
+    nfft_adjoint_planar,
+    nfft_fastsum_real,
+    nfft_forward_planar,
+    nfft_pair_planar,
+)
+from .utils.points import (
+    compute_points_center,
+    compute_points_radius,
+    scale_points_by_norm,
+    shift_points_by_center,
+)
 
 __all__ = [
+    "AbstractMatrix",
+    "AdjacencyMatrix",
     "BenesTables",
     "BinnedPlan",
+    "GaussianKernel",
+    "GramMatrix",
     "build_plan",
     "build_plan_device",
     "clear_plan_cache",
+    "compute_points_center",
+    "compute_points_radius",
+    "exact_gaussian_matrix",
+    "exact_radial_matrix",
+    "exact_trigonometric_matrix",
     "from_slot_order",
     "gather_binned",
+    "gaussian_analytic_coeffs",
+    "gaussian_interpolated_coeffs",
+    "interpolated_kernel_coeffs",
+    "interpolation_grid",
     "ndft_adjoint",
+    "ndft_fastsum",
     "ndft_forward",
     "nfft_adjoint",
+    "nfft_fastsum",
+    "nfft_fastsum_real",
     "nfft_forward",
     "nfft_adjoint_planar",
     "nfft_forward_planar",
     "nfft_pair_planar",
+    "operator_from_numpy",
     "plan_from_numpy",
     "plan_slot_pos_user",
     "plan_to_numpy",
+    "radial_interpolation_grid",
     "resolve_device",
+    "scale_points_by_norm",
+    "shift_points_by_center",
     "spread_binned",
     "to_slot_order",
 ]

@@ -1,4 +1,4 @@
-"""Carry a binned plan across packages as numpy arrays.
+"""Carry a binned plan or a kernel operator across packages as numpy arrays.
 
 ``plan_from_numpy`` builds the port's :class:`BinnedPlan` from the fields of
 a JAX ``BinnedPlan`` (or any plan) passed as numpy arrays, so that both
@@ -6,7 +6,9 @@ packages run the same plan: the device arrays of :data:`PLAN_ARRAYS`, and
 the statics of :data:`PLAN_STATICS` with the host builder's bin-id
 fingerprint ``pos_fp``, sorted ``order``, ``row_start`` and ``S_occ``.
 ``plan_to_numpy`` is its inverse (Benes tables are not carried: route them
-again with ``with_benes_tables``).
+again with ``with_benes_tables``). ``operator_from_numpy`` builds the
+port's ``GaussianKernel``, ``GramMatrix`` or ``AdjacencyMatrix`` from the
+leaves and aux data of the JAX object's ``tree_flatten``.
 """
 
 from __future__ import annotations
@@ -15,9 +17,12 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .models.kernel import GaussianKernel
+from .models.matrices import AbstractMatrix, AdjacencyMatrix, GramMatrix
 from .ops.binned import BinnedPlan
 
-__all__ = ["PLAN_ARRAYS", "PLAN_STATICS", "plan_from_numpy", "plan_to_numpy"]
+__all__ = ["PLAN_ARRAYS", "PLAN_STATICS", "plan_from_numpy", "plan_to_numpy",
+           "operator_from_numpy"]
 
 # array fields and their dtypes
 PLAN_ARRAYS = {
@@ -78,3 +83,64 @@ def plan_to_numpy(plan: BinnedPlan) -> tuple[dict, dict]:
     arrays = {name: getattr(plan, name).cpu().numpy() for name in PLAN_ARRAYS}
     statics = {name: getattr(plan, name) for name in PLAN_STATICS}
     return arrays, statics
+
+
+def _leaf(a, dev):
+    """A numpy leaf on ``dev``: float32 or complex64, batch vectors int32,
+    None as None."""
+    if a is None:
+        return None
+    a = np.asarray(a)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.as_tensor(a.astype(np.int32), device=dev)
+    return torch.as_tensor(a.astype(np.complex64 if np.iscomplexobj(a) else np.float32),
+                           device=dev)
+
+
+def operator_from_numpy(children, aux, *, device=None):
+    """The port's operator from the JAX object's ``tree_flatten()`` with
+    its leaves as numpy arrays (the coefficients and degree vectors taken
+    as given, not recomputed):
+
+    * ``GaussianKernel``: children ``(coeffs,)``, aux its 11 statics;
+    * ``GramMatrix``: children ``(coeffs, sources, targets, source_batch,
+      target_batch)``, aux ``(cutoff, batch_size, symmetric, window)``. A
+      symmetric operator gets its sources as its targets (and its source
+      batch as its target batch when the two are equal), keeping the
+      identities its symmetry is decided by;
+    * ``AdjacencyMatrix``: children ``((gram children, gram aux),
+      {degree name: array})``, the Gram matrix carried by its own pair,
+      aux ``(shape, diagonal_offset, normalization, shift)``.
+    """
+    dev = resolve_device(device)
+    if len(children) == 1:
+        (sigma, dim, bandwidth, cutoff, shift_by_center, analytic, reg_degree, reg_width,
+         scale_by_norm, factor, window) = aux
+        kernel = GaussianKernel(sigma, dim, bandwidth, cutoff, shift_by_center,
+                                analytic=analytic, reg_degree=reg_degree,
+                                reg_width=reg_width, window=window, device=dev,
+                                _coeffs=_leaf(children[0], dev))
+        kernel.scale_by_norm, kernel.factor = scale_by_norm, factor
+        return kernel
+    if len(children) == 5:
+        cutoff, batch_size, symmetric, window = aux
+        coeffs, sources, targets, sb, tb = (_leaf(a, dev) for a in children)
+        if symmetric:
+            targets = sources
+            if sb is not None and tb is not None and torch.equal(sb, tb):
+                tb = sb
+        return GramMatrix(coeffs, sources, targets, sb, tb, cutoff=cutoff,
+                          batch_size=batch_size, window=window, device=dev,
+                          _symmetric=symmetric)
+    if len(children) == 2:
+        (gram_children, gram_aux), arrays = children
+        shape, diagonal_offset, normalization, shift = aux
+        adj = object.__new__(AdjacencyMatrix)
+        AbstractMatrix.__init__(adj, tuple(shape), dev)
+        adj.gram_matrix = operator_from_numpy(gram_children, gram_aux, device=dev)
+        adj.diagonal_offset, adj.normalization, adj.shift = diagonal_offset, normalization, shift
+        adj._slot_cache = {}
+        for name, value in arrays.items():
+            setattr(adj, name, _leaf(value, dev))
+        return adj
+    raise ValueError(f"unrecognised operator leaves: {len(children)} children")

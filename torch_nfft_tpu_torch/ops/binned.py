@@ -72,6 +72,8 @@ __all__ = [
     "default_tile",
     "spread_binned",
     "gather_binned",
+    "spread_binned_slot",
+    "gather_binned_slot",
     "spread_stages",
     "gather_stages",
     "spread_flat_stages",
@@ -813,15 +815,84 @@ def spread_binned(plan: BinnedPlan, x: torch.Tensor,
     return _Spread.apply(plan, x, pos)
 
 
-def gather_binned(plan: BinnedPlan, g: torch.Tensor,
-                  pos: torch.Tensor | None = None) -> torch.Tensor:
-    """Gather the grid (batch_size, C, M^dim) back to the points, (n, C):
-    the transpose of :func:`spread_binned`, differentiable in g and, when
-    given, in ``pos``."""
+def _check_grid(plan: BinnedPlan, g: torch.Tensor) -> None:
     _check_values(plan, g, "the grid")
     if g.ndim != 2 + plan.dim or g.shape[0] != plan.batch_size or any(
             s != plan.M for s in g.shape[2:]):
         raise ValueError(f"the grid has shape {tuple(g.shape)}, the plan needs "
                          f"({plan.batch_size}, C) + {(plan.M,) * plan.dim}")
+
+
+def gather_binned(plan: BinnedPlan, g: torch.Tensor,
+                  pos: torch.Tensor | None = None) -> torch.Tensor:
+    """Gather the grid (batch_size, C, M^dim) back to the points, (n, C):
+    the transpose of :func:`spread_binned`, differentiable in g and, when
+    given, in ``pos``."""
+    _check_grid(plan, g)
     _check_pos(plan, pos)
     return _Gather.apply(plan, g, pos)
+
+
+# Slot layout: the spread and gather without the user <-> slot permutation,
+# for iterated matvecs on one point set (the JAX package's
+# ``spread_binned_dft_slot`` / ``gather_binned_dft_slot``). The slot vector
+# is the same (C, S*K) on the dense and the flat route.
+
+
+def _spread_slot(plan: BinnedPlan, v: torch.Tensor) -> torch.Tensor:
+    return run_stages(spread_route(plan, v.shape[0])[1:], v.contiguous())
+
+
+def _gather_slot(plan: BinnedPlan, g: torch.Tensor) -> torch.Tensor:
+    y = run_stages(gather_route(plan, g.shape[1])[0][:2], g)  # (S, C, K)
+    return y.transpose(0, 1).reshape(y.shape[1], -1)
+
+
+class _SpreadSlot(torch.autograd.Function):
+    """(C, S*K) slot vector -> grid (batch_size, C, M^dim). Backward: the
+    slot gather, also permutation-free."""
+
+    @staticmethod
+    def forward(ctx, plan, v):
+        ctx.plan = plan
+        return _spread_slot(plan, v)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_bar):
+        return None, _gather_slot(ctx.plan, g_bar)
+
+
+class _GatherSlot(torch.autograd.Function):
+    """grid (batch_size, C, M^dim) -> (C, S*K) slot vector, padded slots
+    zero. Backward: the slot spread."""
+
+    @staticmethod
+    def forward(ctx, plan, g):
+        ctx.plan = plan
+        return _gather_slot(plan, g)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, v_bar):
+        return None, _spread_slot(ctx.plan, v_bar)
+
+
+def spread_binned_slot(plan: BinnedPlan, v: torch.Tensor) -> torch.Tensor:
+    """:func:`spread_binned` of a (C, S*K) slot-layout vector
+    (:func:`to_slot_order`): the grid (batch_size, C, M^dim), with no
+    permutation. Differentiable in ``v`` only (the positions live in the
+    plan)."""
+    _check_values(plan, v, "v")
+    if v.ndim != 2 or v.shape[1] != plan.S * plan.K:
+        raise ValueError(f"v has shape {tuple(v.shape)}, the plan's slot vectors "
+                         f"are (C, {plan.S * plan.K})")
+    return _SpreadSlot.apply(plan, v.to(torch.float32))
+
+
+def gather_binned_slot(plan: BinnedPlan, g: torch.Tensor) -> torch.Tensor:
+    """:func:`gather_binned` returning the (C, S*K) slot-layout vector, with
+    no permutation (the transpose of :func:`spread_binned_slot`).
+    Differentiable in ``g`` only."""
+    _check_grid(plan, g)
+    return _GatherSlot.apply(plan, g.to(torch.float32))

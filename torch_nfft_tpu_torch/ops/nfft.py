@@ -1,10 +1,11 @@
-"""The public adjoint and forward NFFT on the binned engine.
+"""The public adjoint and forward NFFT and the fastsum on the binned engine.
 
-Counterparts of ``nfft_adjoint`` and ``nfft_forward`` in the JAX package's
-``ops/nfft.py``, with the same signatures and layouts:
+Counterparts of ``nfft_adjoint``, ``nfft_forward`` and ``nfft_fastsum`` in
+the JAX package's ``ops/nfft.py``, with the same signatures and layouts:
 
   adjoint:  y[b, k, c] = sum_{i in batch b} x[i, c] exp(+2 pi i k.pos_i)
   forward:  y[i, c]    = sum_k x[batch_i, k, c] exp(-2 pi i k.pos_i)
+  fastsum:  y = forward(coeffs * adjoint(x)), per batch and column
 
 with k in [-N/2, N/2)^dim stored at index k + N/2. x carries trailing
 column dimensions, flattened to C columns for the engine. The spectral
@@ -35,13 +36,20 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .binned import build_plan, gather_binned, host_array, spread_binned
+from .binned import build_plan, gather_binned, host_array, run_stages, spread_binned
 from .contract import check_window_width
 from .fft import spectral_adjoint, spectral_forward
-from .planar import check_strategy, grad_pos, setup_plan, shape_of
+from .planar import (
+    _tensor,
+    check_strategy,
+    fastsum_spectral_stages,
+    grad_pos,
+    setup_plan,
+    shape_of,
+)
 from .window import DEFAULT_SIGMA, DEFAULT_WINDOW
 
-__all__ = ["nfft_adjoint", "nfft_forward", "clear_plan_cache"]
+__all__ = ["nfft_adjoint", "nfft_forward", "nfft_fastsum", "clear_plan_cache"]
 
 # plans built by the entry points, least recently used first
 _PLAN_CACHE: OrderedDict = OrderedDict()
@@ -87,12 +95,6 @@ def _normalize_batch(batch, batch_size):
     if batch_size is None:
         batch_size = int(batch[-1]) + 1
     return batch, int(batch_size)
-
-
-def _tensor(a, dev) -> torch.Tensor:
-    """``a`` on ``dev`` as float32 or complex64."""
-    a = torch.as_tensor(a, device=dev)
-    return a.to(torch.complex64 if a.is_complex() else torch.float32)
 
 
 def nfft_adjoint(x, pos, batch=None, bandwidth=16, cutoff=3, real_output=False, *,
@@ -153,3 +155,71 @@ def nfft_forward(x, pos, batch=None, cutoff=3, real_output=False, *,
         return gather_binned(plan, g.real.contiguous(), p).reshape((n,) + trailing)
     y = gather_binned(plan, torch.cat([g.real, g.imag], dim=1), p)
     return torch.complex(y[:, :C], y[:, C:]).reshape((n,) + trailing)
+
+
+def nfft_fastsum(x, coeffs, sources, targets=None, source_batch=None, target_batch=None,
+                 /, batch=None, cutoff=3, *, batch_size=None, m=None, sigma=DEFAULT_SIGMA,
+                 strategy="auto", source_plan=None, target_plan=None,
+                 window=DEFAULT_WINDOW, device=None):
+    """Fast multiplication with the trigonometric kernel (Gram) matrix:
+    ``y[t] ~= sum_s K(sources[s] - targets[t]) x[s]``, K the trigonometric
+    series with centered coefficients ``coeffs`` ((N,)*dim, frequency l at
+    index l + N/2). x (n_src, *cols) real or complex -> (n_tgt, *cols):
+    real for real x (also with complex coefficients), complex64 for
+    complex x.
+
+    Without ``targets`` the targets are the sources. Source and target
+    share one plan when ``targets is sources`` and ``target_batch is
+    source_batch`` (identity, not equal values); otherwise each side has
+    its own, from ``source_plan``/``target_plan`` or the plan cache. The
+    pipeline: spread on the source plan, unnormalised inverse DFT, the band
+    filter ``coeffs * phi_hat_inv^2``, forward DFT, gather on the target
+    plan (its real plane for real x). Differentiable in x, in the
+    coefficients and, for tensors that require grad, in the sources and
+    targets."""
+    check_strategy(strategy)
+    m = int(cutoff if m is None else m)
+    if targets is None:
+        targets, target_batch = sources, source_batch
+        if target_plan is None:
+            target_plan = source_plan
+    if batch is not None:
+        source_batch = target_batch = batch
+    symmetric = targets is sources and target_batch is source_batch
+    dev = resolve_device(device)
+    coeffs = _tensor(coeffs, dev)
+    n_src, dim = shape_of(sources)
+    N = coeffs.shape[0]
+    if coeffs.ndim != dim:
+        raise ValueError(f"coeffs must be {dim}-dimensional, got {coeffs.ndim}")
+    if any(s != N for s in coeffs.shape):
+        raise ValueError("coeffs must have equal size N in every dimension")
+    source_batch, bs_src = _normalize_batch(source_batch, batch_size)
+    target_batch, bs_tgt = _normalize_batch(target_batch, batch_size)
+    if bs_src != bs_tgt:
+        raise ValueError(f"source batch size {bs_src} != target batch size {bs_tgt}")
+    kw = dict(N=N, m=m, sigma=float(sigma), window=window, device=dev)
+    if source_plan is None:
+        source_plan = _cached_plan(sources, source_batch, batch_size=bs_src, **kw)
+    _, source_plan = setup_plan(sources, source_batch, source_plan, batch_size=bs_src, **kw)
+    if symmetric and target_plan is None:
+        target_plan = source_plan
+    elif target_plan is None:
+        target_plan = _cached_plan(targets, target_batch, batch_size=bs_tgt, **kw)
+    _, target_plan = setup_plan(targets, target_batch, target_plan, batch_size=bs_tgt, **kw)
+
+    x = _tensor(x, dev)
+    if x.shape[0] != n_src:
+        raise ValueError(f"x has {x.shape[0]} rows for {n_src} sources")
+    trailing = tuple(x.shape[1:])
+    C = math.prod(trailing)
+    xf = x.reshape(n_src, C)
+    planes = torch.cat([xf.real, xf.imag], dim=1) if x.is_complex() else xf
+    g = spread_binned(source_plan, planes, grad_pos(sources))
+    g = run_stages(fastsum_spectral_stages(
+        coeffs, dim=dim, N=N, M=source_plan.M, m=m, sigma=float(sigma), window=window,
+        complex_x=x.is_complex()), g)
+    y = gather_binned(target_plan, g, grad_pos(targets))
+    if x.is_complex():
+        y = torch.complex(y[:, :C], y[:, C:])
+    return y.reshape((target_plan.n,) + trailing)

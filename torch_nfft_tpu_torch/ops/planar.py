@@ -1,11 +1,12 @@
 """Planar NFFT entry points: real inputs, (real, imaginary) plane outputs.
 
-Counterparts of ``nfft_adjoint_planar``, ``nfft_forward_planar`` and
-``nfft_pair_planar`` in the JAX package's ``ops/planar.py``, with the same
-argument and result layouts: x (n, C); spectra (batch_size, (N,)*dim, C) as
-two real planes. They run the binned engine (ops/binned.py) around the
-``torch.fft`` spectral stage (ops/fft.py). With ``plan=None`` a plan is built
-for the points; pass one to reuse it across calls.
+Counterparts of ``nfft_adjoint_planar``, ``nfft_forward_planar``,
+``nfft_pair_planar`` and ``nfft_fastsum_real`` in the JAX package's
+``ops/planar.py``, with the same argument and result layouts: x (n, C);
+spectra (batch_size, (N,)*dim, C) as two real planes. They run the binned
+engine (ops/binned.py) around the ``torch.fft`` spectral stage
+(ops/fft.py). With ``plan=None`` a plan is built for the points; pass one
+to reuse it across calls.
 
 Each entry point is differentiable in its values and, when ``pos`` is a
 tensor that requires grad, in the point positions (ops/binned.py). Each
@@ -31,18 +32,28 @@ from .binned import (
     BinnedPlan,
     build_plan_device,
     gather_binned,
+    gather_binned_slot,
     gather_route,
     position_fingerprint,
     run_stages,
     spread_binned,
+    spread_binned_slot,
     spread_route,
 )
 from .contract import check_window_width
 from .fft import spectral_adjoint, spectral_forward
+from .spectral import fastsum_band_filter
+from .tilefold import FOLD_BUDGET
 from .window import DEFAULT_SIGMA, DEFAULT_WINDOW
 
 __all__ = ["nfft_adjoint_planar", "nfft_forward_planar", "nfft_pair_planar",
-           "pair_stages", "grad_pos", "setup_plan", "shape_of", "check_strategy"]
+           "nfft_fastsum_real", "pair_stages", "fastsum_spectral_stages",
+           "fastsum_stages", "slot_io_ok", "grad_pos", "setup_plan", "shape_of",
+           "check_strategy"]
+
+# the JAX package's largest grid for its pruned DFTs (ops/fft.py:PRUNED_MAX),
+# part of its rule for the slot-layout fastsum (slot_io_ok)
+PRUNED_MAX = 2048
 
 _STRATEGIES = ("auto", "binned")
 
@@ -133,6 +144,12 @@ def _real(a, dev) -> torch.Tensor:
     return torch.as_tensor(a, device=dev).to(torch.float32)
 
 
+def _tensor(a, dev) -> torch.Tensor:
+    """``a`` on ``dev`` as float32 or complex64."""
+    a = torch.as_tensor(a, device=dev)
+    return a.to(torch.complex64 if a.is_complex() else torch.float32)
+
+
 def nfft_adjoint_planar(x, pos, batch=None, plan=None, *, batch_size: int,
                         N: int, m: int, sigma: float = DEFAULT_SIGMA,
                         strategy: str = "auto", window: str = DEFAULT_WINDOW,
@@ -209,3 +226,103 @@ def nfft_pair_planar(x, pos, batch=None, plan=None, *, batch_size: int, N: int,
     g = spread_binned(plan, _real(x, dev), p)
     y = run_stages(_spectral_stages(plan, N=N, m=m, sigma=sigma, window=window), g)
     return gather_binned(plan, y, p)
+
+
+# ---------------------------------------------------------------------------
+# Fastsum
+# ---------------------------------------------------------------------------
+
+
+def fastsum_spectral_stages(coeffs: torch.Tensor, *, dim: int, N: int, M: int, m: int,
+                            sigma: float, window: str, complex_x: bool = False) -> tuple:
+    """The fastsum's spectral round trip as (name, function) stages, grid
+    (batch_size, C, M^dim) in and out: the unnormalised inverse DFT, the
+    band filter (``fastsum_band_filter``, built in the stage), the forward
+    DFT. A real x keeps the output's real plane; a complex x arrives and
+    leaves as its real and imaginary planes side by side (2C columns)."""
+    axes = tuple(range(2, 2 + dim))
+
+    def ifftn(g):
+        if complex_x:
+            C = g.shape[1] // 2
+            g = torch.complex(g[:, :C], g[:, C:])
+        return torch.fft.ifftn(g, dim=axes, norm="forward")
+
+    def fftn(gh):
+        g2 = torch.fft.fftn(gh, dim=axes)
+        return torch.cat([g2.real, g2.imag], dim=1) if complex_x else g2.real.contiguous()
+
+    return (
+        ("ifftn", ifftn),
+        ("filter", lambda gh: gh * fastsum_band_filter(coeffs, N, m, M, sigma, window)),
+        ("fftn", fftn),
+    )
+
+
+def fastsum_stages(source_plan: BinnedPlan, target_plan: BinnedPlan, coeffs: torch.Tensor,
+                   *, m: int, sigma: float, window: str, C: int = 1) -> tuple:
+    """The real fastsum for C columns as (name, function) stages in order:
+    the source plan's spread stages, the spectral round trip, the target
+    plan's gather stages, each on the route (dense or flat grid) its plan
+    takes for C. ``nfft_fastsum`` runs them (the spread and gather stages
+    inside their autograd Functions); chip_smoke.py times them one by one."""
+    N = coeffs.shape[0]
+    return (spread_route(source_plan, C)
+            + fastsum_spectral_stages(coeffs, dim=source_plan.dim, N=N, M=source_plan.M,
+                                      m=m, sigma=sigma, window=window)
+            + gather_route(target_plan, C)[0])
+
+
+def slot_io_ok(plan, C: int, batch_size: int) -> bool:
+    """The JAX package's condition for the slot-layout fastsum, copied: a
+    grid of at most ``PRUNED_MAX`` cells an axis, a plan whose tiles
+    partition the grid with a halo of at most one tile (M % T == 0,
+    H - T <= T), and a dense tile array for C float32 columns within the
+    6 GiB budget, counted over the plan's active slab in 3D where it has
+    one (JAX's ``_dft_route``). The port's slot vector is the same on
+    both of its routes; the rule keeps the port refusing where JAX does."""
+    if plan is None or plan.M > PRUNED_MAX:
+        return False
+    if plan.M % plan.T or plan.H - plan.T > plan.T:
+        return False
+    nb = plan.M // plan.T
+    runs = plan.active if plan.active is not None and plan.dim == 3 else ((0, nb),) * plan.dim
+    tiles = batch_size
+    for _, count in runs:
+        tiles *= count
+    return tiles * C * plan.H**plan.dim * 4 <= FOLD_BUDGET
+
+
+def nfft_fastsum_real(x, coeffs, sources, targets, source_batch=None, target_batch=None,
+                      source_plan=None, target_plan=None, *, batch_size: int, N: int,
+                      m: int, sigma: float = DEFAULT_SIGMA, strategy: str = "auto",
+                      slot_io: bool = False, window: str = DEFAULT_WINDOW,
+                      device=None) -> torch.Tensor:
+    """Fastsum of real samples x (n_src, C) with real (even) coefficients:
+    real output (n_tgt, C), y[t] = sum_s K(sources[s] - targets[t]) x[s].
+
+    ``slot_io=True`` takes and returns slot-layout vectors: x is a
+    (C, S_src*K) vector of the source plan (``to_slot_order``) and the
+    result a (C, S_tgt*K) vector of the target plan, with no point-order
+    permutation; both plans must be given and meet :func:`slot_io_ok`
+    (a ``ValueError`` otherwise, as in the JAX package)."""
+    check_strategy(strategy)
+    M = int(round(sigma * N))
+    C = shape_of(x)[0] if slot_io else shape_of(x)[1]
+    if slot_io and not (slot_io_ok(source_plan, C, batch_size)
+                        and slot_io_ok(target_plan, C, batch_size)):
+        raise ValueError(
+            "slot_io=True requires fold-capable source and target plans "
+            f"(M <= {PRUNED_MAX}, tiles that partition the grid, a dense tile array "
+            "within the budget for both plans); build binned plans for this "
+            "geometry or use the user-order entry point.")
+    kw = dict(batch_size=batch_size, N=N, m=m, sigma=sigma, window=window, device=device)
+    dev, source_plan = setup_plan(sources, source_batch, source_plan, **kw)
+    _, target_plan = setup_plan(targets, target_batch, target_plan, **kw)
+    spectral = fastsum_spectral_stages(_tensor(coeffs, dev), dim=source_plan.dim, N=N, M=M, m=m,
+                                       sigma=sigma, window=window)
+    if slot_io:
+        g = spread_binned_slot(source_plan, _real(x, dev))
+        return gather_binned_slot(target_plan, run_stages(spectral, g))
+    g = spread_binned(source_plan, _real(x, dev), grad_pos(sources))
+    return gather_binned(target_plan, run_stages(spectral, g), grad_pos(targets))

@@ -1,4 +1,5 @@
-"""Spectral index maps: centered crop, zero-padded embed and the rolloff.
+"""Spectral index maps: centered crop, zero-padded embed, the rolloff and
+the fastsum band filter.
 
 Counterpart of the JAX package's ``ops/spectral.py``. Conventions:
 
@@ -15,7 +16,8 @@ import torch
 
 from .window import DEFAULT_SIGMA, DEFAULT_WINDOW, phi_hat_inv_centered
 
-__all__ = ["centered_crop", "centered_embed", "apply_phi_hat_inv"]
+__all__ = ["centered_crop", "centered_embed", "phi_hat_inv_outer", "apply_phi_hat_inv",
+           "fastsum_band_filter", "fftshift_nd"]
 
 
 def centered_crop(g_hat: torch.Tensor, dim: int, N: int,
@@ -47,6 +49,18 @@ def centered_embed(x: torch.Tensor, dim: int, N: int, M: int,
     return x
 
 
+def phi_hat_inv_outer(dim: int, N: int, m: int, sigma: float = DEFAULT_SIGMA,
+                      dtype=torch.float32, window: str = DEFAULT_WINDOW, *,
+                      device=None) -> torch.Tensor:
+    """Separable product of the centered inverse window coefficients,
+    (N,)*dim: out[i_0, ..., i_{d-1}] = prod_d phi_hat_inv(i_d - N/2)."""
+    v = phi_hat_inv_centered(N, m, sigma, window, device=device).to(dtype)
+    out = v
+    for _ in range(dim - 1):
+        out = out[..., None] * v
+    return out
+
+
 def apply_phi_hat_inv(y: torch.Tensor, dim: int, N: int, m: int,
                       sigma: float = DEFAULT_SIGMA, spatial_axis0: int = 1,
                       window: str = DEFAULT_WINDOW) -> torch.Tensor:
@@ -58,3 +72,22 @@ def apply_phi_hat_inv(y: torch.Tensor, dim: int, N: int, m: int,
         shape[ax] = N
         y = y * v.reshape(shape)
     return y
+
+
+def fastsum_band_filter(coeffs: torch.Tensor, N: int, m: int, M: int,
+                        sigma: float = DEFAULT_SIGMA,
+                        window: str = DEFAULT_WINDOW) -> torch.Tensor:
+    """The fastsum's spectral filter on the oversampled grid, (M,)*dim:
+    coeffs[k + N/2] * prod_d phi_hat_inv(k_d)^2 at the DFT position k mod M
+    of every in-band frequency k, zero outside the band. The square carries
+    both window deconvolutions, the spread's and the gather's."""
+    dim = coeffs.ndim
+    real = coeffs.real.dtype if coeffs.is_complex() else coeffs.dtype
+    phi2 = phi_hat_inv_outer(dim, N, m, sigma, real, window, device=coeffs.device) ** 2
+    return centered_embed((coeffs * phi2)[None], dim, N, M, spatial_axis0=1)[0]
+
+
+def fftshift_nd(x: torch.Tensor, dim: int, spatial_axis0: int = 0) -> torch.Tensor:
+    """fftshift over ``dim`` axes from ``spatial_axis0`` on (N even: the
+    same as ifftshift), index map (i + N/2) mod N per axis."""
+    return torch.fft.fftshift(x, dim=tuple(range(spatial_axis0, spatial_axis0 + dim)))
