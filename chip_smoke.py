@@ -60,7 +60,18 @@ sum in float64 for the symmetric and an asymmetric operator, and C = 8
 column by column against C = 1; 8 power-iteration steps in user and
 slot order; the CG solve, its residual held to the CG's own; the ``sym``
 adjacency operator against its composition from ``G @``; and a gradient
-step in x and the points (x.grad against G w, B5 launched).
+step in x and the points (x.grad against G w, B5 launched). Phases 9-9e
+run the rest of the kernel-matrix user's path on the same points: a
+``MaternKernel(0.4, nu=1.5)`` Gram matvec at C = 1 and 8 (its launches,
+96 targets against the exact Matern sum in float64) and the four radial
+classes on the card against the CPU at n = 2^14; ``eigsh_operator`` on
+the ``sym`` adjacency in slot and user order (the Perron value 1, the top
+Ritz residual); ``accuracy_check``; the half-spectrum stages
+(``rfftn``/``irfftn``, which the pair and the slot matvec run) against
+the C2C formulation at the headline and the Gram geometry, timed; and the
+scatter and matmul engines against the NDFT gates, the binned engine and
+its gradients, and a 1500-point Gram matrix (no plan) against the dense
+Gaussian.
 
 Every phase prints its seconds; any failure exits non-zero. The line before
 the last is a JSON object listing the kernels with their times and bounds;
@@ -111,6 +122,8 @@ TIES_LOG2 = 20
 # cutoff=4) on n = 2^GRAM_LOG2 points uniform in [-1, 1)^3 (the asymmetric
 # operator on 2^GRAM_TARGETS_LOG2 more), gaussian window, sigma = 2
 GRAM_LOG2, GRAM_TARGETS_LOG2, GRAM_N, GRAM_M, GRAM_SIGMA = 22, 21, 256, 4, 0.4
+# accuracy_check on the Gram operator's points (phase 9c): bandwidth, samples
+ACC_N, ACC_SAMPLES = 64, 256
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and float32 outside the
 # tensor cores; the kernels do float32 arithmetic on the CUDA cores
@@ -322,7 +335,7 @@ def train_step(x, pos, w, plan, *, N: int, device=None):
     x.grad = pos.grad = None
     events[0].record()
     z = tp.nfft_pair_planar(x, pos, None, plan, batch_size=1, N=N, m=M_CUT,
-                            sigma=SIGMA, window=WINDOW, device=device)
+                            sigma=SIGMA, window=WINDOW, strategy="binned", device=device)
     loss = (z * w).sum()
     events[1].record()
     loss.backward()
@@ -330,20 +343,31 @@ def train_step(x, pos, w, plan, *, N: int, device=None):
     return events
 
 
-def gate(dim: int, Ng: int, dev) -> float:
-    """rel-L2 of the port's adjoint against its dense NDFT oracle in
-    float64, at bench.py's gate configuration (n=400, two columns)."""
+def gate_data(dim: int):
+    """bench.py's gate inputs: n=400 points inside [-1/4, 1/4]^dim, two
+    columns."""
     rng = np.random.default_rng(0)
     n = 400
     pos = rng.random((n, dim), dtype=np.float32) - 0.5
     pos /= 4 * np.abs(pos).max()
-    x = rng.standard_normal((n, 2)).astype(np.float32)
+    return pos, rng.standard_normal((n, 2)).astype(np.float32)
+
+
+def gate_adjoint(dim: int, Ng: int, dev, strategy: str = "binned") -> torch.Tensor:
+    """The port's adjoint of the gate inputs by ``strategy``, complex128."""
+    pos, x = gate_data(dim)
     yr, yi = tp.nfft_adjoint_planar(x, pos, None, batch_size=1, N=Ng, m=M_CUT,
-                                    sigma=SIGMA, window=WINDOW, device=dev)
-    got = torch.complex(yr, yi)[0].to(torch.complex128)
+                                    sigma=SIGMA, window=WINDOW, strategy=strategy, device=dev)
+    return torch.complex(yr, yi)[0].to(torch.complex128)
+
+
+def gate(dim: int, Ng: int, dev, strategy: str = "binned") -> float:
+    """rel-L2 of the port's adjoint against its dense NDFT oracle in
+    float64, at bench.py's gate configuration (n=400, two columns)."""
+    pos, x = gate_data(dim)
     ref = tp.ndft_adjoint(torch.from_numpy(x).double().to(dev),
                           torch.from_numpy(pos).double().to(dev), N=Ng)[0]
-    return rel_l2(got, ref)
+    return rel_l2(gate_adjoint(dim, Ng, dev, strategy), ref)
 
 
 def sampled_frequency_check(plan, pos, x, dev, n_freq: int = 96, col: int = 0) -> float:
@@ -592,12 +616,12 @@ def host_median(fn, reps: int = 3):
     return out, float(np.median(times))
 
 
-def gram_phases(dev, gen, report: list) -> None:
+def gram_phases(dev, gen, report: list) -> torch.Tensor:
     """Phases 8-8e: the Gram matvec of the JAX package's fastsum bench at
     full width (3D, N = 256, n = 2^22 points, gaussian window, m = 4,
     sigma = 2) through GaussianKernel and its operators. Adds each kernel's
     launches per Gram matvec and per gradient step, and its times at the
-    Gram geometry, to ``report``."""
+    Gram geometry, to ``report``; returns the points."""
     n = 1 << GRAM_LOG2
     rng = np.random.default_rng(41)
     pts = torch.from_numpy(rng.random((n, DIM), dtype=np.float32) * 2 - 1).to(dev)
@@ -636,7 +660,7 @@ def gram_phases(dev, gen, report: list) -> None:
         # B5 as the gather's backward weights it: the tiles of the grid the
         # target gather reads, w = a point cotangent
         stages1 = fastsum_stages(plan, plan, G.coeffs, m=GRAM_M, sigma=2.0,
-                                 window="gaussian", C=1)
+                                 window="gaussian", C=1, hermitian=False)
         tiles_primal = unfold_grid_to_tiles(run_stages(stages1[:6], x1), plan)
         w_ybar = slot_values(plan, torch.randn((n, 1), device=dev, generator=gen))
         b1, b8 = bounds(plan, 1, tiles_read), bounds(plan, C_WIDE, S)
@@ -719,8 +743,9 @@ def gram_phases(dev, gen, report: list) -> None:
                   f"{C * n / t_mv / 1e6:.2f} M column-points/s; launches {launches[C]}; peak "
                   f"memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the "
                   f"{base / 2**30:.2f} GiB held)")
+            # the complex-to-complex stages G @ runs (nfft_fastsum)
             stages = fastsum_stages(plan, plan, G.coeffs, m=GRAM_M, sigma=2.0,
-                                    window="gaussian", C=C)
+                                    window="gaussian", C=C, hermitian=False)
             # bit for bit on the dense route; on the flat route tiles_to_grid's
             # index_add_ adds in another order on every run
             rel_st = rel_l2(run_stages(stages, xv), y)
@@ -857,6 +882,244 @@ def gram_phases(dev, gen, report: list) -> None:
         entry[name]["launches_gram_c1"] = launches[1][name]
         entry[name][f"launches_gram_c{C_WIDE}"] = launches[C_WIDE][name]
         entry[name]["launches_gram_step"] = launches_g[name]
+    return pts
+
+
+def exact_matern_sum(sources, targets, x, width: float, chunk: int = 1 << 18):
+    """sum_s (1 + a) exp(-a) x_s, a = sqrt(3) ||t - s|| / width, at each
+    target t over every source, in float64: the Matern (nu = 3/2) sum."""
+    t = targets.double()
+    acc = torch.zeros((t.shape[0], x.shape[1]), dtype=torch.float64, device=t.device)
+    for c0 in range(0, sources.shape[0], chunk):
+        s = sources[c0:c0 + chunk].double()
+        a = (3.0 ** 0.5 / width) * torch.cdist(t, s)
+        acc += ((1.0 + a) * torch.exp(-a)) @ x[c0:c0 + chunk].double()
+    return acc
+
+
+def radial_kernels(bandwidth: int, device=None) -> dict:
+    """One kernel of each radial class, width 0.4, 3D, m = GRAM_M."""
+    kw = dict(dim=DIM, bandwidth=bandwidth, cutoff=GRAM_M, device=device)
+    return {
+        "MaternKernel": tp.MaternKernel(GRAM_SIGMA, nu=1.5, **kw),
+        "LaplaceKernel": tp.LaplaceKernel(GRAM_SIGMA, **kw),
+        "InverseMultiquadricKernel": tp.InverseMultiquadricKernel(GRAM_SIGMA, **kw),
+        "RadialKernel": tp.RadialKernel(lambda r: np.exp(-(r / GRAM_SIGMA) ** 2), **kw),
+    }
+
+
+def radial_phases(dev, gen, report: list, pts: torch.Tensor) -> None:
+    """Phases 9-9c on the Gram points: a Matern kernel's Gram matvec at
+    C = 1 and 8 against the exact sum and the four radial classes on the
+    card against the CPU; the Lanczos eigensolve of the sym adjacency in
+    slot and user order; accuracy_check. Adds each kernel's launches per
+    radial matvec and per eigensolve to ``report``."""
+    n = pts.shape[0]
+    rng = np.random.default_rng(43)
+    x1 = torch.randn((n, 1), device=dev, generator=gen)
+    x8 = torch.randn((n, C_WIDE), device=dev, generator=gen)
+    entry = {r["name"]: r for r in report}
+
+    launches = {}
+    with Phase("9 radial Gram matvec"):
+        t0 = time.perf_counter()
+        kernel = tp.MaternKernel(GRAM_SIGMA, nu=1.5, dim=DIM, bandwidth=GRAM_N, cutoff=GRAM_M)
+        torch.cuda.synchronize()
+        t_coeffs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        G = kernel(pts)
+        G._plans()
+        torch.cuda.synchronize()
+        t_op = time.perf_counter() - t0
+        print(f"MaternKernel({GRAM_SIGMA}, nu=1.5, dim={DIM}, bandwidth={GRAM_N}, "
+              f"cutoff={GRAM_M}): coefficients {tuple(kernel.coeffs.shape)} "
+              f"{kernel.coeffs.dtype} in {t_coeffs:.3f} s (float64 samples on the host, the "
+              f"FFT on the card); operator (scaling, host plan) in {t_op:.3f} s")
+        for C, xv, spread in ((1, x1, "spread_tiles_dense"), (C_WIDE, x8, "spread_tiles")):
+            G @ xv  # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            G @ xv
+            torch.cuda.synchronize()
+            launches[C] = read_launches()
+            assert launches[C] == {k: 1 if k in (spread, "gather_points") else 0
+                                   for k in KERNELS}, \
+                f"a C={C} radial matvec must launch {spread} and gather_points once: " \
+                f"{launches[C]}"
+            y, t_mv = host_median(lambda: G @ xv)
+            assert tuple(y.shape) == (n, C) and bool(torch.isfinite(y).all()), \
+                "bad radial output"
+            print(f"radial Gram matvec C={C}: median {t_mv * 1e3:.3f} ms (of 3 after a "
+                  f"warm-up); launches {launches[C]}")
+            if C == 1:
+                y1 = y
+        idx = torch.from_numpy(rng.choice(n, 96, replace=False)).to(dev)
+        exact = exact_matern_sum(G.sources, G.targets[idx], x1, kernel.factor * GRAM_SIGMA)
+        rel_m = rel_l2(y1[idx], exact)
+        print(f"radial C=1 at 96 sampled targets vs the exact Matern sum over all {n} sources "
+              f"(float64, norm-scaled points): rel_l2={rel_m:.3e}")
+        assert rel_m <= 2e-2, f"the radial matvec is off the Matern sum: {rel_m:.3e}"
+        del G, y, y1
+        # the four classes on the card against the CPU's plain chain
+        ps = pts[:1 << 14]
+        xs = torch.randn((ps.shape[0], 1), device=dev, generator=gen)
+        cards, cpus = radial_kernels(32), radial_kernels(32, "cpu")
+        for name, kc in cards.items():
+            kh = cpus[name]
+            rel_c = rel_l2(kc.coeffs.cpu(), kh.coeffs)
+            rel_y = rel_l2((kc(ps) @ xs).cpu(), kh(ps.cpu()) @ xs.cpu())
+            print(f"{name} (bandwidth 32) at n=2^14: card vs CPU coefficients "
+                  f"rel_l2={rel_c:.3e}, matvec rel_l2={rel_y:.3e}")
+            assert rel_c <= 1e-5 and rel_y <= 1e-5, f"{name}: {rel_c:.3e}, {rel_y:.3e}"
+
+    with Phase("9b Lanczos eigensolve"):
+        iters = 40
+        t0 = time.perf_counter()
+        A = tp.GaussianKernel(GRAM_SIGMA, dim=DIM, bandwidth=GRAM_N,
+                              cutoff=GRAM_M).adjacency_matrix(pts, normalization="sym")
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        res = {}
+        for slot in (True, False):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            w, Y = tp.eigsh_operator(A, 4, num_iters=iters, use_slot=slot)
+            torch.cuda.synchronize()
+            t_e = time.perf_counter() - t0
+            if slot:
+                launches["eigsh"] = read_launches()
+            res[slot] = (w, Y, t_e)
+            print(f"eigsh_operator(sym adjacency, 4, num_iters={iters}, use_slot={slot}): "
+                  f"{t_e:.3f} s, {t_e / (iters + 1) * 1e3:.3f} ms a step ({iters} steps and "
+                  f"the warm-up matvec); eigenvalues {[f'{v:.6f}' for v in w.tolist()]}")
+        w, Y, _ = res[True]
+        top = float(w[-1])
+        y = Y[:, -1:]
+        resid = rel_l2(A @ y, top * y)
+        gap = float((res[True][0] - res[False][0]).abs().max())
+        print(f"adjacency built in {t_build:.3f} s; launches in the slot-order eigensolve "
+              f"({iters + 1} matvecs): {launches['eigsh']}; top eigenvalue {top:.7f} (the "
+              f"Perron value 1); top Ritz residual {resid:.3e}; slot vs user eigenvalues max "
+              f"|diff| {gap:.3e}")
+        assert abs(top - 1.0) <= 1e-3 and float(w.max()) <= 1.0 + 1e-3, f"eigenvalues {w}"
+        assert resid <= 1e-2 and gap <= 1e-4, f"Ritz residual {resid:.3e}, gap {gap:.3e}"
+        assert launches["eigsh"]["spread_tiles_dense"] > 0, "the eigensolve launched no B1"
+        del A, res, w, Y, y
+
+    with Phase("9c accuracy_check"):
+        scaled = tp.GaussianKernel(GRAM_SIGMA, dim=DIM, bandwidth=GRAM_N, cutoff=GRAM_M)(pts)
+        acc = tp.accuracy_check(scaled.sources, ACC_N, 4, sample_points=ACC_SAMPLES)
+        print(f"accuracy_check on the Gram operator's points (bandwidth {ACC_N}, cutoff 4, "
+              f"{ACC_SAMPLES} samples): {acc:.3e}")
+        assert acc <= 1e-3, f"accuracy_check: {acc:.3e}"
+        del scaled
+    for name in KERNELS:
+        entry[name]["launches_radial_c1"] = launches[1][name]
+        entry[name][f"launches_radial_c{C_WIDE}"] = launches[C_WIDE][name]
+        entry[name]["launches_eigsh"] = launches["eigsh"][name]
+
+
+def spectral_and_strategy_phases(dev, gen, coeffs: torch.Tensor) -> None:
+    """Phases 9d-9e: the half-spectrum stages against the C2C formulation
+    at the headline and the Gram geometry, and the plan-free engines
+    against the NDFT gates, the binned engine and the dense Gaussian."""
+    from torch_nfft_tpu_torch.ops import fft as pfft
+    from torch_nfft_tpu_torch.ops.planar import fastsum_spectral_stages
+
+    with Phase("9d half-spectrum stages vs C2C"):
+        M_h = int(round(SIGMA * N))
+        w_band = pfft.band_filter_half(DIM, N, dev)
+        for C in (1, C_WIDE):
+            g = torch.randn((1, C) + (M_h,) * DIM, device=dev, generator=gen)
+
+            def half(g=g):
+                return pfft.spectral_forward_half(
+                    pfft.spectral_adjoint_half(g, DIM, N, M_CUT, SIGMA, WINDOW) * w_band,
+                    DIM, N, M_h, M_CUT, SIGMA, WINDOW)
+
+            def c2c(g=g):
+                return pfft.spectral_forward(
+                    pfft.spectral_adjoint(g, DIM, N, M_CUT, SIGMA, WINDOW), DIM, M_h, M_CUT,
+                    SIGMA, WINDOW).real
+
+            rel = rel_l2(half(), c2c())
+            t_h, t_c = time_ms(half, 5), time_ms(c2c, 5)
+            print(f"headline (3D N={N} M={M_h} {WINDOW} m={M_CUT}) C={C}: rfftn+irfftn "
+                  f"{t_h:.3f} ms, ifftn+fftn {t_c:.3f} ms ({t_c / t_h:.2f}x); rel_l2={rel:.3e}")
+            steps = (("rfftn", lambda v: pfft.spectral_adjoint_half(
+                          v, DIM, N, M_CUT, SIGMA, WINDOW)),
+                     ("band filter", lambda h: h * w_band),
+                     ("irfftn", lambda h: pfft.spectral_forward_half(
+                         h, DIM, N, M_h, M_CUT, SIGMA, WINDOW)))
+            print("  by step (CUDA events, median of 5): " + ", ".join(
+                f"{name} {ms:.3f} ms" for (name, _), ms in zip(steps, stage_ms(steps, g))))
+            assert rel <= 1e-6, f"half vs C2C at the headline, C={C}: {rel:.3e}"
+            del g
+        M_g = 2 * GRAM_N
+        kw = dict(dim=DIM, N=GRAM_N, M=M_g, m=GRAM_M, sigma=2.0, window="gaussian")
+        st_h = fastsum_spectral_stages(coeffs, **kw)
+        st_c = fastsum_spectral_stages(coeffs, hermitian=False, **kw)
+        for C in (1, C_WIDE):
+            g = torch.randn((1, C) + (M_g,) * DIM, device=dev, generator=gen)
+            rel = rel_l2(run_stages(st_h, g), run_stages(st_c, g))
+            t_h = time_ms(lambda: run_stages(st_h, g), 3)
+            t_c = time_ms(lambda: run_stages(st_c, g), 3)
+            print(f"Gram geometry (3D N={GRAM_N} M={M_g}, interpolated coefficients) C={C}: "
+                  f"rfftn+filter+irfftn {t_h:.3f} ms, ifftn+filter+fftn {t_c:.3f} ms "
+                  f"({t_c / t_h:.2f}x); rel_l2={rel:.3e}")
+            for label, st in (("half", st_h), ("C2C", st_c)):
+                print(f"  {label} by stage (CUDA events, median of 5): " + ", ".join(
+                    f"{name} {ms:.3f} ms" for (name, _), ms in zip(st, stage_ms(st, g))))
+            assert rel <= 1e-6, f"half vs C2C at the Gram geometry, C={C}: {rel:.3e}"
+            del g
+
+    with Phase("9e plan-free strategies"):
+        for dim, Ng in ((2, 16), (3, 32)):
+            binned_y = gate_adjoint(dim, Ng, dev)
+            for strategy in ("matmul", "scatter"):
+                reset_launches()
+                g_err = gate(dim, Ng, dev, strategy)
+                rel_b = rel_l2(gate_adjoint(dim, Ng, dev, strategy), binned_y)
+                ran = {k: v for k, v in read_launches().items() if v}
+                print(f"gate {dim}D N={Ng} by {strategy}: rel_l2={g_err:.3e} against the NDFT, "
+                      f"{rel_b:.3e} against binned; kernel launches {ran}")
+                assert g_err < 1e-3 and rel_b <= 1e-5 and not ran, \
+                    f"{strategy} at {dim}D: {g_err:.3e}, {rel_b:.3e}, {ran}"
+        # bench.py's 3D gate inputs through the pair: gradients in x and the
+        # points by each engine against the binned engine's
+        pos, x = gate_data(3)
+        w = np.random.default_rng(3).standard_normal(x.shape).astype(np.float32)
+        grads = {}
+        for strategy in ("binned", "matmul", "scatter"):
+            xl = torch.from_numpy(x).to(dev).requires_grad_()
+            pl = torch.from_numpy(pos).to(dev).requires_grad_()
+            z = tp.nfft_pair_planar(xl, pl, None, batch_size=1, N=32, m=M_CUT, sigma=SIGMA,
+                                    window=WINDOW, strategy=strategy)
+            (z * torch.from_numpy(w).to(dev)).sum().backward()
+            grads[strategy] = (xl.grad, pl.grad)
+        for strategy in ("matmul", "scatter"):
+            rx = rel_l2(grads[strategy][0], grads["binned"][0])
+            rp = rel_l2(grads[strategy][1], grads["binned"][1])
+            print(f"pair gradients by {strategy} vs binned (3D N=32 n=400): x.grad "
+                  f"rel_l2={rx:.3e}, pos.grad rel_l2={rp:.3e}")
+            assert rx <= 3e-5 and rp <= 3e-5, f"{strategy} gradients: {rx:.3e}, {rp:.3e}"
+        # a small operator does not plan: its matvecs run the plan-free engines
+        rng = np.random.default_rng(51)
+        p2 = ((rng.random((1500, 2)) * 2 - 1) * 3).astype(np.float32)
+        kernel = tp.GaussianKernel(1.0, dim=2, bandwidth=16, cutoff=4)
+        G = kernel(p2)
+        reset_launches()
+        A = G.to_dense()
+        ran = {k: v for k, v in read_launches().items() if v}
+        src, _ = tp.shift_points_by_center(p2)
+        src, _ = tp.scale_points_by_norm(src, factor=1.0, norm=kernel.scale_by_norm)
+        err = float((A.double() - tp.exact_gaussian_matrix(1.0, src.double())).abs().max())
+        print(f"GramMatrix of 1500 points (GaussianKernel(1.0, dim=2, bandwidth=16, cutoff=4)):"
+              f" plans {G._plans()[0] is not None}, kernel launches {ran}; max |G - exact| "
+              f"{err:.3e}")
+        assert G._plans()[0] is None and not ran and err < 5e-3, \
+            f"small Gram: plan {G._plans()[0]}, {ran}, {err:.3e}"
 
 
 def nvidia_smi_line() -> str:
@@ -1888,7 +2151,12 @@ def main() -> int:
     # the headline's arrays make room for the Gram phases
     del tiles, plan, plan_b, plan_h, pos, x, xl, pl, w, x8, dest, vals_s, vals
     torch.cuda.empty_cache()
-    gram_phases(dev, gen, report)
+    pts = gram_phases(dev, gen, report)
+    radial_phases(dev, gen, report, pts)
+    coeffs = tp.GaussianKernel(GRAM_SIGMA, dim=DIM, bandwidth=GRAM_N, cutoff=GRAM_M).coeffs
+    del pts
+    torch.cuda.empty_cache()
+    spectral_and_strategy_phases(dev, gen, coeffs)
     peak_all = max(peak_all, torch.cuda.max_memory_allocated())
     print(f"total {time.perf_counter() - t_all:.1f} s; peak memory "
           f"{peak_all / 2**30:.2f} GiB; card {card}")

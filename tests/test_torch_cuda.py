@@ -15,7 +15,9 @@ sizes, give the same bits.
 The permutation kernels (ragged rows, Benes network) and the bitonic sort
 move words and agree with their plain versions bit for bit.
 Gradients on the card agree with the same call on the CPU (the plain
-versions) to rel-L2 3e-5, the bar of the transforms against JAX.
+versions) to rel-L2 3e-5, the bar of the transforms against JAX. Tests
+that mean the kernels pass ``strategy="binned"``: without a plan, small
+calls run the plan-free engines (the "auto" rule).
 """
 
 import dataclasses
@@ -184,7 +186,7 @@ def test_contraction_spreads_repeat_bit_for_bit(card, rng, C):
 def test_entry_points_run_on_the_card_by_default(card, rng):
     pos, batch = points(rng, 5000, 3, 2)
     x = rng.standard_normal((5000, 2)).astype(np.float32)
-    kw = dict(batch_size=2, N=16, m=2, sigma=1.625, window="es")
+    kw = dict(batch_size=2, N=16, m=2, sigma=1.625, window="es", strategy="binned")
     s0, g0 = contract.spread_tiles_dense.launches, contract.gather_points.launches
     z = tp.nfft_pair_planar(x, pos, batch, **kw)
     assert z.device.type == "cuda" and z.shape == (5000, 2)
@@ -333,7 +335,7 @@ def test_card_entry_points_raise_beyond_the_window_widths(card, rng, entry):
     pos, _ = points(rng, n, 1)
     x = rng.standard_normal((n, 1)).astype(np.float32)
     spec = rng.standard_normal((1, 32, 1)).astype(np.float32)
-    kw = dict(m=m, sigma=2.0, window="gaussian")
+    kw = dict(m=m, sigma=2.0, window="gaussian", strategy="binned")
     calls = {
         "adjoint": lambda: tp.nfft_adjoint(x, pos, N=32, **kw),
         "forward": lambda: tp.nfft_forward(spec, pos, **kw),
@@ -364,7 +366,7 @@ def test_gradients_on_the_card_match_the_cpu(card, rng, entry):
     n, dim, N, B = 6000, 3, 16, 2
     pos, batch = points(rng, n, dim, B)
     x = rng.standard_normal((n, 2)).astype(np.float32)
-    kw = dict(batch_size=B, m=2, sigma=1.625, window="es")
+    kw = dict(batch_size=B, m=2, sigma=1.625, window="es", strategy="binned")
     if entry == "pair":
         w = rng.standard_normal((n, 2)).astype(np.float32)
 
@@ -388,7 +390,8 @@ def test_training_step_launches_each_kernel_twice(card, rng):
     x.requires_grad_()
     p.requires_grad_()
     before = {k: getattr(contract, k).launches for k in KERNELS}
-    z = tp.nfft_pair_planar(x, p, None, batch_size=1, N=16, m=2, sigma=1.625, window="es")
+    z = tp.nfft_pair_planar(x, p, None, batch_size=1, N=16, m=2, sigma=1.625, window="es",
+                            strategy="binned")
     (z * torch.randn_like(z)).sum().backward()
     torch.cuda.synchronize()
     assert {k: getattr(contract, k).launches - before[k] for k in KERNELS} == dict.fromkeys(
@@ -854,3 +857,101 @@ def test_gram_and_adjacency_matvecs_on_the_card_match_the_cpu(card, rng, kind):
     assert _rel(y.cpu(), cpu_op @ x) <= 1e-5
     ys = gram.from_slot(card_op.apply_slot(gram.to_slot(x)))
     assert _rel(ys, y) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The radial kernels, the Lanczos solver, the plan-free engines and the
+# half-spectrum stages on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["matern", "laplace", "imq", "radial"])
+def test_radial_gram_matvec_on_the_card_matches_the_cpu(card, rng, kind):
+    """n = 2^12 points, 3D, N = 32, m = 4: a radial kernel's Gram matvec on
+    the card (B1 and B2 launched once each) against the CPU's plain chain,
+    and the coefficients built on each."""
+    n = 1 << 12
+    pts = (rng.random((n, 3)) * 2 - 1).astype(np.float32)
+    x = rng.standard_normal((n, 1)).astype(np.float32)
+    make = {"matern": lambda d: tp.MaternKernel(0.4, nu=1.5, dim=3, bandwidth=32, cutoff=4,
+                                                device=d),
+            "laplace": lambda d: tp.LaplaceKernel(0.4, dim=3, bandwidth=32, cutoff=4, device=d),
+            "imq": lambda d: tp.InverseMultiquadricKernel(0.4, dim=3, bandwidth=32, cutoff=4,
+                                                          device=d),
+            "radial": lambda d: tp.RadialKernel(lambda r: np.exp(-(r / 0.4) ** 2), dim=3,
+                                                bandwidth=32, cutoff=4, device=d)}[kind]
+    kc, kh = make(None), make("cpu")
+    assert kc.coeffs.device.type == "cuda"
+    assert _rel(kc.coeffs.cpu(), kh.coeffs) <= 1e-5
+    G = kc(pts)
+    G @ x  # plans built
+    s0, g0 = contract.spread_tiles_dense.launches, contract.gather_points.launches
+    y = G @ x
+    torch.cuda.synchronize()
+    assert (contract.spread_tiles_dense.launches, contract.gather_points.launches) \
+        == (s0 + 1, g0 + 1)
+    assert _rel(y.cpu(), kh(pts) @ x) <= 1e-5
+
+
+def test_lanczos_step_on_the_card_matches_the_cpu(card, rng):
+    """Ten Lanczos steps of the sym adjacency operator in slot order on the
+    card against the same on the CPU (one shared start vector), and
+    eigsh_operator's top eigenvalue at the Perron value 1."""
+    n = 1 << 12
+    pts = (rng.random((n, 3)) * 2 - 1).astype(np.float32)
+    v = rng.standard_normal((n, 1)).astype(np.float32)
+    ops, out = [], []
+    for device in (None, "cpu"):
+        A = tp.GaussianKernel(0.4, dim=3, bandwidth=32, cutoff=4,
+                              device=device).adjacency_matrix(pts, normalization="sym")
+        v0 = A.gram_matrix.to_slot(torch.from_numpy(v).to(A.device))
+        ops.append(A)
+        out.append(tp.lanczos(A.apply_slot, v0, 10))
+    for a, b in zip(out[0], out[1]):
+        assert a.device.type == "cuda"
+        assert _rel(a.cpu(), b) <= 1e-4
+    w, y = tp.eigsh_operator(ops[0], 2, num_iters=20)
+    assert w.device.type == "cuda" and abs(float(w[-1]) - 1.0) <= 1e-3
+    assert y.shape == (n, 2)
+
+
+@pytest.mark.parametrize("strategy", ["scatter", "matmul"])
+def test_plan_free_engines_on_the_card_match_the_cpu(card, rng, strategy):
+    """Each plan-free engine on the card: the adjoint, the pair and their
+    gradients in x and the points against the CPU, no kernel launched."""
+    n, dim, N, B = 600, 3, 16, 2
+    pos, batch = points(rng, n, dim, B)
+    x = rng.standard_normal((n, 2)).astype(np.float32)
+    w = rng.standard_normal((n, 2)).astype(np.float32)
+    kw = dict(batch_size=B, m=2, sigma=1.625, window="es", strategy=strategy)
+
+    def fn(a, p, d):
+        return tp.nfft_pair_planar(a, p, batch, N=N, device=d, **kw)
+
+    before = {k: getattr(contract, k).launches for k in KERNELS}
+    gx, gp = _loss_grads(fn, x, pos, w, card)
+    torch.cuda.synchronize()
+    assert {k: getattr(contract, k).launches for k in KERNELS} == before
+    rx, rp = _loss_grads(fn, x, pos, w, "cpu")
+    assert _rel(gx, rx) <= 3e-5 and _rel(gp, rp) <= 3e-5
+    y = tp.nfft_adjoint(x, pos, batch, N=N, **kw)
+    assert y.device.type == "cuda"
+    assert _rel(y.cpu(), tp.nfft_adjoint(x, pos, batch, N=N, device="cpu", **kw)) <= 3e-5
+
+
+@pytest.mark.parametrize("dim,N", [(2, 64), (3, 32), (3, 31)])
+def test_half_spectrum_stages_on_the_card_match_c2c(card, rng, dim, N):
+    """The pair's rfftn/irfftn stages on the card against the C2C chain
+    (the asymmetric band's edge planes included), 1e-6 rel-L2."""
+    from torch_nfft_tpu_torch.ops import fft as pfft
+
+    M, m, sigma = 2 * N, 3, 2.0
+    g = torch.randn((1, 2) + (M,) * dim, device=card)
+    half = pfft.spectral_adjoint_half(g, dim, N, m, sigma, "es")
+    w = pfft.band_filter_half(dim, N, card)
+    got = pfft.spectral_forward_half(half if w is None else half * w, dim, N, M, m, sigma,
+                                     "es")
+    full = pfft.spectral_adjoint(g, dim, N, m, sigma, "es")
+    want = pfft.spectral_forward(full, dim, M, m, sigma, "es").real
+    assert _rel(got, want) <= 1e-6
+    assert _rel(pfft.half_spectrum_to_full(half, dim, N), full) <= 1e-6

@@ -200,18 +200,25 @@ def test_fastsum_slot_vector_is_the_same_on_the_flat_route(rng, monkeypatch):
 
 
 def test_fastsum_runs_its_stages_in_order(rng):
-    """The stages chip_smoke.py times one by one are the fastsum's own."""
+    """The stages chip_smoke.py times one by one are the fastsum's own:
+    complex to complex for nfft_fastsum, on half spectra for
+    nfft_fastsum_real."""
     pos, batch, x, coeffs, jplan, plan = _real_case(rng)
-    stages = fastsum_stages(plan, plan, torch.from_numpy(coeffs), m=4, sigma=2.0,
-                            window="gaussian", C=2)
-    assert [name for name, _ in stages] == [
-        "slot_values", "spread kernel", "fold", "ifftn", "filter", "fftn", "unfold",
-        "gather kernel", "unslot_values"]
-    v = torch.from_numpy(x)
-    for _, fn in stages:
-        v = fn(v)
-    assert torch.equal(v, tp.nfft_fastsum(x, coeffs, pos, source_plan=plan, cutoff=4,
-                                          device="cpu"))
+    for hermitian, spectral, want in (
+            (False, ["ifftn", "filter", "fftn"],
+             tp.nfft_fastsum(x, coeffs, pos, source_plan=plan, cutoff=4, device="cpu")),
+            (True, ["rfftn", "filter", "irfftn"],
+             tp.nfft_fastsum_real(x, coeffs, pos, pos, None, None, plan, plan, batch_size=1,
+                                  N=16, m=4, device="cpu"))):
+        stages = fastsum_stages(plan, plan, torch.from_numpy(coeffs), m=4, sigma=2.0,
+                                window="gaussian", C=2, hermitian=hermitian)
+        assert [name for name, _ in stages] == [
+            "slot_values", "spread kernel", "fold", *spectral, "unfold", "gather kernel",
+            "unslot_values"]
+        v = torch.from_numpy(x)
+        for _, fn in stages:
+            v = fn(v)
+        assert torch.equal(v, want)
 
 
 def test_slot_spread_and_gather_are_transposes(rng):

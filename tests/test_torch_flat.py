@@ -38,10 +38,10 @@ from torch_nfft_tpu_torch.ops.planar import pair_stages
 TOL = dict(rtol=1e-5, atol=1e-5)
 REL = 3e-5
 CASES = [(dim, B, C) for dim in (1, 2, 3) for B in (1, 2) for C in (1, 2)]
-FLAT = ["slot_values", "spread tiles kernel", "tiles to grid", "spectral adjoint",
-        "spectral forward", "grid to tiles", "gather kernel", "unslot_values"]
-DENSE = ["slot_values", "spread kernel", "fold", "spectral adjoint",
-         "spectral forward", "unfold", "gather kernel", "unslot_values"]
+FLAT = ["slot_values", "spread tiles kernel", "tiles to grid", "rfftn", "irfftn",
+        "grid to tiles", "gather kernel", "unslot_values"]
+DENSE = ["slot_values", "spread kernel", "fold", "rfftn", "irfftn", "unfold",
+         "gather kernel", "unslot_values"]
 
 
 @pytest.fixture(autouse=True)

@@ -3,10 +3,10 @@ operators, the point utilities, and operators carried across with
 ``operator_from_numpy`` (the cases of tests/test_kernel.py and
 tests/test_matrices.py).
 
-The port always plans (its binned engine); the JAX package's operators
-skip planning below 2048 points. Their matvecs agree to 1e-5 of the
-output's largest entry, and the port meets the JAX tests' own bars
-against the dense oracles.
+Both packages' operators skip planning below 2048 points (the one-hot
+matmul engine then runs). Their matvecs agree to 1e-5 of the output's
+largest entry, and the port meets the JAX tests' own bars against the
+dense oracles.
 """
 
 import inspect
@@ -195,9 +195,9 @@ def test_gram_symmetric_detection_is_by_identity(rng):
     assert tp.GramMatrix(coeffs, pos, pos, cutoff=4, device="cpu").is_symmetric()
     copy = tp.GramMatrix(coeffs, pos, pos.copy(), cutoff=4, device="cpu")
     assert not copy.is_symmetric()  # equal values, another object
-    sp, tp_ = copy._plans()
+    sp, tp_ = copy._plans(require=True)  # small operators plan for the slot API only
     assert tp_ is not sp
-    assert sym._plans()[1] is sym._plans()[0]  # symmetric: one plan
+    assert sym._plans(require=True)[1] is sym._plans()[0]  # symmetric: one plan
     assert sym.T is sym and copy.T is not copy
 
 

@@ -1,5 +1,6 @@
 """PyTorch port vs JAX package: the public ``nfft_adjoint`` / ``nfft_forward``
-on the binned strategy, their gradients and their loud errors.
+on the binned strategy (and once on each plan-free one), their gradients
+and their loud errors.
 
 The same plan (built by JAX, carried across with ``plan_from_numpy``) runs
 in both packages; JAX runs ``strategy="binned"`` with that plan. Outputs
@@ -161,13 +162,19 @@ def test_plan_mismatch_raises(rng):
 
 @pytest.mark.parametrize("strategy", ["scatter", "matmul"])
 def test_unported_strategies_raise(rng, strategy):
-    pos, _ = points(rng, 50, 2)
-    x = _values(rng, (50, 1), False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tp.nfft_adjoint(x, pos, N=8, m=2, strategy=strategy, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tp.nfft_forward(np.zeros((1, 8, 8, 1), np.float32), pos, m=2, strategy=strategy,
-                        device="cpu")
+    """The strategies this test once found unported now run: each gives
+    the JAX package's adjoint and forward (no plan in either package), and
+    an unknown strategy still raises."""
+    pos, batch = points(rng, 150, 2, 2)
+    kw = dict(m=3, sigma=2.0, window="es", strategy=strategy)
+    x = _values(rng, (150, 2), True)
+    ref = tn.nfft_adjoint(jnp.asarray(x), pos, batch, N=16, **kw)
+    got = tp.nfft_adjoint(x, pos, batch, N=16, device="cpu", **kw)
+    assert rel_l2(got.numpy(), np.asarray(ref)) <= REL
+    s = _values(rng, (2, 16, 16, 2), True)
+    ref = tn.nfft_forward(jnp.asarray(s), pos, batch, **kw)
+    got = tp.nfft_forward(s, pos, batch, device="cpu", **kw)
+    assert rel_l2(got.numpy(), np.asarray(ref)) <= REL
     with pytest.raises(ValueError, match="unknown strategy"):
         tp.nfft_adjoint(x, pos, N=8, m=2, strategy="fast", device="cpu")
 

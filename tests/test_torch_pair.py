@@ -60,8 +60,8 @@ def test_pair_runs_its_stages_in_order(rng):
     pos, batch, x, jplan, plan, kw = _case(rng, 3, 8, 2, 2, 2, 1.625, "kb")
     stages = pair_stages(plan, N=8, m=2, sigma=1.625, window="kb")
     assert [name for name, _ in stages] == [
-        "slot_values", "spread kernel", "fold", "spectral adjoint",
-        "spectral forward", "unfold", "gather kernel", "unslot_values"]
+        "slot_values", "spread kernel", "fold", "rfftn", "irfftn", "unfold",
+        "gather kernel", "unslot_values"]
     v = torch.from_numpy(x)
     for _, fn in stages:
         v = fn(v)
@@ -171,11 +171,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "pos = (rng.random((300, 3), dtype=np.float32) - 0.5) / 2\n"
         "x = rng.standard_normal((300, 1)).astype(np.float32)\n"
         "z = tp.nfft_pair_planar(x, pos, None, batch_size=1, N=8, m=2, sigma=2.0,\n"
-        "                        window='es', device='cpu')\n"
+        "                        window='es', strategy='binned', device='cpu')\n"
         "assert z.shape == (300, 1)\n"
         "G = tp.GaussianKernel(0.4, dim=3, bandwidth=8, cutoff=3, device='cpu')(pos)\n"
         "y = G @ x\n"
         "assert y.shape == (300, 1) and bool(y.isfinite().all())\n"
+        "R = tp.MaternKernel(0.4, nu=1.5, dim=3, bandwidth=8, cutoff=3, device='cpu')(pos)\n"
+        "assert bool((R @ x).isfinite().all())\n"
+        "w, v = tp.eigsh_operator(R, 2, num_iters=12)\n"
+        "assert w.shape == (2,) and v.shape == (300, 2)\n"
+        "assert tp.accuracy_check(pos, 8, 3, device='cpu') < 1e-2\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'torch_nfft_tpu' or m.startswith('torch_nfft_tpu.'))\n"
         "print('loaded:', bad)\n"
@@ -190,30 +195,34 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_planar_entry_points_take_a_strategy(rng):
     """ROADMAP.md C2: the three planar entry points take ``strategy`` as the
-    JAX functions do. "binned" runs the default engine; the unported
-    strategies raise as nfft_adjoint does; an unknown name is an error."""
+    JAX functions do. With a plan every strategy runs the binned engine on
+    it; without one the plan-free strategies run their engines, within
+    1e-5 of the binned engine; an unknown name is an error."""
     pos, batch, x, jplan, plan, kw = _case(rng, 2, 16, 2, 2, 3, 2.0, "es")
     N = 16
     spec = rng.standard_normal((2, N, N, 2)).astype(np.float32)
     calls = {
-        "pair": lambda **s: tp.nfft_pair_planar(x, pos, batch, plan, N=N, device="cpu",
-                                                **kw, **s),
-        "adjoint": lambda **s: tp.nfft_adjoint_planar(x, pos, batch, plan, N=N,
-                                                      device="cpu", **kw, **s),
-        "forward": lambda **s: tp.nfft_forward_planar(spec, spec, pos, batch, plan, dim=2,
-                                                      device="cpu", **kw, **s),
+        "pair": lambda p, **s: tp.nfft_pair_planar(x, pos, batch, p, N=N, device="cpu",
+                                                   **kw, **s),
+        "adjoint": lambda p, **s: tp.nfft_adjoint_planar(x, pos, batch, p, N=N,
+                                                         device="cpu", **kw, **s),
+        "forward": lambda p, **s: tp.nfft_forward_planar(spec, spec, pos, batch, p, dim=2,
+                                                         device="cpu", **kw, **s),
     }
+
+    def planes(out):
+        return out if isinstance(out, tuple) else (out,)
+
     for name, call in calls.items():
-        base = call()
-        got = call(strategy="binned")
-        for a, b in zip(base if isinstance(base, tuple) else (base,),
-                        got if isinstance(got, tuple) else (got,)):
-            assert torch.equal(a, b), name
+        base = planes(call(plan))
+        for strategy in ("binned", "scatter", "matmul"):
+            for a, b in zip(base, planes(call(plan, strategy=strategy))):
+                assert torch.equal(a, b), name
         for strategy in ("scatter", "matmul"):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                call(strategy=strategy)
+            for a, b in zip(base, planes(call(None, strategy=strategy))):
+                assert rel_l2(b.numpy(), a.numpy()) <= 1e-5, (name, strategy)
         with pytest.raises(ValueError, match="unknown strategy"):
-            call(strategy="fast")
+            call(plan, strategy="fast")
     z = tp.nfft_pair_planar(x[:, :1], pos, None, batch_size=1, N=16, m=3,
                             strategy="binned", device="cpu")
     ref = jplanar.nfft_pair_planar(jnp.asarray(x[:, :1]), jnp.asarray(pos),

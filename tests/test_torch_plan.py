@@ -143,20 +143,24 @@ def test_position_fingerprint_matches_jax(rng):
 
 
 def test_entry_points_cache_their_plans(rng):
-    """With plan=None, nfft_adjoint/nfft_forward plan a point set once
-    (host plan, LRU of four, keyed by content), as JAX's _PLAN_CACHE."""
+    """With plan=None and the binned strategy (which "auto" takes only for
+    large problems), nfft_adjoint/nfft_forward plan a point set once (host
+    plan, LRU of four, keyed by content), as JAX's _PLAN_CACHE."""
     pnfft.clear_plan_cache()
     pos, _ = points(rng, 120, 2)
     x = rng.standard_normal((120, 1)).astype(np.float32)
-    y1 = tp.nfft_adjoint(x, pos, N=8, m=2, device="cpu")
+    tp.nfft_adjoint(x, pos, N=8, m=2, device="cpu")
+    assert not pnfft._PLAN_CACHE  # "auto" at 120 points: the matmul engine
+    y1 = tp.nfft_adjoint(x, pos, N=8, m=2, strategy="binned", device="cpu")
     assert len(pnfft._PLAN_CACHE) == 1
     (plan,) = pnfft._PLAN_CACHE.values()
     assert plan.pos_fp is not None and plan.order is not None
-    y2 = tp.nfft_adjoint(x, pos.copy(), N=8, m=2, device="cpu")
-    tp.nfft_forward(np.asarray(y1), pos, m=2, device="cpu")
+    y2 = tp.nfft_adjoint(x, pos.copy(), N=8, m=2, strategy="binned", device="cpu")
+    tp.nfft_forward(np.asarray(y1), pos, m=2, strategy="binned", device="cpu")
     assert len(pnfft._PLAN_CACHE) == 1 and torch.equal(y1, y2)
     for k in range(5):
-        tp.nfft_adjoint(x, pos * (0.5 + 0.1 * k), N=8, m=2, device="cpu")
+        tp.nfft_adjoint(x, pos * (0.5 + 0.1 * k), N=8, m=2, strategy="binned",
+                        device="cpu")
     assert len(pnfft._PLAN_CACHE) == 4
     tp.clear_plan_cache()
     assert not pnfft._PLAN_CACHE

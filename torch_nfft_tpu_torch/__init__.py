@@ -12,10 +12,19 @@ C++ in ``csrc/*.cpp`` built by ``g++`` at first use) or the device builder
 network. Every transform is differentiable in its values and in the point
 positions. It imports neither JAX nor the JAX package.
 
-The kernel-matrix layer sits on the fastsum: ``GaussianKernel`` (an
-``nn.Module`` holding its coefficients) gives a ``GramMatrix`` or an
-``AdjacencyMatrix`` per point set, with slot-layout matvecs and a
-conjugate-gradient ``solve``; the coefficient generators
+Without a plan, small problems run the scatter or the one-hot matmul
+engine (``strategy=``, the JAX package's four strategies and its
+``"auto"`` rule); real inputs and outputs run the spectral stage on half
+spectra (``rfftn``/``irfftn``).
+
+The kernel-matrix layer sits on the fastsum: ``GaussianKernel`` and the
+radial kernels (``RadialKernel`` for any profile, ``LaplaceKernel``,
+``MaternKernel``, ``InverseMultiquadricKernel``; all ``nn.Module`` objects holding
+their coefficients) give a ``GramMatrix`` or an ``AdjacencyMatrix`` per
+point set, with slot-layout matvecs, a conjugate-gradient ``solve`` and
+the Lanczos eigensolver (``lanczos``, ``eigsh_operator``);
+``accuracy_check`` measures the adjoint against the NDFT on a subsample;
+the coefficient generators
 (``gaussian_analytic_coeffs``, ``gaussian_interpolated_coeffs``,
 ``interpolated_kernel_coeffs`` and the interpolation grids), the point
 utilities and the dense oracles (``ndft_fastsum``,
@@ -29,7 +38,16 @@ Entry points run on the CUDA card unless the caller passes
 
 from ._device import resolve_device
 from .convert import operator_from_numpy, plan_from_numpy, plan_to_numpy
-from .models import AbstractMatrix, AdjacencyMatrix, GaussianKernel, GramMatrix
+from .models import (
+    AbstractMatrix,
+    AdjacencyMatrix,
+    GaussianKernel,
+    GramMatrix,
+    InverseMultiquadricKernel,
+    LaplaceKernel,
+    MaternKernel,
+    RadialKernel,
+)
 from .ops.benes import BenesTables
 from .ops.binned import (
     BinnedPlan,
@@ -63,12 +81,14 @@ from .ops.planar import (
     nfft_forward_planar,
     nfft_pair_planar,
 )
+from .utils.diagnostics import accuracy_check
 from .utils.points import (
     compute_points_center,
     compute_points_radius,
     scale_points_by_norm,
     shift_points_by_center,
 )
+from .utils.solve import eigsh_operator, lanczos
 
 __all__ = [
     "AbstractMatrix",
@@ -77,11 +97,17 @@ __all__ = [
     "BinnedPlan",
     "GaussianKernel",
     "GramMatrix",
+    "InverseMultiquadricKernel",
+    "LaplaceKernel",
+    "MaternKernel",
+    "RadialKernel",
+    "accuracy_check",
     "build_plan",
     "build_plan_device",
     "clear_plan_cache",
     "compute_points_center",
     "compute_points_radius",
+    "eigsh_operator",
     "exact_gaussian_matrix",
     "exact_radial_matrix",
     "exact_trigonometric_matrix",
@@ -91,6 +117,7 @@ __all__ = [
     "gaussian_interpolated_coeffs",
     "interpolated_kernel_coeffs",
     "interpolation_grid",
+    "lanczos",
     "ndft_adjoint",
     "ndft_fastsum",
     "ndft_forward",

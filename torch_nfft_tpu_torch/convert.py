@@ -7,8 +7,9 @@ the statics of :data:`PLAN_STATICS` with the host builder's bin-id
 fingerprint ``pos_fp``, sorted ``order``, ``row_start`` and ``S_occ``.
 ``plan_to_numpy`` is its inverse (Benes tables are not carried: route them
 again with ``with_benes_tables``). ``operator_from_numpy`` builds the
-port's ``GaussianKernel``, ``GramMatrix`` or ``AdjacencyMatrix`` from the
-leaves and aux data of the JAX object's ``tree_flatten``.
+port's ``GaussianKernel``, radial kernels, ``GramMatrix`` or
+``AdjacencyMatrix`` from the leaves and aux data of the JAX object's
+``tree_flatten``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from ._device import resolve_device
 from .models.kernel import GaussianKernel
 from .models.matrices import AbstractMatrix, AdjacencyMatrix, GramMatrix
+from .models.radial import InverseMultiquadricKernel, LaplaceKernel, MaternKernel, RadialKernel
 from .ops.binned import BinnedPlan
 
 __all__ = ["PLAN_ARRAYS", "PLAN_STATICS", "plan_from_numpy", "plan_to_numpy",
@@ -97,12 +99,42 @@ def _leaf(a, dev):
                            device=dev)
 
 
+_SIGMA_KERNELS = {cls.__name__: cls for cls in (LaplaceKernel, InverseMultiquadricKernel)}
+
+
+def _radial_from_numpy(coeffs, aux, dev) -> RadialKernel:
+    at = next(i for i, a in enumerate(aux) if callable(a))
+    head = aux[:at]
+    (profile, dim, bandwidth, cutoff, shift_by_center, reg_degree, reg_width, scale_by_norm,
+     factor, window) = aux[at:]
+    kw = dict(dim=dim, bandwidth=bandwidth, cutoff=cutoff, shift_by_center=shift_by_center,
+              reg_degree=reg_degree, reg_width=reg_width, window=window, device=dev,
+              _coeffs=_leaf(coeffs, dev))
+    if len(head) == 2:
+        kernel = MaternKernel(head[1], nu=head[0], **kw)
+    elif len(head) == 1:
+        owner = getattr(profile, "__qualname__", "").split(".")[0]
+        if owner not in _SIGMA_KERNELS:
+            raise ValueError(f"unrecognised one-parameter radial profile {owner!r}")
+        kernel = _SIGMA_KERNELS[owner](head[0], **kw)
+    else:
+        kernel = RadialKernel(profile, **kw)
+    kernel.scale_by_norm, kernel.factor = scale_by_norm, factor
+    return kernel
+
+
 def operator_from_numpy(children, aux, *, device=None):
     """The port's operator from the JAX object's ``tree_flatten()`` with
     its leaves as numpy arrays (the coefficients and degree vectors taken
     as given, not recomputed):
 
     * ``GaussianKernel``: children ``(coeffs,)``, aux its 11 statics;
+    * a radial kernel: children ``(coeffs,)``, aux the profile callable and
+      its 9 statics, after ``sigma`` for ``LaplaceKernel`` and
+      ``InverseMultiquadricKernel`` (told apart by the profile's name) and
+      after ``(nu, sigma)`` for ``MaternKernel``; a ``RadialKernel`` keeps
+      the callable as its profile (it takes NumPy float64 in both
+      packages), the others use their own;
     * ``GramMatrix``: children ``(coeffs, sources, targets, source_batch,
       target_batch)``, aux ``(cutoff, batch_size, symmetric, window)``. A
       symmetric operator gets its sources as its targets (and its source
@@ -113,6 +145,8 @@ def operator_from_numpy(children, aux, *, device=None):
       aux ``(shape, diagonal_offset, normalization, shift)``.
     """
     dev = resolve_device(device)
+    if len(children) == 1 and any(callable(a) for a in aux):
+        return _radial_from_numpy(children[0], aux, dev)
     if len(children) == 1:
         (sigma, dim, bandwidth, cutoff, shift_by_center, analytic, reg_degree, reg_width,
          scale_by_norm, factor, window) = aux

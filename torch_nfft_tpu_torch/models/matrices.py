@@ -95,11 +95,12 @@ class GramMatrix(AbstractMatrix):
 
     The binned plans of the sources and the targets are built once per
     operator, at its first matvec, and reused (one plan when the operator
-    is symmetric). The JAX package skips planning below 2048 points and
-    runs its scatter/matmul engines there; the port has only the binned
-    engine and always plans (the engines agree to 1e-5). The operator is
-    symmetric when ``targets`` is None or ``is`` the sources and the batch
-    vectors are one object (identity, not equal values)."""
+    is symmetric). Below ``_PLAN_THRESHOLD`` points it does not plan, as
+    the JAX package's operator does not: its matvecs run the engine that
+    ``nfft_fastsum``'s ``"auto"`` picks (the one-hot matmul engine at such
+    sizes), and only the slot-layout API and ``solve`` plan. The operator
+    is symmetric when ``targets`` is None or ``is`` the sources and the
+    batch vectors are one object (identity, not equal values)."""
 
     def __init__(self, coeffs, sources, targets=None, source_batch=None, target_batch=None,
                  /, batch=None, cutoff=3, *, batch_size=None, window="gaussian",
@@ -126,17 +127,27 @@ class GramMatrix(AbstractMatrix):
         self.window = str(window)
         self._plan_cache = None
 
-    def _plans(self):
+    # matvecs reuse the point sets, so the plans are built once; small
+    # point sets skip planning (the plan-free engines are fast there)
+    _PLAN_THRESHOLD = 2048
+
+    def _plans(self, require: bool = False):
         """(source plan, target plan), built from the detached points on
         the first call (``build_plan`` on the host, as the JAX package's
-        operator does)."""
-        if self._plan_cache is None:
-            kw = dict(N=self.coeffs.shape[0], m=self.cutoff, batch_size=self.batch_size,
-                      window=self.window, device=self.device)
-            sp = build_plan(self.sources.detach(), self.source_batch, **kw)
-            tp = (sp if self.is_symmetric()
-                  else build_plan(self.targets.detach(), self.target_batch, **kw))
-            self._plan_cache = (sp, tp)
+        operator does); (None, None) below ``_PLAN_THRESHOLD`` points
+        unless ``require`` (the slot-layout API needs the plans)."""
+        cached = self._plan_cache
+        if cached is None or (require and cached[0] is None):
+            small = max(self.sources.shape[0], self.targets.shape[0]) < self._PLAN_THRESHOLD
+            if small and not require:
+                self._plan_cache = (None, None)
+            else:
+                kw = dict(N=self.coeffs.shape[0], m=self.cutoff, batch_size=self.batch_size,
+                          window=self.window, device=self.device)
+                sp = build_plan(self.sources.detach(), self.source_batch, **kw)
+                tp = (sp if self.is_symmetric()
+                      else build_plan(self.targets.detach(), self.target_batch, **kw))
+                self._plan_cache = (sp, tp)
         return self._plan_cache
 
     def apply(self, x):
@@ -152,13 +163,13 @@ class GramMatrix(AbstractMatrix):
     def to_slot(self, x):
         """(n_src, C) or (n_src,) user-order values -> (C, S*K) slot vector
         of the source plan."""
-        sp, _ = self._plans()
+        sp, _ = self._plans(require=True)
         x = torch.as_tensor(x, device=self.device).to(torch.float32)
         return to_slot_order(sp, x[:, None] if x.ndim == 1 else x)
 
     def from_slot(self, v):
         """(C, S_tgt*K) slot vector of the target plan -> (n_tgt, C)."""
-        _, tp = self._plans()
+        _, tp = self._plans(require=True)
         return from_slot_order(tp, v)
 
     def apply_slot(self, v):
@@ -166,7 +177,7 @@ class GramMatrix(AbstractMatrix):
         source plan -> (C, S_tgt*K) of the target plan, no permutation
         (``nfft_fastsum_real(slot_io=True)``, with the real part of complex
         coefficients, as the JAX package takes)."""
-        sp, tp = self._plans()
+        sp, tp = self._plans(require=True)
         _, bs = _normalize_batch(self.source_batch, self.batch_size)
         coeffs = self.coeffs.real if self.coeffs.is_complex() else self.coeffs
         return nfft_fastsum_real(v, coeffs, self.sources, self.targets, self.source_batch,
@@ -190,7 +201,7 @@ class GramMatrix(AbstractMatrix):
         b = torch.as_tensor(b, device=self.device).to(torch.float32)
         squeeze = b.ndim == 1
         b2 = b[:, None] if squeeze else b
-        sp, _ = self._plans()
+        sp, _ = self._plans(require=True)
         out = None
         try:
             z, *info = _cg(lambda u: self.apply_slot(u) + reg * u, to_slot_order(sp, b2),
@@ -304,7 +315,7 @@ class AdjacencyMatrix(AbstractMatrix):
     def _slot_diag(self, name):
         """The degree vector ``name`` as a (1, S*K) slot vector, cached."""
         if name not in self._slot_cache:
-            sp, _ = self.gram_matrix._plans()
+            sp, _ = self.gram_matrix._plans(require=True)
             self._slot_cache[name] = to_slot_order(sp, getattr(self, name)[:, None])
         return self._slot_cache[name]
 

@@ -9,21 +9,25 @@ the JAX package's ``ops/nfft.py``, with the same signatures and layouts:
 
 with k in [-N/2, N/2)^dim stored at index k + N/2. x carries trailing
 column dimensions, flattened to C columns for the engine. The spectral
-stage is ``torch.fft`` C2C (ops/fft.py). A complex x travels through the
-real window kernels as its real and imaginary planes side by side on the
-column axis (2C columns); the window weights are real, so the planes never
-mix, and they are recombined on the grid.
+stage is ``torch.fft`` complex to complex (ops/fft.py), as the JAX
+package's complex-dtype entry points run it. A complex x travels through
+the real window kernels as its real and imaginary planes side by side on
+the column axis (2C columns); the window weights are real, so the planes
+never mix, and they are recombined on the grid.
 
-Both are differentiable in x and, when ``pos`` is a tensor that requires
-grad, in the positions. Only the binned strategy is ported: ``"auto"`` and
-``"binned"`` run it; ``"scatter"`` and ``"matmul"`` raise. With
-``plan=None`` the host plan (``build_plan``) is built on the first call for
-a point set and kept in a least-recently-used cache of four plans keyed by
-the content of (pos, batch) and the geometry, as the JAX package does;
+All are differentiable in x and, when ``pos`` is a tensor that requires
+grad, in the positions. ``strategy`` follows the JAX package's
+``_maybe_build_plan`` (``spread_gather.plan_or_engine``): with a plan the
+binned engine; without one, ``"auto"`` plans from 4096 points on where the
+one-hot operands would exceed 2^24 entries and otherwise runs the matmul
+engine (scatter beyond 2^24 entries), ``"binned"`` plans, ``"scatter"`` and
+``"matmul"`` run those engines. A plan they build is the host plan
+(``build_plan``), kept in a least-recently-used cache of four plans keyed
+by the content of (pos, batch) and the geometry, as the JAX package does;
 :func:`clear_plan_cache` empties it. Each call runs on the CUDA card unless
-``device="cpu"`` is given; on the card m is at most 9 (2m + 2 <= 20 window
-cells, ``ops/contract.py:check_window_width``), checked before any plan is
-built or kernel launched.
+``device="cpu"`` is given; on the card the binned engine takes m up to 9
+(2m + 2 <= 20 window cells, ``ops/contract.py:check_window_width``),
+checked before any plan is built or kernel launched.
 """
 
 from __future__ import annotations
@@ -36,17 +40,11 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .binned import build_plan, gather_binned, host_array, run_stages, spread_binned
+from .binned import build_plan, host_array, run_stages
 from .contract import check_window_width
 from .fft import spectral_adjoint, spectral_forward
-from .planar import (
-    _tensor,
-    check_strategy,
-    fastsum_spectral_stages,
-    grad_pos,
-    setup_plan,
-    shape_of,
-)
+from .planar import _tensor, check_strategy, fastsum_spectral_stages, points_route, shape_of
+from .spread_gather import plan_or_engine
 from .window import DEFAULT_SIGMA, DEFAULT_WINDOW
 
 __all__ = ["nfft_adjoint", "nfft_forward", "nfft_fastsum", "clear_plan_cache"]
@@ -97,31 +95,48 @@ def _normalize_batch(batch, batch_size):
     return batch, int(batch_size)
 
 
+def _side(pos, batch, plan, *, strategy, batch_size, N, m, sigma, window, device, C):
+    """(device, route) of one side of a transform, as the JAX package's
+    ``_maybe_build_plan`` decides it for C columns: a plan passed in, a
+    cached host plan, or the plan-free engine."""
+    check_strategy(strategy)
+    n, dim = shape_of(pos)
+    engine = "binned" if plan is not None else plan_or_engine(
+        strategy, n, dim, batch_size, int(round(sigma * N)), C)
+    if engine == "binned" and plan is None:
+        plan = _cached_plan(pos, batch, N=N, m=m, sigma=sigma, batch_size=batch_size,
+                            window=window, device=device)
+    return points_route(pos, batch, plan, strategy=strategy, batch_size=batch_size, N=N,
+                        m=m, sigma=float(sigma), window=window, device=device, C=C,
+                        engine=engine)
+
+
+def _planes(x: torch.Tensor) -> torch.Tensor:
+    """(n, C) complex -> (n, 2C) real: the real and imaginary planes."""
+    return torch.cat([x.real, x.imag], dim=1) if x.is_complex() else x
+
+
 def nfft_adjoint(x, pos, batch=None, bandwidth=16, cutoff=3, real_output=False, *,
                  batch_size=None, N=None, m=None, sigma=DEFAULT_SIGMA,
                  strategy="auto", plan=None, window=DEFAULT_WINDOW, device=None):
     """Adjoint NFFT: x (n, *cols) real or complex -> (batch_size, N, ..., N,
     *cols) complex64 (float32, the real part, with ``real_output``).
     ``N``/``m`` are aliases of ``bandwidth``/``cutoff``."""
-    check_strategy(strategy)
     N = int(bandwidth if N is None else N)
     m = int(cutoff if m is None else m)
     batch, batch_size = _normalize_batch(batch, batch_size)
-    if plan is None:
-        plan = _cached_plan(pos, batch, N=N, m=m, sigma=sigma, batch_size=batch_size,
-                            window=window, device=device)
-    dev, plan = setup_plan(pos, batch, plan, batch_size=batch_size, N=N, m=m,
-                            sigma=float(sigma), window=window, device=device)
-    x = _tensor(x, dev)
-    n, trailing = x.shape[0], tuple(x.shape[1:])
+    xs = shape_of(x)
+    trailing = tuple(xs[1:])
     C = math.prod(trailing)
-    xf = x.reshape(n, C)
-    planes = torch.cat([xf.real, xf.imag], dim=1) if x.is_complex() else xf
-    g = spread_binned(plan, planes, grad_pos(pos))  # (B, C or 2C, M^dim)
+    dev, route = _side(pos, batch, plan, strategy=strategy, batch_size=batch_size, N=N, m=m,
+                       sigma=sigma, window=window, device=device, C=C)
+    x = _tensor(x, dev)
+    xf = x.reshape(xs[0], C)
+    g = route.spread(_planes(xf))  # (B, C or 2C, M^dim)
     if x.is_complex():
         g = torch.complex(g[:, :C], g[:, C:])
-    y = spectral_adjoint(g, plan.dim, N, m, float(sigma), window)  # (B, C, N^dim)
-    y = y.movedim(1, -1).reshape((batch_size,) + (N,) * plan.dim + trailing)
+    y = spectral_adjoint(g, route.dim, N, m, float(sigma), window)  # (B, C, N^dim)
+    y = y.movedim(1, -1).reshape((batch_size,) + (N,) * route.dim + trailing)
     return y.real if real_output else y
 
 
@@ -131,7 +146,6 @@ def nfft_forward(x, pos, batch=None, cutoff=3, real_output=False, *,
     """Forward NFFT: x (batch_size, N, ..., N, *cols) real or complex, with
     ``pos.shape[1]`` spatial axes -> (n, *cols) complex64 (float32, the
     real part, with ``real_output``)."""
-    check_strategy(strategy)
     m = int(cutoff if m is None else m)
     n, dim = shape_of(pos)
     batch, batch_size = _normalize_batch(batch, batch_size)
@@ -139,21 +153,17 @@ def nfft_forward(x, pos, batch=None, cutoff=3, real_output=False, *,
     if xs[0] != batch_size:
         raise ValueError(f"x.shape[0] = {xs[0]} must equal batch_size = {batch_size}")
     N = xs[1]
-    if plan is None:
-        plan = _cached_plan(pos, batch, N=N, m=m, sigma=sigma, batch_size=batch_size,
-                            window=window, device=device)
-    dev, plan = setup_plan(pos, batch, plan, batch_size=batch_size, N=N, m=m,
-                            sigma=float(sigma), window=window, device=device)
-    x = _tensor(x, dev)
-    trailing = tuple(x.shape[1 + dim:])
+    trailing = tuple(xs[1 + dim:])
     C = math.prod(trailing)
+    dev, route = _side(pos, batch, plan, strategy=strategy, batch_size=batch_size, N=N, m=m,
+                       sigma=sigma, window=window, device=device, C=C)
+    x = _tensor(x, dev)
     z = x.reshape((batch_size,) + (N,) * dim + (C,)).movedim(-1, 1)
-    g = spectral_forward(z.to(torch.complex64), dim, plan.M, m, float(sigma),
+    g = spectral_forward(z.to(torch.complex64), dim, route.M, m, float(sigma),
                          window)  # (B, C, M^dim)
-    p = grad_pos(pos)
     if real_output:
-        return gather_binned(plan, g.real.contiguous(), p).reshape((n,) + trailing)
-    y = gather_binned(plan, torch.cat([g.real, g.imag], dim=1), p)
+        return route.gather(g.real.contiguous()).reshape((n,) + trailing)
+    y = route.gather(torch.cat([g.real, g.imag], dim=1))
     return torch.complex(y[:, :C], y[:, C:]).reshape((n,) + trailing)
 
 
@@ -170,13 +180,14 @@ def nfft_fastsum(x, coeffs, sources, targets=None, source_batch=None, target_bat
 
     Without ``targets`` the targets are the sources. Source and target
     share one plan when ``targets is sources`` and ``target_batch is
-    source_batch`` (identity, not equal values); otherwise each side has
-    its own, from ``source_plan``/``target_plan`` or the plan cache. The
-    pipeline: spread on the source plan, unnormalised inverse DFT, the band
-    filter ``coeffs * phi_hat_inv^2``, forward DFT, gather on the target
-    plan (its real plane for real x). Differentiable in x, in the
-    coefficients and, for tensors that require grad, in the sources and
-    targets."""
+    source_batch`` (identity, not equal values) and the source side
+    plans; otherwise each side has its own, from
+    ``source_plan``/``target_plan``, the plan cache, or none (the plan-free
+    engines, by the rule of the module note). The pipeline: spread on the
+    source side, unnormalised inverse DFT, the band filter
+    ``coeffs * phi_hat_inv^2``, forward DFT, gather on the target side
+    (its real plane for real x). Differentiable in x, in the coefficients
+    and, for tensors that require grad, in the sources and targets."""
     check_strategy(strategy)
     m = int(cutoff if m is None else m)
     if targets is None:
@@ -198,28 +209,26 @@ def nfft_fastsum(x, coeffs, sources, targets=None, source_batch=None, target_bat
     target_batch, bs_tgt = _normalize_batch(target_batch, batch_size)
     if bs_src != bs_tgt:
         raise ValueError(f"source batch size {bs_src} != target batch size {bs_tgt}")
-    kw = dict(N=N, m=m, sigma=float(sigma), window=window, device=dev)
-    if source_plan is None:
-        source_plan = _cached_plan(sources, source_batch, batch_size=bs_src, **kw)
-    _, source_plan = setup_plan(sources, source_batch, source_plan, batch_size=bs_src, **kw)
+    xs = shape_of(x)
+    if xs[0] != n_src:
+        raise ValueError(f"x has {xs[0]} rows for {n_src} sources")
+    trailing = tuple(xs[1:])
+    C = math.prod(trailing)
+    kw = dict(strategy=strategy, batch_size=bs_src, N=N, m=m, sigma=sigma, window=window,
+              device=dev, C=C)
+    _, src = _side(sources, source_batch, source_plan, **kw)
     if symmetric and target_plan is None:
-        target_plan = source_plan
-    elif target_plan is None:
-        target_plan = _cached_plan(targets, target_batch, batch_size=bs_tgt, **kw)
-    _, target_plan = setup_plan(targets, target_batch, target_plan, batch_size=bs_tgt, **kw)
+        tgt = src  # one plan, or one engine on the same points
+    else:
+        _, tgt = _side(targets, target_batch, target_plan, **kw)
 
     x = _tensor(x, dev)
-    if x.shape[0] != n_src:
-        raise ValueError(f"x has {x.shape[0]} rows for {n_src} sources")
-    trailing = tuple(x.shape[1:])
-    C = math.prod(trailing)
     xf = x.reshape(n_src, C)
-    planes = torch.cat([xf.real, xf.imag], dim=1) if x.is_complex() else xf
-    g = spread_binned(source_plan, planes, grad_pos(sources))
+    g = src.spread(_planes(xf))
     g = run_stages(fastsum_spectral_stages(
-        coeffs, dim=dim, N=N, M=source_plan.M, m=m, sigma=float(sigma), window=window,
-        complex_x=x.is_complex()), g)
-    y = gather_binned(target_plan, g, grad_pos(targets))
+        coeffs, dim=dim, N=N, M=src.M, m=m, sigma=float(sigma), window=window,
+        complex_x=x.is_complex(), hermitian=False), g)
+    y = tgt.gather(g)
     if x.is_complex():
         y = torch.complex(y[:, :C], y[:, C:])
-    return y.reshape((target_plan.n,) + trailing)
+    return y.reshape((tgt.n,) + trailing)

@@ -4,22 +4,31 @@ Counterparts of ``nfft_adjoint_planar``, ``nfft_forward_planar``,
 ``nfft_pair_planar`` and ``nfft_fastsum_real`` in the JAX package's
 ``ops/planar.py``, with the same argument and result layouts: x (n, C);
 spectra (batch_size, (N,)*dim, C) as two real planes. They run the binned
-engine (ops/binned.py) around the ``torch.fft`` spectral stage
-(ops/fft.py). With ``plan=None`` a plan is built for the points; pass one
-to reuse it across calls.
+engine (ops/binned.py), or without a plan the scatter or the one-hot
+matmul engine (ops/spread_gather.py), around the ``torch.fft`` spectral
+stage (ops/fft.py): its Hermitian formulation on ``rfftn``/``irfftn``
+wherever the grid or the output is real (the adjoint of real samples, the
+pair, the real-output forward and the real fastsum, as the JAX package's
+planar pipelines carry half spectra), complex to complex for the
+two-plane forward.
+
+Each entry point takes ``strategy`` as the JAX functions do. A plan passed
+in runs the binned engine. Without one, ``"auto"`` follows the JAX
+package's rule (``spread_gather.plan_or_engine``): the binned engine on a
+plan built for the points from 4096 points on where the one-hot operands
+would exceed 2^24 entries, else the matmul engine up to 2^24 entries and
+the scatter engine beyond; ``"binned"`` always plans, ``"scatter"`` and
+``"matmul"`` never do. A plan passed in is checked against the
+transform's geometry and, for NumPy positions, against the bin-id
+fingerprint of the points it was built for (host plans carry one).
 
 Each entry point is differentiable in its values and, when ``pos`` is a
-tensor that requires grad, in the point positions (ops/binned.py). Each
-takes ``strategy`` as the JAX functions do: ``"auto"`` and ``"binned"`` run
-the binned engine, the only one ported; ``"scatter"`` and ``"matmul"``
-raise. A plan passed in is checked against the transform's geometry and,
-for NumPy positions, against the bin-id fingerprint of the points it was
-built for (host plans carry one).
-
-Every entry point runs on the CUDA card unless ``device="cpu"`` is given,
-and raises when no card is there and no device was asked for. On the card
-m is at most 9 (``ops/contract.py:check_window_width``), checked before any
-plan is built or kernel launched; the CPU takes any m.
+tensor that requires grad, in the point positions (ops/binned.py; autograd
+through the plan-free engines). Every entry point runs on the CUDA card
+unless ``device="cpu"`` is given, and raises when no card is there and no
+device was asked for. On the card the binned engine takes m up to 9
+(``ops/contract.py:check_window_width``), checked before any plan is built
+or kernel launched; the CPU and the plan-free engines take any m.
 """
 
 from __future__ import annotations
@@ -41,29 +50,33 @@ from .binned import (
     spread_route,
 )
 from .contract import check_window_width
-from .fft import spectral_adjoint, spectral_forward
+from .fft import (
+    band_filter_half,
+    full_to_half,
+    half_spectrum_to_full,
+    spectral_adjoint_half,
+    spectral_forward,
+    spectral_forward_half,
+)
 from .spectral import fastsum_band_filter
+from .spread_gather import gather, plan_or_engine, spread
 from .tilefold import FOLD_BUDGET
 from .window import DEFAULT_SIGMA, DEFAULT_WINDOW
 
 __all__ = ["nfft_adjoint_planar", "nfft_forward_planar", "nfft_pair_planar",
            "nfft_fastsum_real", "pair_stages", "fastsum_spectral_stages",
            "fastsum_stages", "slot_io_ok", "grad_pos", "setup_plan", "shape_of",
-           "check_strategy"]
+           "check_strategy", "points_route"]
 
 # the JAX package's largest grid for its pruned DFTs (ops/fft.py:PRUNED_MAX),
 # part of its rule for the slot-layout fastsum (slot_io_ok)
 PRUNED_MAX = 2048
 
-_STRATEGIES = ("auto", "binned")
+_STRATEGIES = ("auto", "binned", "scatter", "matmul")
 
 
 def check_strategy(strategy: str) -> None:
-    """Accept the strategies the port runs; the unported ones raise."""
-    if strategy in ("scatter", "matmul"):
-        raise NotImplementedError(
-            f"strategy={strategy!r} is not ported yet (ROADMAP.md, item A3); "
-            "use strategy='binned' or 'auto'")
+    """Accept the four strategies of the JAX package; anything else raises."""
     if strategy not in _STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; supported: {_STRATEGIES}")
 
@@ -140,6 +153,65 @@ def setup_plan(pos, batch, plan, *, batch_size, N, m, sigma, window, device):
     return dev, plan
 
 
+class _Route:
+    """How an entry point moves values between its points and the grid:
+    the binned engine on ``plan``, or the plan-free ``engine`` at ``pos``."""
+
+    def __init__(self, *, plan=None, pos=None, batch=None, engine=None, batch_size,
+                 N, m, sigma, window, grad):
+        self.plan, self.pos, self.batch, self.engine = plan, pos, batch, engine
+        self.batch_size, self.N, self.m, self.sigma, self.window = (
+            batch_size, N, m, sigma, window)
+        self.grad = grad  # the input that receives the position gradient
+        self.dim = pos.shape[1] if plan is None else plan.dim
+        self.M = int(round(sigma * N))
+        self.n = pos.shape[0] if plan is None else plan.n
+
+    def spread(self, x: torch.Tensor) -> torch.Tensor:
+        if self.plan is not None:
+            return spread_binned(self.plan, x, self.grad)
+        return spread(x, self.pos, self.batch, self.batch_size, self.N, self.m, self.sigma,
+                      self.engine, window=self.window)
+
+    def gather(self, g: torch.Tensor) -> torch.Tensor:
+        if self.plan is not None:
+            return gather_binned(self.plan, g, self.grad)
+        return gather(g, self.pos, self.batch, self.batch_size, self.N, self.m, self.sigma,
+                      self.engine, window=self.window)
+
+
+def points_route(pos, batch, plan, *, strategy, batch_size, N, m, sigma, window, device,
+                 C, engine=None):
+    """(device, route) of one side of a transform: the binned engine when a
+    plan is given or the rule of :func:`spread_gather.plan_or_engine` for C
+    columns picks it (the plan from :func:`setup_plan`, or from ``engine``'s
+    caller), else the plan-free engine; ``engine`` overrides the pick."""
+    check_strategy(strategy)
+    n, dim = shape_of(pos)
+    pick = engine
+    if engine is None:
+        engine = "binned" if plan is not None else plan_or_engine(
+            strategy, n, dim, batch_size, int(round(sigma * N)), C)
+        # "auto" keeps picking per call from each call's columns, as the
+        # JAX package's spread and gather do
+        pick = strategy if strategy == "auto" else engine
+    if engine == "binned":
+        dev, plan = setup_plan(pos, batch, plan, batch_size=batch_size, N=N, m=m,
+                               sigma=sigma, window=window, device=device)
+        return dev, _Route(plan=plan, batch_size=batch_size, N=N, m=m, sigma=sigma,
+                           window=window, grad=grad_pos(pos))
+    dev = resolve_device(device)
+    p = torch.as_tensor(pos, device=dev)
+    p = p if p.dtype == torch.float32 else p.to(torch.float32)
+    b = None
+    if batch is not None:
+        b = torch.as_tensor(batch, device=dev)
+        if b.numel() and (int(b.min()) < 0 or int(b.max()) >= batch_size):
+            raise ValueError(f"batch ids must lie in [0, {batch_size})")
+    return dev, _Route(pos=p, batch=b, engine=pick, batch_size=batch_size, N=N, m=m,
+                       sigma=sigma, window=window, grad=None)
+
+
 def _real(a, dev) -> torch.Tensor:
     return torch.as_tensor(a, device=dev).to(torch.float32)
 
@@ -155,12 +227,15 @@ def nfft_adjoint_planar(x, pos, batch=None, plan=None, *, batch_size: int,
                         strategy: str = "auto", window: str = DEFAULT_WINDOW,
                         device=None):
     """Adjoint NFFT of real samples x (n, C): returns (yr, yi), each
-    (batch_size, (N,)*dim, C), y[b, k] = sum_i x_i exp(+2 pi i k.pos_i)."""
-    check_strategy(strategy)
-    dev, plan = setup_plan(pos, batch, plan, batch_size=batch_size, N=N, m=m,
-                            sigma=sigma, window=window, device=device)
-    g = spread_binned(plan, _real(x, dev), grad_pos(pos))
-    y = spectral_adjoint(g, plan.dim, N, m, sigma, window).movedim(1, -1)
+    (batch_size, (N,)*dim, C), y[b, k] = sum_i x_i exp(+2 pi i k.pos_i).
+    The spectrum of real samples is conjugate symmetric: the spectral
+    stage computes half of it (``rfftn``) and mirrors the rest."""
+    dev, route = points_route(pos, batch, plan, strategy=strategy, batch_size=batch_size,
+                              N=N, m=m, sigma=sigma, window=window, device=device,
+                              C=shape_of(x)[1])
+    g = route.spread(_real(x, dev))
+    y = half_spectrum_to_full(spectral_adjoint_half(g, route.dim, N, m, sigma, window),
+                              route.dim, N).movedim(1, -1)
     return y.real.contiguous(), y.imag.contiguous()
 
 
@@ -171,33 +246,39 @@ def nfft_forward_planar(xr, xi, pos, batch=None, plan=None, *, batch_size: int,
     """Forward NFFT of a planar spectrum xr/xi (batch_size, (N,)*dim, C),
     xi may be None: returns (yr, yi), each (n, C),
     y_i = sum_k x[batch_i, k] exp(-2 pi i k.pos_i). With ``real_output``
-    only the real plane is gathered and the result is (yr, None)."""
-    check_strategy(strategy)
+    only the real plane is computed, from the half spectrum of the input's
+    Hermitian part (``irfftn``), and the result is (yr, None)."""
     N = shape_of(xr)[1]
-    dev, plan = setup_plan(pos, batch, plan, batch_size=batch_size, N=N, m=m,
-                            sigma=sigma, window=window, device=device)
-    if plan.dim != dim:
-        raise ValueError(f"dim={dim} but the plan was built for dim={plan.dim}")
+    C = shape_of(xr)[-1]
+    dev, route = points_route(pos, batch, plan, strategy=strategy, batch_size=batch_size,
+                              N=N, m=m, sigma=sigma, window=window, device=device, C=C)
+    if route.dim != dim:
+        raise ValueError(f"dim={dim} but the points have dim={route.dim}")
     z = _real(xr, dev)
     if xi is not None:
         z = torch.complex(z, _real(xi, dev))
-    z = z.to(torch.complex64).movedim(-1, 1)
-    g = spectral_forward(z, dim, plan.M, m, sigma, window)  # (B, C, M^dim)
-    p = grad_pos(pos)
+    z = z.movedim(-1, 1)  # (B, C, N^dim)
     if real_output:
-        return gather_binned(plan, g.real.contiguous(), p), None
-    C = z.shape[1]
-    y = gather_binned(plan, torch.cat([g.real, g.imag], dim=1), p)
+        g = spectral_forward_half(full_to_half(z, dim, N), dim, N, route.M, m, sigma, window)
+        return route.gather(g), None
+    g = spectral_forward(z.to(torch.complex64), dim, route.M, m, sigma, window)
+    y = route.gather(torch.cat([g.real, g.imag], dim=1))
     return y[:, :C], y[:, C:]
 
 
-def _spectral_stages(plan: BinnedPlan, *, N: int, m: int, sigma: float,
-                     window: str) -> tuple:
-    dim, M = plan.dim, plan.M
+def _spectral_stages(*, dim: int, N: int, M: int, m: int, sigma: float,
+                     window: str, device) -> tuple:
+    """The pair's spectral stages: the adjoint's half spectrum (``rfftn``)
+    and, through the band's Hermitian filter, the real grid of the
+    real-output forward (``irfftn``)."""
+    w = band_filter_half(dim, N, device)
+
+    def forward(h):
+        return spectral_forward_half(h if w is None else h * w, dim, N, M, m, sigma, window)
+
     return (
-        ("spectral adjoint", lambda g: spectral_adjoint(g, dim, N, m, sigma, window)),
-        ("spectral forward",
-         lambda y: spectral_forward(y, dim, M, m, sigma, window).real.contiguous()),
+        ("rfftn", lambda g: spectral_adjoint_half(g, dim, N, m, sigma, window)),
+        ("irfftn", forward),
     )
 
 
@@ -209,7 +290,8 @@ def pair_stages(plan: BinnedPlan, *, N: int, m: int, sigma: float,
     :func:`nfft_pair_planar` runs them (the spread and gather stages inside
     their autograd Functions); chip_smoke.py times them one by one."""
     return (spread_route(plan, C)
-            + _spectral_stages(plan, N=N, m=m, sigma=sigma, window=window)
+            + _spectral_stages(dim=plan.dim, N=N, M=plan.M, m=m, sigma=sigma, window=window,
+                               device=plan.device)
             + gather_route(plan, C)[0])
 
 
@@ -218,14 +300,15 @@ def nfft_pair_planar(x, pos, batch=None, plan=None, *, batch_size: int, N: int,
                      window: str = DEFAULT_WINDOW, device=None) -> torch.Tensor:
     """Adjoint followed by a real-output forward on the same points:
     x (n, C) real -> (n, C) real, equal to
-    ``nfft_forward_planar(*nfft_adjoint_planar(...), real_output=True)[0]``."""
-    check_strategy(strategy)
-    dev, plan = setup_plan(pos, batch, plan, batch_size=batch_size, N=N, m=m,
-                            sigma=sigma, window=window, device=device)
-    p = grad_pos(pos)
-    g = spread_binned(plan, _real(x, dev), p)
-    y = run_stages(_spectral_stages(plan, N=N, m=m, sigma=sigma, window=window), g)
-    return gather_binned(plan, y, p)
+    ``nfft_forward_planar(*nfft_adjoint_planar(...), real_output=True)[0]``.
+    The spectrum travels as a half spectrum (``rfftn`` and ``irfftn``)."""
+    dev, route = points_route(pos, batch, plan, strategy=strategy, batch_size=batch_size,
+                              N=N, m=m, sigma=sigma, window=window, device=device,
+                              C=shape_of(x)[1])
+    g = route.spread(_real(x, dev))
+    y = run_stages(_spectral_stages(dim=route.dim, N=N, M=route.M, m=m, sigma=sigma,
+                                    window=window, device=dev), g)
+    return route.gather(y)
 
 
 # ---------------------------------------------------------------------------
@@ -234,12 +317,27 @@ def nfft_pair_planar(x, pos, batch=None, plan=None, *, batch_size: int, N: int,
 
 
 def fastsum_spectral_stages(coeffs: torch.Tensor, *, dim: int, N: int, M: int, m: int,
-                            sigma: float, window: str, complex_x: bool = False) -> tuple:
+                            sigma: float, window: str, complex_x: bool = False,
+                            hermitian: bool = True) -> tuple:
     """The fastsum's spectral round trip as (name, function) stages, grid
-    (batch_size, C, M^dim) in and out: the unnormalised inverse DFT, the
-    band filter (``fastsum_band_filter``, built in the stage), the forward
-    DFT. A real x keeps the output's real plane; a complex x arrives and
-    leaves as its real and imaginary planes side by side (2C columns)."""
+    (batch_size, C, M^dim) in and out.
+
+    ``hermitian`` (real x and a real output, :func:`nfft_fastsum_real`):
+    the adjoint's half spectrum (``rfftn``), the filter (the half spectrum
+    of the coefficients' Hermitian part, ``fft.full_to_half``), the real
+    grid (``irfftn``). Otherwise complex to complex (``nfft_fastsum``): the
+    unnormalised inverse DFT, the band filter (``fastsum_band_filter``,
+    built in the stage), the forward DFT; a real x keeps the output's real
+    plane, a complex x arrives and leaves as its real and imaginary planes
+    side by side (2C columns)."""
+    if hermitian:
+        if complex_x:
+            raise ValueError("the Hermitian fastsum takes real values")
+        return (
+            ("rfftn", lambda g: spectral_adjoint_half(g, dim, N, m, sigma, window)),
+            ("filter", lambda h: h * full_to_half(coeffs, dim, N)),
+            ("irfftn", lambda h: spectral_forward_half(h, dim, N, M, m, sigma, window)),
+        )
     axes = tuple(range(2, 2 + dim))
 
     def ifftn(g):
@@ -260,16 +358,20 @@ def fastsum_spectral_stages(coeffs: torch.Tensor, *, dim: int, N: int, M: int, m
 
 
 def fastsum_stages(source_plan: BinnedPlan, target_plan: BinnedPlan, coeffs: torch.Tensor,
-                   *, m: int, sigma: float, window: str, C: int = 1) -> tuple:
+                   *, m: int, sigma: float, window: str, C: int = 1,
+                   hermitian: bool = True) -> tuple:
     """The real fastsum for C columns as (name, function) stages in order:
-    the source plan's spread stages, the spectral round trip, the target
-    plan's gather stages, each on the route (dense or flat grid) its plan
-    takes for C. ``nfft_fastsum`` runs them (the spread and gather stages
-    inside their autograd Functions); chip_smoke.py times them one by one."""
+    the source plan's spread stages, the spectral round trip (Hermitian, as
+    :func:`nfft_fastsum_real` runs it, or with ``hermitian=False`` complex
+    to complex, as ``nfft_fastsum`` and so ``GramMatrix.apply`` run it), the
+    target plan's gather stages, each on the route (dense or flat grid) its
+    plan takes for C. The entry points run them (the spread and gather
+    stages inside their autograd Functions); chip_smoke.py times them one
+    by one."""
     N = coeffs.shape[0]
     return (spread_route(source_plan, C)
             + fastsum_spectral_stages(coeffs, dim=source_plan.dim, N=N, M=source_plan.M,
-                                      m=m, sigma=sigma, window=window)
+                                      m=m, sigma=sigma, window=window, hermitian=hermitian)
             + gather_route(target_plan, C)[0])
 
 
@@ -298,8 +400,11 @@ def nfft_fastsum_real(x, coeffs, sources, targets, source_batch=None, target_bat
                       m: int, sigma: float = DEFAULT_SIGMA, strategy: str = "auto",
                       slot_io: bool = False, window: str = DEFAULT_WINDOW,
                       device=None) -> torch.Tensor:
-    """Fastsum of real samples x (n_src, C) with real (even) coefficients:
-    real output (n_tgt, C), y[t] = sum_s K(sources[s] - targets[t]) x[s].
+    """Fastsum of real samples x (n_src, C): the real output (n_tgt, C) of
+    y[t] = sum_s K(sources[s] - targets[t]) x[s]. The spectral round trip
+    runs on half spectra, with the coefficients' Hermitian part as the
+    filter: exact for any coefficients (the JAX package's half path assumes
+    even ones, which the Gaussian and radial kernels' are).
 
     ``slot_io=True`` takes and returns slot-layout vectors: x is a
     (C, S_src*K) vector of the source plan (``to_slot_order``) and the
@@ -317,12 +422,15 @@ def nfft_fastsum_real(x, coeffs, sources, targets, source_batch=None, target_bat
             "within the budget for both plans); build binned plans for this "
             "geometry or use the user-order entry point.")
     kw = dict(batch_size=batch_size, N=N, m=m, sigma=sigma, window=window, device=device)
-    dev, source_plan = setup_plan(sources, source_batch, source_plan, **kw)
-    _, target_plan = setup_plan(targets, target_batch, target_plan, **kw)
-    spectral = fastsum_spectral_stages(_tensor(coeffs, dev), dim=source_plan.dim, N=N, M=M, m=m,
-                                       sigma=sigma, window=window)
     if slot_io:
+        dev, source_plan = setup_plan(sources, source_batch, source_plan, **kw)
+        _, target_plan = setup_plan(targets, target_batch, target_plan, **kw)
+        spectral = fastsum_spectral_stages(_tensor(coeffs, dev), dim=source_plan.dim, N=N,
+                                           M=M, m=m, sigma=sigma, window=window)
         g = spread_binned_slot(source_plan, _real(x, dev))
         return gather_binned_slot(target_plan, run_stages(spectral, g))
-    g = spread_binned(source_plan, _real(x, dev), grad_pos(sources))
-    return gather_binned(target_plan, run_stages(spectral, g), grad_pos(targets))
+    dev, src = points_route(sources, source_batch, source_plan, strategy=strategy, C=C, **kw)
+    _, tgt = points_route(targets, target_batch, target_plan, strategy=strategy, C=C, **kw)
+    spectral = fastsum_spectral_stages(_tensor(coeffs, dev), dim=src.dim, N=N, M=M, m=m,
+                                       sigma=sigma, window=window)
+    return tgt.gather(run_stages(spectral, src.spread(_real(x, dev))))

@@ -6,8 +6,9 @@ Counterpart of the JAX package's ``ops/spectral.py``. Conventions:
 * the oversampled grid has M = sigma*N cells per axis; frequency v of the
   unnormalised DFT lives at grid index v mod M (non-negative frequencies at
   the head, negative ones at the tail);
-* "centered" arrays have N entries per axis, frequency k at index k + N/2,
-  k in [-N/2, N/2).
+* "centered" arrays have N entries per axis, frequency k at index
+  k + N // 2, k in [-(N // 2), N - N // 2): [-N/2, N/2) for an even N, the
+  symmetric band for an odd N (the JAX package's pruned DFTs' band).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ def centered_crop(g_hat: torch.Tensor, dim: int, N: int,
     for ax in range(spatial_axis0, spatial_axis0 + dim):
         M = g_hat.shape[ax]
         neg = g_hat.narrow(ax, M - half, half)  # k in [-N/2, 0)
-        pos = g_hat.narrow(ax, 0, half)  # k in [0, N/2)
+        pos = g_hat.narrow(ax, 0, N - half)  # k in [0, N - N/2)
         g_hat = torch.cat([neg, pos], dim=ax)
     return g_hat
 

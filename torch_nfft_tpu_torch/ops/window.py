@@ -42,6 +42,9 @@ __all__ = [
     "phi_hat_inv_np",
     "phi_hat_inv_centered",
     "window_index_offsets",
+    "compute_shifts",
+    "compute_psi",
+    "compute_psi_and_dpsi",
 ]
 
 DEFAULT_SIGMA = 2.0
@@ -275,3 +278,37 @@ def window_index_offsets(dim: int, m: int, *, device=None) -> torch.Tensor:
     ar = torch.arange(L, dtype=torch.int32, device=device)
     grids = torch.meshgrid(*([ar] * dim), indexing="ij")
     return torch.stack(grids, dim=-1).reshape(-1, dim)
+
+
+def compute_shifts(pos: torch.Tensor, N: int, m: int,
+                   sigma: float = DEFAULT_SIGMA) -> torch.Tensor:
+    """Smallest window grid index per point and axis, int32 (n, dim):
+    floor(pos * M) - m, M = sigma*N. No gradient flows through it; the
+    periodic wrap is applied downstream."""
+    M = int(round(sigma * N))
+    return (torch.floor(pos.detach() * M).to(torch.int32) - m)
+
+
+def _psi_arg(pos: torch.Tensor, shifts: torch.Tensor, N: int, m: int,
+             sigma: float) -> torch.Tensor:
+    """t[i, d, l] = M*pos[i, d] - shifts[i, d] - l, in [m, m+1) - l."""
+    M = int(round(sigma * N))
+    l = torch.arange(2 * m + 2, dtype=pos.dtype, device=pos.device)
+    return pos[..., None] * M - shifts[..., None].to(pos.dtype) - l
+
+
+def compute_psi(pos: torch.Tensor, shifts: torch.Tensor, N: int, m: int,
+                sigma: float = DEFAULT_SIGMA,
+                window: str = DEFAULT_WINDOW) -> torch.Tensor:
+    """Window values per point, axis and window cell, (n, dim, 2m+2):
+    phi(M*pos[i, d] - shifts[i, d] - l). Differentiable in ``pos``."""
+    return window_value_fn(m, sigma, window)(_psi_arg(pos, shifts, N, m, sigma))
+
+
+def compute_psi_and_dpsi(pos: torch.Tensor, shifts: torch.Tensor, N: int, m: int,
+                         sigma: float = DEFAULT_SIGMA, window: str = DEFAULT_WINDOW):
+    """(window values, their derivatives in the position coordinate), each
+    (n, dim, 2m+2): d psi / d pos[i, d] = M * phi'(t)."""
+    M = int(round(sigma * N))
+    return window_value_and_deriv_fn(m, sigma, window, M=M)(
+        _psi_arg(pos, shifts, N, m, sigma))
