@@ -71,7 +71,25 @@ Ritz residual); ``accuracy_check``; the half-spectrum stages
 the C2C formulation at the headline and the Gram geometry, timed; and the
 scatter and matmul engines against the NDFT gates, the binned engine and
 its gradients, and a 1500-point Gram matrix (no plan) against the dense
-Gaussian.
+Gaussian. Phases 10-10e run the batched configuration of BASELINE.json
+(``configs[2]``, as examples/bench_batched.py builds it:
+3D, 16 members, N = 256, two columns, gaussian window, m = 4, sigma = 2,
+n = 2^21 points in [-1/4, 1/4)^3 with a sorted batch vector, seed 7)
+through the streamed transforms: ``split_by_batch``, the 16 member plans
+and their stack, ``make_streamed_layout``; B1 and B2 at member 0's shapes
+against their plain versions; the streamed pair (adjoint, then forward of
+its spectrum) whole and by single columns, with its seconds, points/s,
+peak memory and launches (B1 and B2 once per member and column chunk);
+member 0 at 96 sampled frequencies against the direct sum; the streamed
+adjoint and pair against the all-at-once batched transforms (groups of 8
+members if 16 do not fit) per member; the streamed fastsum, symmetric and
+on 2^20 other targets, against the exact Gaussian sum; ``save_plan`` and
+``load_plan`` of the Gram host plan with its Benes tables (the headline
+plan's save takes over 30 s), the loaded plan's pairs bit for bit on both
+routes; ``validate_inputs`` under debug;
+the card's float32 pipeline floor (es and kb, m = 6-8, against
+``window.F32_PIPELINE_FLOOR``) and ``suggest_window_parameters`` at three
+tolerances against the NDFT.
 
 Every phase prints its seconds; any failure exits non-zero. The line before
 the last is a JSON object listing the kernels with their times and bounds;
@@ -86,6 +104,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -124,6 +143,18 @@ TIES_LOG2 = 20
 GRAM_LOG2, GRAM_TARGETS_LOG2, GRAM_N, GRAM_M, GRAM_SIGMA = 22, 21, 256, 4, 0.4
 # accuracy_check on the Gram operator's points (phase 9c): bandwidth, samples
 ACC_N, ACC_SAMPLES = 64, 256
+# the batched configuration of BASELINE.json configs[2] (built as
+# examples/bench_batched.py builds it): 3D, batch_size = 16, N = 256, two
+# trailing columns, gaussian window, m = 4, sigma = 2, n = 2^BATCH_LOG2
+BATCH_LOG2, BATCH_B, BATCH_N, BATCH_M, BATCH_C = 21, 16, 256, 4, 2
+# members per group of the comparison when all 16 at once do not fit
+BATCH_GROUP = 8
+# the streamed fastsum's kernel exp(-r^2 / width^2) (gaussian_analytic_coeffs
+# at N = 256: the series has converged, exp(-(pi width N/2)^2) ~ e^-400, and
+# periodic images, at least 1/2 away, weigh e^-100) and its asymmetric targets
+FASTSUM_WIDTH, FASTSUM_TARGETS_LOG2 = 0.05, 20
+# the longest save_plan phase 10d allows
+SAVE_S_MAX = 30.0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and float32 outside the
 # tensor cores; the kernels do float32 arithmetic on the CUDA cores
@@ -353,29 +384,29 @@ def gate_data(dim: int):
     return pos, rng.standard_normal((n, 2)).astype(np.float32)
 
 
-def gate_adjoint(dim: int, Ng: int, dev, strategy: str = "binned") -> torch.Tensor:
+def gate_adjoint(dim: int, Ng: int, dev, strategy: str = "binned", *, m: int = M_CUT,
+                 sigma: float = SIGMA, window: str = WINDOW) -> torch.Tensor:
     """The port's adjoint of the gate inputs by ``strategy``, complex128."""
     pos, x = gate_data(dim)
-    yr, yi = tp.nfft_adjoint_planar(x, pos, None, batch_size=1, N=Ng, m=M_CUT,
-                                    sigma=SIGMA, window=WINDOW, strategy=strategy, device=dev)
+    yr, yi = tp.nfft_adjoint_planar(x, pos, None, batch_size=1, N=Ng, m=m,
+                                    sigma=sigma, window=window, strategy=strategy, device=dev)
     return torch.complex(yr, yi)[0].to(torch.complex128)
 
 
-def gate(dim: int, Ng: int, dev, strategy: str = "binned") -> float:
+def gate(dim: int, Ng: int, dev, strategy: str = "binned", **window_kw) -> float:
     """rel-L2 of the port's adjoint against its dense NDFT oracle in
-    float64, at bench.py's gate configuration (n=400, two columns)."""
+    float64, at bench.py's gate configuration (n=400, two columns); the
+    headline window unless ``m``, ``sigma``, ``window`` are given."""
     pos, x = gate_data(dim)
     ref = tp.ndft_adjoint(torch.from_numpy(x).double().to(dev),
                           torch.from_numpy(pos).double().to(dev), N=Ng)[0]
-    return rel_l2(gate_adjoint(dim, Ng, dev, strategy), ref)
+    return rel_l2(gate_adjoint(dim, Ng, dev, strategy, **window_kw), ref)
 
 
 def sampled_frequency_check(plan, pos, x, dev, n_freq: int = 96, col: int = 0) -> float:
     """Column ``col`` of the headline adjoint of x at ``n_freq`` random
-    frequencies against the direct sum over all points. The phase k.pos splits pos into a part with
-    12 fractional bits (k*p_hi is exact in float32 for |k| <= 2^11, and so is
-    its reduction mod 1) plus a small remainder, so the angle is good to
-    ~1e-7 rad (the method of bench.py:_headline_accuracy)."""
+    frequencies against the direct sum over all points
+    (:func:`direct_adjoint_sum`)."""
     rng = np.random.default_rng(11)
     k = rng.integers(-(N // 2), N // 2, size=(n_freq, DIM))
     yr, yi = tp.nfft_adjoint_planar(x, pos, None, plan, batch_size=1, N=N,
@@ -383,21 +414,31 @@ def sampled_frequency_check(plan, pos, x, dev, n_freq: int = 96, col: int = 0) -
                                     device=dev)
     idx = (0,) + tuple(torch.as_tensor(k[:, d] + N // 2, device=dev) for d in range(DIM)) + (col,)
     got = torch.complex(yr[idx], yi[idx]).to(torch.complex128)
-    kf = torch.as_tensor(k, dtype=torch.float32, device=dev)
-    acc_r = torch.zeros(n_freq, dtype=torch.float64, device=dev)
-    acc_i = torch.zeros(n_freq, dtype=torch.float64, device=dev)
+    return rel_l2(got, direct_adjoint_sum(pos, x[:, col], k))
+
+
+def direct_adjoint_sum(pos, w, k) -> torch.Tensor:
+    """sum_i w_i exp(+2 pi i k.pos_i) at the integer frequencies k (F, dim),
+    complex128, accumulated in float64. The phase k.pos splits pos into a
+    part with 12 fractional bits (k*p_hi is exact in float32 for
+    |k| <= 2^11, and so is its reduction mod 1) plus a small remainder, so
+    the angle is good to ~1e-7 rad (the method of
+    bench.py:_headline_accuracy)."""
+    kf = torch.as_tensor(k, dtype=torch.float32, device=pos.device)
+    acc_r = torch.zeros(kf.shape[0], dtype=torch.float64, device=pos.device)
+    acc_i = torch.zeros_like(acc_r)
     chunk = 1 << 21
     for c0 in range(0, pos.shape[0], chunk):
         p = pos[c0:c0 + chunk]
-        w = x[c0:c0 + chunk, col]
+        wc = w[c0:c0 + chunk]
         p_hi = torch.round(p * 4096.0) / 4096.0
         p_lo = p - p_hi
         ph_hi = p_hi @ kf.T  # sums of exact products: exact in float32
         ph_lo = p_lo @ kf.T
         ang = 2.0 * np.pi * (ph_hi - torch.floor(ph_hi) + ph_lo)
-        acc_r += (w[:, None] * torch.cos(ang)).sum(0, dtype=torch.float64)
-        acc_i += (w[:, None] * torch.sin(ang)).sum(0, dtype=torch.float64)
-    return rel_l2(got, torch.complex(acc_r, acc_i))
+        acc_r += (wc[:, None] * torch.cos(ang)).sum(0, dtype=torch.float64)
+        acc_i += (wc[:, None] * torch.sin(ang)).sum(0, dtype=torch.float64)
+    return torch.complex(acc_r, acc_i)
 
 
 def bounds(plan, C: int, tiles_read: int):
@@ -1120,6 +1161,372 @@ def spectral_and_strategy_phases(dev, gen, coeffs: torch.Tensor) -> None:
               f"{err:.3e}")
         assert G._plans()[0] is None and not ran and err < 5e-3, \
             f"small Gram: plan {G._plans()[0]}, {ran}, {err:.3e}"
+
+
+def batched_data(seed: int = 7, log2: int | None = None):
+    """examples/bench_batched.py's inputs: n = 2^log2 (BATCH_LOG2) points
+    uniform in [-1/4, 1/4)^3, a sorted random batch vector whose first id is
+    0 and last BATCH_B - 1, and x (n, BATCH_C), from ``seed``."""
+    rng = np.random.default_rng(seed)
+    n = 1 << (BATCH_LOG2 if log2 is None else log2)
+    pos = (rng.random((n, DIM), dtype=np.float32) - 0.5) / 2.0
+    batch = np.sort(rng.integers(0, BATCH_B, n)).astype(np.int32)
+    batch[0], batch[-1] = 0, BATCH_B - 1
+    x = rng.standard_normal((n, BATCH_C)).astype(np.float32)
+    return pos, batch, x
+
+
+def streamed_pair(layout, x, chunk=None) -> torch.Tensor:
+    """The streamed adjoint, then the streamed forward of its spectrum: the
+    real plane, (n, C) in the flat layout."""
+    yr, yi = tp.nfft_adjoint_streamed(x, layout, column_chunk=chunk)
+    return tp.nfft_forward_streamed(yr, yi, layout, column_chunk=chunk)[0]
+
+
+def worst_member(got, ref, bounds) -> float:
+    """Largest rel-L2 over the members of the flat layout's ranges."""
+    return max(rel_l2(got[lo:hi], ref[lo:hi]) for lo, hi in zip(bounds[:-1], bounds[1:]))
+
+
+def reference_groups(pos_np, batch_np, x, streamed: dict, bounds, group: int, kw: dict):
+    """The all-at-once batched adjoint and pair (``nfft_adjoint_planar``,
+    ``nfft_pair_planar`` with ``batch_size=group``) over groups of ``group``
+    members, against the streamed results in ``streamed`` (``yr``, ``yi``,
+    ``zr``; the adjoint's are dropped from it once compared, to make room
+    for the pair): (worst member's rel-L2 of the streamed adjoint, of the
+    streamed pair, peak bytes of each above what was held, launches of each
+    for the first group, the route, seconds)."""
+    rel = [0.0, 0.0]
+    peaks, launches, route = [0, 0], [None, None], None
+    t0 = time.perf_counter()
+    plans = {}
+    for i in range(2):  # every group's adjoint, then every group's pair
+        for g0 in range(0, BATCH_B, group):
+            lo, hi = int(bounds[g0]), int(bounds[g0 + group])
+            if g0 not in plans:
+                plans[g0] = tp.build_plan(pos_np[lo:hi], batch_np[lo:hi] - g0,
+                                          batch_size=group, **kw)
+            plan = plans[g0]
+            route = "dense" if binned.use_fold(plan, BATCH_C, 4, group) else "flat"
+            pos_g = torch.from_numpy(pos_np[lo:hi]).to(x.device)
+            entry = tp.nfft_adjoint_planar if i == 0 else tp.nfft_pair_planar
+            torch.cuda.empty_cache()  # one large grid at a time: no cached fragments
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            out = entry(x[lo:hi], pos_g, None, plan, batch_size=group, **kw)
+            torch.cuda.synchronize()
+            peaks[i] = max(peaks[i], torch.cuda.max_memory_allocated() - base)
+            if launches[i] is None:
+                launches[i] = read_launches()
+            if i == 0:
+                for b in range(group):
+                    rel[0] = max(rel[0], rel_l2(
+                        torch.complex(streamed["yr"][g0 + b], streamed["yi"][g0 + b]),
+                        torch.complex(out[0][b], out[1][b])))
+            else:
+                rel[1] = max(rel[1], worst_member(streamed["zr"][lo:hi], out,
+                                                  bounds[g0:g0 + group + 1] - lo))
+            del out, pos_g
+        if i == 0:
+            del streamed["yr"], streamed["yi"]
+    return rel[0], rel[1], peaks, launches, route, time.perf_counter() - t0
+
+
+def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
+                   gram_pts: torch.Tensor) -> None:
+    """Phases 10-10e: the batched configuration of BASELINE.json (3D, 16 members,
+    N = 256, m = 4, two columns, n = 2^21) through the streamed transforms,
+    held against the direct sum and the all-at-once batched transforms;
+    the streamed fastsum; saved plans; debug validation,
+    the card's float32 pipeline floor and the window suggestion. Saved
+    plans run on the Gram plan of ``gram_pts`` (phase 8's points),
+    ``validate_inputs`` on the headline points ``head_pos``. Adds each
+    kernel's launches per streamed pair and per reference run to
+    ``report``."""
+    from torch_nfft_tpu_torch.ops import fft as pfft
+    from torch_nfft_tpu_torch.ops import window as pwindow
+    from torch_nfft_tpu_torch.utils.debug import debug_enabled, validate_inputs
+
+    entry = {r["name"]: r for r in report}
+    pos_np, batch_np, x_np = batched_data()
+    n = pos_np.shape[0]
+    x = torch.from_numpy(x_np).to(dev)
+    kw = dict(N=BATCH_N, m=BATCH_M, sigma=2.0, window="gaussian")
+
+    with Phase("10 streamed layout"):
+        tp.clear_plan_cache()
+        torch.cuda.empty_cache()
+        print(f"held on the card before the batched phases: "
+              f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+        t0 = time.perf_counter()
+        pos_stack, _, counts, bounds = tp.split_by_batch(pos_np, None, batch_np, BATCH_B)
+        t_split = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plans = tp.build_plan_stack(pos_stack, **kw)
+        torch.cuda.synchronize()
+        t_stack = time.perf_counter() - t0
+        rows = (plans.row_count > 0).sum(1).tolist()
+        print(f"split_by_batch in {t_split:.3f} s: n=2^{BATCH_LOG2} into {BATCH_B} members of "
+              f"{counts.min()}-{counts.max()} points, n_max={pos_stack.shape[1]}; {BATCH_B} host "
+              f"plans and the stack in {t_stack:.3f} s: S={plans.slot_pt.shape[1]} (filled rows "
+              f"{min(rows)}-{max(rows)}) K={plans.K} T={plans.T} H={plans.H} "
+              f"M={plans.M} active={plans.active}")
+        del plans, pos_stack
+        t0 = time.perf_counter()
+        layout = tp.make_streamed_layout(pos_np, batch_np, batch_size=BATCH_B, **kw)
+        torch.cuda.synchronize()
+        t_layout = time.perf_counter() - t0
+        plan0 = tp.index_plan(layout.plans, 0)
+        dense = {C: tile_array_bytes(plan0, C, 4, 1) for C in (BATCH_C, 2 * BATCH_C)}
+        print(f"make_streamed_layout end to end in {t_layout:.3f} s; a member's dense tile "
+              f"array {dense[BATCH_C] / 1e9:.3f} GB at C={BATCH_C} (the adjoint), "
+              f"{dense[2 * BATCH_C] / 1e9:.3f} GB at {2 * BATCH_C} columns (the forward's two "
+              f"planes), budget {FOLD_BUDGET / 1e9:.3f} GB: "
+              f"{'dense' if binned.use_fold(plan0, 2 * BATCH_C, 4, 1) else 'flat'} route")
+        assert binned.use_fold(plan0, 2 * BATCH_C, 4, 1), "a member must take the dense route"
+
+    with Phase("10a streamed pair"):
+        # B1 and B2 at member 0's shapes against their plain versions: the
+        # adjoint's C columns, the forward's 2C (its two planes)
+        vals = slot_values(plan0, layout.pack(x)[0])
+        tid_s, tid = dense_tile_ids(plan0), row_tile_ids(plan0)
+        tiles = unfold_grid_to_tiles(torch.randn((1, 2 * BATCH_C) + (plan0.M,) * DIM,
+                                                 device=dev, generator=gen), plan0)
+        for name, C, kern, plain in (
+                ("spread_tiles_dense", BATCH_C,
+                 lambda: contract.spread_tiles_dense(plan0, vals, tid_s, plan0.NT),
+                 lambda: contract.spread_tiles_dense_plain(plan0, vals, tid_s, plan0.NT)),
+                ("gather_points", 2 * BATCH_C, lambda: contract.gather_points(plan0, tiles, tid),
+                 lambda: contract.gather_points_plain(plan0, tiles, tid))):
+            reset_launches()
+            got = kern()
+            design = read_designs().get(name)
+            ref = plain()
+            mx, rl = float((got - ref).abs().max()), rel_l2_rows(got, ref)
+            same = torch.equal(kern(), got)
+            del got, ref
+            ms = time_ms(kern, 5)
+            ran = "" if design is None else f"; design {design}"
+            print(f"{name} C={C} at member 0 (S={plan0.S}, K={plan0.K}, T={plan0.T}, "
+                  f"H={plan0.H}): kernel vs plain max_abs={mx:.3e} rel_l2={rl:.3e}; two launches "
+                  f"bitwise equal: {same}{ran}; {ms:.4f} ms")
+            # the wide spread design sums by float atomics: no bitwise repeat
+            must_repeat = design is None or design.get("contraction", 0) > 0
+            assert rl <= 1e-5 and (same or not must_repeat), \
+                f"{name} at member 0: {rl:.3e}, repeat {same}"
+            entry[name]["max_abs_err"] = max(entry[name]["max_abs_err"], mx)
+            entry[name]["batched_member"] = {"C": C, "ms": ms, "max_abs_err": mx}
+        del vals, tiles
+        # one member's pass by stage: what nfft_adjoint_planar and
+        # nfft_forward_planar run for it
+        sk = dict(m=BATCH_M, sigma=2.0, window="gaussian")
+        stages = (binned.spread_stages(plan0)
+                  + (("rfftn + mirror", lambda g: pfft.half_spectrum_to_full(
+                      pfft.spectral_adjoint_half(g, DIM, BATCH_N, **sk), DIM, BATCH_N)),
+                     ("fftn (C2C)", lambda y: pfft.spectral_forward(y, DIM, plan0.M, **sk)),
+                     ("two planes", lambda g: torch.cat([g.real, g.imag], dim=1)))
+                  + binned.gather_stages(plan0))
+        med = stage_ms(stages, layout.pack(x)[0])
+        print(f"member 0's streamed pass by stage, C={BATCH_C}, ms (CUDA events, median of 5):")
+        for (name, _), ms in zip(stages, med):
+            print(f"  {name:16s} {ms:9.3f} ms  {ms / med.sum():6.1%}")
+        print(f"  {'sum':16s} {med.sum():9.3f} ms; x {BATCH_B} members = "
+              f"{BATCH_B * med.sum() / 1e3:.4f} s")
+        launches, peaks, zr = {}, {}, {}
+        for chunk in (None, 1):
+            _, t_pair = host_median(lambda: streamed_pair(layout, x, chunk), 3)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            zr[chunk] = streamed_pair(layout, x, chunk)
+            torch.cuda.synchronize()
+            launches[chunk] = read_launches()
+            peaks[chunk] = torch.cuda.max_memory_allocated() - base
+            ran = {k: v for k, v in launches[chunk].items() if v}
+            print(f"streamed pair (adjoint then forward), column_chunk={chunk}: {t_pair:.4f} s "
+                  f"(median of 3 after a warm-up, host clock to synchronize) = "
+                  f"{n / t_pair / 1e6:.3f} M points/s; peak {peaks[chunk] / 2**30:.3f} GiB above "
+                  f"the {base / 2**30:.3f} GiB held; launches {ran}")
+            per = BATCH_B * (1 if chunk is None else BATCH_C)
+            assert ran == {"spread_tiles_dense": per, "gather_points": per}, \
+                f"the streamed pair launched {ran}, not B1 and B2 {per} times each"
+        rel_c = rel_l2(zr[1], zr[None])
+        print(f"column_chunk=1 vs whole: rel_l2={rel_c:.3e}")
+        assert rel_c <= 1e-5, f"column chunks disagree: {rel_c:.3e}"
+        zr = zr[None]
+        for name in KERNELS:
+            entry[name]["launches_streamed_pair"] = launches[None][name]
+            entry[name]["launches_streamed_pair_chunk1"] = launches[1][name]
+
+    with Phase("10b streamed vs direct sum and all-at-once"):
+        yr, yi = tp.nfft_adjoint_streamed(x, layout)
+        rng = np.random.default_rng(11)
+        k = rng.integers(-(BATCH_N // 2), BATCH_N // 2, size=(96, DIM))
+        idx = (0,) + tuple(torch.as_tensor(k[:, d] + BATCH_N // 2, device=dev)
+                           for d in range(DIM))
+        p0 = torch.from_numpy(pos_np[bounds[0]:bounds[1]]).to(dev)
+        for col in range(BATCH_C):
+            got = torch.complex(yr[idx + (col,)], yi[idx + (col,)]).to(torch.complex128)
+            rel = rel_l2(got, direct_adjoint_sum(p0, x[bounds[0]:bounds[1], col], k))
+            print(f"member 0 column {col}, streamed adjoint at 96 sampled frequencies vs the "
+                  f"direct sum in float64: rel_l2={rel:.3e}")
+            assert rel <= 1e-3, f"member 0 column {col}: {rel:.3e}"
+        streamed = dict(yr=yr, yi=yi, zr=zr)
+        del yr, yi
+        try:
+            res, group = reference_groups(pos_np, batch_np, x, streamed, bounds, BATCH_B,
+                                          kw), BATCH_B
+        except torch.OutOfMemoryError as exc:
+            oom = str(exc).split(". ")[0]
+        else:
+            oom = None
+        if oom is not None:  # after the except block: its frames are gone
+            print(f"the all-at-once batch of {BATCH_B} does not fit on the card ({oom}); "
+                  f"comparing against groups of {BATCH_GROUP} members instead")
+            torch.cuda.empty_cache()
+            streamed = dict(zr=zr)
+            streamed["yr"], streamed["yi"] = tp.nfft_adjoint_streamed(x, layout)
+            res, group = reference_groups(pos_np, batch_np, x, streamed, bounds, BATCH_GROUP,
+                                          kw), BATCH_GROUP
+        rel_a, rel_p, peaks_r, launches_r, route, t_ref = res
+        what = "all at once" if group == BATCH_B else f"in groups of {group}"
+        print(f"batched reference {what} (batch_size={group}, {route} route) in {t_ref:.3f} s: "
+              f"adjoint peak {peaks_r[0] / 2**30:.3f} GiB, launches "
+              f"{ {k: v for k, v in launches_r[0].items() if v} }; pair peak "
+              f"{peaks_r[1] / 2**30:.3f} GiB, launches "
+              f"{ {k: v for k, v in launches_r[1].items() if v} } (the streamed pair's peak "
+              f"{peaks[None] / 2**30:.3f} GiB); worst member rel_l2: streamed adjoint "
+              f"{rel_a:.3e}, streamed pair {rel_p:.3e}")
+        assert rel_a <= 1e-5 and rel_p <= 1e-5, \
+            f"streamed vs batched: adjoint {rel_a:.3e}, pair {rel_p:.3e}"
+        for name in KERNELS:
+            entry[name]["launches_batched_ref_adjoint"] = launches_r[0][name]
+            entry[name]["launches_batched_ref_pair"] = launches_r[1][name]
+        del streamed, zr
+
+    with Phase("10c streamed fastsum"):
+        coeffs = tp.gaussian_analytic_coeffs(FASTSUM_WIDTH, dim=DIM, N=BATCH_N)
+        t_pos, t_batch, _ = batched_data(seed=8, log2=FASTSUM_TARGETS_LOG2)
+        t0 = time.perf_counter()
+        t_layout = tp.make_streamed_layout(t_pos, t_batch, batch_size=BATCH_B, **kw)
+        torch.cuda.synchronize()
+        t_tl = time.perf_counter() - t0
+        t_bounds = np.searchsorted(t_batch, np.arange(BATCH_B + 1))
+        sample = np.random.default_rng(13)
+        for label, tl, tpos, tb in (("symmetric", None, pos_np, bounds),
+                                    (f"asymmetric (2^{FASTSUM_TARGETS_LOG2} targets)", t_layout,
+                                     t_pos, t_bounds)):
+            y, t_fs = host_median(lambda: tp.nfft_fastsum_streamed(x, coeffs, layout, tl), 3)
+            reset_launches()
+            y = tp.nfft_fastsum_streamed(x, coeffs, layout, tl)
+            torch.cuda.synchronize()
+            launches_fs = read_launches()
+            ran = {k: v for k, v in launches_fs.items() if v}
+            pick = sample.choice(tb[1] - tb[0], 96, replace=False)
+            tgt = torch.from_numpy(tpos[tb[0] + pick]).to(dev)
+            ref = exact_gauss_sum(p0, tgt, x[bounds[0]:bounds[1]], FASTSUM_WIDTH)
+            rel = rel_l2(y[torch.as_tensor(tb[0] + pick, device=dev)], ref)
+            print(f"streamed fastsum {label}, exp(-r^2/{FASTSUM_WIDTH}^2) by "
+                  f"gaussian_analytic_coeffs at N={BATCH_N}, C={BATCH_C}: {t_fs:.4f} s (median "
+                  f"of 3); launches {ran}; member 0 at 96 sampled targets vs the exact Gaussian "
+                  f"sum in float64: rel_l2={rel:.3e}")
+            assert rel <= 1e-3, f"streamed fastsum {label}: {rel:.3e}"
+            assert ran == {"spread_tiles_dense": BATCH_B, "gather_points": BATCH_B}, \
+                f"the streamed fastsum launched {ran}"
+            if tl is None:
+                for name in KERNELS:
+                    entry[name]["launches_streamed_fastsum"] = launches_fs[name]
+            del y
+        print(f"target layout built in {t_tl:.3f} s")
+        del t_layout, layout, plan0, p0
+
+    with Phase("10d saved plans"):
+        # the Gram plan (2^22 points), not the headline's: np.savez_compressed
+        # took 32.7 s for the headline plan with its Benes tables (389 MB;
+        # load 5.5 s against a 5.4 s host build and 9.3 s of cold routing),
+        # over the 30 s this phase allows a save
+        t0 = time.perf_counter()
+        G = tp.GaussianKernel(GRAM_SIGMA, dim=DIM, bandwidth=GRAM_N, cutoff=GRAM_M)(gram_pts)
+        plan_h = G._plans()[0]
+        torch.cuda.synchronize()
+        t_host = time.perf_counter() - t0
+        os.environ.pop(benes.CACHE_ENV, None)  # cold: no routing cache
+        t0 = time.perf_counter()
+        plan_b = plan_h.with_benes_tables()
+        torch.cuda.synchronize()
+        t_route = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+            path = os.path.join(tmp, "gram_plan.npz")
+            t0 = time.perf_counter()
+            tp.save_plan(path, plan_b)
+            t_save = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            t0 = time.perf_counter()
+            loaded = tp.load_plan(path)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+        print(f"Gram host plan with Benes tables (n=2^{GRAM_LOG2}, S={plan_b.S}, K={plan_b.K}, "
+              f"T={plan_b.T}, q={plan_b.benes.q}): save_plan {t_save:.3f} s, {size / 1e6:.1f} MB; "
+              f"load_plan {t_load:.3f} s, onto {loaded.device}; the Gram operator and its host "
+              f"plan took {t_host:.3f} s, the cold routing {t_route:.3f} s")
+        assert t_save <= SAVE_S_MAX, f"save_plan took {t_save:.1f} s"
+        assert loaded.device == dev and loaded.benes.bits.device == dev, "not loaded on the card"
+        for name in ("slot_pt", "slot_pos", "origin", "row_batch", "fill_keys", "row_count"):
+            assert torch.equal(getattr(loaded, name), getattr(plan_b, name)), name
+        for name in ("n", "T", "K", "window", "active", "pos_fp", "S_occ"):
+            assert getattr(loaded, name) == getattr(plan_b, name), name
+        assert np.array_equal(loaded.order, plan_b.order) and torch.equal(
+            loaded.benes.bits, plan_b.benes.bits), "host order or Benes bits differ"
+        kwg = dict(batch_size=1, N=GRAM_N, m=GRAM_M, sigma=2.0, window="gaussian")
+        xg = torch.randn((plan_b.n, 1), device=dev, generator=gen)
+        for label, a, b in (("Benes", loaded, plan_b),
+                            ("sort", dataclasses.replace(loaded, benes=None), plan_h)):
+            reset_launches()
+            got = tp.nfft_pair_planar(xg, G.sources, None, a, **kwg)
+            design = read_designs()["spread_tiles_dense"]
+            same = torch.equal(got, tp.nfft_pair_planar(xg, G.sources, None, b, **kwg))
+            print(f"Gram-geometry pair on the {label} route, loaded plan vs the original: "
+                  f"bitwise equal: {same} (B1 design {design})")
+            assert same, f"the loaded plan's {label}-route pair differs"
+        del loaded, G, plan_h, plan_b, xg, got
+
+    with Phase("10e debug, pipeline floor and window suggestion"):
+        os.environ["TORCH_NFFT_TPU_DEBUG"] = "1"
+        try:
+            assert debug_enabled()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            validate_inputs(head_pos, None, 1)
+            t_val = time.perf_counter() - t0
+            bad = head_pos[:4096].clone()
+            bad[5, 0] = float("nan")
+            try:
+                validate_inputs(bad)
+                raised = False
+            except ValueError:
+                raised = True
+        finally:
+            del os.environ["TORCH_NFFT_TPU_DEBUG"]
+        print(f"validate_inputs on the headline points (2^{N_LOG2}, on the card): {t_val:.4f} s; "
+              f"a NaN position raises: {raised}")
+        assert raised, "validate_inputs passed a NaN position"
+        errs = {(w, m): gate(DIM, 32, dev, m=m, sigma=2.0, window=w)
+                for w in ("es", "kb") for m in (6, 7, 8)}
+        floor = max(errs.values())
+        print("float32 pipeline floor, 3D N=32 gate vs the NDFT in float64, sigma=2: " + ", ".join(
+            f"{w} m={m} {e:.3e}" for (w, m), e in errs.items())
+            + f"; max {floor:.3e} (window.F32_PIPELINE_FLOOR = {pwindow.F32_PIPELINE_FLOOR:g})")
+        assert floor <= pwindow.F32_PIPELINE_FLOOR, \
+            f"measured floor {floor:.3e} above F32_PIPELINE_FLOOR"
+        for tol in (1e-3, 1e-4, 1e-5):
+            p = tp.suggest_window_parameters(tol)
+            meas = gate(DIM, 32, dev, m=p["m"], sigma=p["sigma"], window=p["window"])
+            print(f"suggest_window_parameters({tol:g}): window {p['window']} m={p['m']} "
+                  f"sigma={p['sigma']}, predicted {p['predicted_rel_l2']:.3e}, measured "
+                  f"{meas:.3e} (3D N=32 gate)")
+            assert meas <= p["predicted_rel_l2"] <= tol, f"tol {tol:g}: {p}, measured {meas:.3e}"
 
 
 def nvidia_smi_line() -> str:
@@ -2148,15 +2555,21 @@ def main() -> int:
                       f"x{e.count // reps:<4d} {e.key[:160]}")
 
     peak_all = max(peak_before, torch.cuda.max_memory_allocated())
-    # the headline's arrays make room for the Gram phases
+    # the headline's arrays make room for the Gram phases; phase 10e keeps
+    # its points
+    head_pos = pos
     del tiles, plan, plan_b, plan_h, pos, x, xl, pl, w, x8, dest, vals_s, vals
     torch.cuda.empty_cache()
     pts = gram_phases(dev, gen, report)
     radial_phases(dev, gen, report, pts)
     coeffs = tp.GaussianKernel(GRAM_SIGMA, dim=DIM, bandwidth=GRAM_N, cutoff=GRAM_M).coeffs
-    del pts
     torch.cuda.empty_cache()
     spectral_and_strategy_phases(dev, gen, coeffs)
+    peak_all = max(peak_all, torch.cuda.max_memory_allocated())
+    del coeffs
+    torch.cuda.empty_cache()
+    batched_phases(dev, gen, report, head_pos, pts)
+    del head_pos, pts
     peak_all = max(peak_all, torch.cuda.max_memory_allocated())
     print(f"total {time.perf_counter() - t_all:.1f} s; peak memory "
           f"{peak_all / 2**30:.2f} GiB; card {card}")

@@ -955,3 +955,97 @@ def test_half_spectrum_stages_on_the_card_match_c2c(card, rng, dim, N):
     want = pfft.spectral_forward(full, dim, M, m, sigma, "es").real
     assert _rel(got, want) <= 1e-6
     assert _rel(pfft.half_spectrum_to_full(half, dim, N), full) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# Saved plans, plan stacks and the streamed transforms: no kernel of their
+# own; each member runs B1 and B2 (B5 under autograd) on a padded plan.
+# ---------------------------------------------------------------------------
+
+
+def _streamed_case(rng, counts=(900, 0, 1400, 700), dim=3, C=2):
+    n = sum(counts)
+    pos = (rng.random((n, dim), dtype=np.float32) - 0.5) / 2.0
+    batch = np.repeat(np.arange(len(counts), dtype=np.int32), counts)
+    x = rng.standard_normal((n, C)).astype(np.float32)
+    return pos, batch, x
+
+
+def test_streamed_pair_on_the_card_matches_the_cpu(card, rng):
+    pos, batch, x = _streamed_case(rng)
+    kw = dict(batch_size=4, N=16, m=4, window="gaussian")
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        layout = tp.make_streamed_layout(pos, batch, device=dev, **kw)
+        yr, yi = tp.nfft_adjoint_streamed(x, layout)
+        zr, zi = tp.nfft_forward_streamed(yr, yi, layout)
+        out[dev.type] = (yr, yi, zr, zi)
+    assert out["cuda"][0].device.type == "cuda"
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert _rel(got.cpu(), want) <= 1e-5
+    # the empty member gives a zero spectrum
+    assert float(out["cuda"][0][1].abs().max()) == 0.0
+
+
+def test_streamed_pair_launches_b1_and_b2_per_member(card, rng):
+    pos, batch, x = _streamed_case(rng)
+    layout = tp.make_streamed_layout(pos, batch, batch_size=4, N=16, m=4)
+    for chunk, per_member in ((None, 1), (1, 2)):
+        before = {k: getattr(contract, k).launches for k in KERNELS}
+        yr, yi = tp.nfft_adjoint_streamed(x, layout, column_chunk=chunk)
+        tp.nfft_forward_streamed(yr, yi, layout, column_chunk=chunk)
+        torch.cuda.synchronize()
+        ran = {k: getattr(contract, k).launches - before[k] for k in KERNELS}
+        assert ran == {"spread_tiles_dense": 4 * per_member, "gather_points": 4 * per_member,
+                       "pos_grad": 0}
+
+
+def test_padded_member_plan_matches_the_unpadded_plan(card, rng):
+    """A member plan padded by hundreds of empty rows (row_count 0, origin
+    0, batch 0) at its end, as a plan stack pads it, against the same plan
+    unpadded: B1 (through the dense tile ids), B2 and B5 (under autograd)."""
+    n = 6000
+    pos = (rng.random((n, 3), dtype=np.float32) - 0.5) / 2.0
+    plan = tp.build_plan(pos, None, N=16, m=4, batch_size=1)
+    padded = tp.pad_plan_rows(plan, plan.S + 700)
+    x = torch.from_numpy(rng.standard_normal((n, 2)).astype(np.float32)).to(card)
+    w = torch.randn((n, 2), device=card)
+    grads = []
+    for p in (plan, padded):
+        xg = x.clone().requires_grad_()
+        pg = torch.from_numpy(pos).to(card).requires_grad_()
+        before = {k: getattr(contract, k).launches for k in KERNELS}
+        z = tp.nfft_pair_planar(xg, pg, None, p, batch_size=1, N=16, m=4)
+        (z * w).sum().backward()
+        torch.cuda.synchronize()
+        assert all(getattr(contract, k).launches > before[k] for k in KERNELS)
+        grads.append((z.detach(), xg.grad, pg.grad))
+    for got, want in zip(grads[1], grads[0]):
+        assert _rel(got, want) <= 1e-6
+    # kernel by kernel: the padded rows add nothing and read nothing
+    vals_u, vals_p = binned.slot_values(plan, x), binned.slot_values(padded, x)
+    assert torch.equal(vals_p[:, : plan.S * plan.K], vals_u)
+    t_u = contract.spread_tiles_dense(plan, vals_u, binned.dense_tile_ids(plan), plan.NT)
+    t_p = contract.spread_tiles_dense(padded, vals_p, binned.dense_tile_ids(padded), padded.NT)
+    assert _rel(t_p, t_u) <= 1e-6
+    g_u = contract.gather_points(plan, t_u, row_tile_ids(plan))
+    g_p = contract.gather_points(padded, t_u, row_tile_ids(padded))
+    assert torch.equal(g_p[: plan.S], g_u) and float(g_p[plan.S:].abs().max()) == 0.0
+    d_u = contract.pos_grad(plan, t_u, vals_u, row_tile_ids(plan))
+    d_p = contract.pos_grad(padded, t_u, vals_p, row_tile_ids(padded))
+    assert torch.equal(d_p[: plan.S], d_u) and float(d_p[plan.S:].abs().max()) == 0.0
+
+
+def test_load_plan_defaults_to_the_card(card, rng, tmp_path, monkeypatch):
+    _force_design(monkeypatch, "contraction")  # no atomics: pairs repeat bit for bit
+    pos, _ = points(rng, 5000, 3)
+    plan = tp.build_plan(pos, None, N=16, m=2, sigma=1.625, window="es").with_benes_tables()
+    path = tmp_path / "plan.npz"
+    tp.save_plan(path, plan)
+    loaded = tp.load_plan(path)
+    assert loaded.device == plan.device and loaded.device.type == "cuda"
+    assert loaded.benes.bits.device == plan.device
+    x = rng.standard_normal((5000, 1)).astype(np.float32)
+    kw = dict(batch_size=1, N=16, m=2, sigma=1.625, window="es")
+    assert torch.equal(tp.nfft_pair_planar(x, pos, None, loaded, **kw),
+                       tp.nfft_pair_planar(x, pos, None, plan, **kw))

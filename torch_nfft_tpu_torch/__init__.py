@@ -32,12 +32,22 @@ utilities and the dense oracles (``ndft_fastsum``,
 ``exact_radial_matrix``) come with it. ``operator_from_numpy`` carries a
 JAX kernel or operator across.
 
+Plans are saved and loaded in the JAX package's ``.npz`` format
+(``save_plan``, ``load_plan``). Batched point sets split into members
+(``split_by_batch``) with one plan each, stacked (``build_plan_stack``,
+``index_plan``), run the streamed transforms
+(``make_streamed_layout``, ``nfft_adjoint_streamed``,
+``nfft_forward_streamed``, ``nfft_fastsum_streamed``): one member's grid at
+a time. ``suggest_window_parameters`` picks a window for a tolerance;
+``set_complex_override`` switches the complex pipelines off, and
+``TORCH_NFFT_TPU_DEBUG=1`` checks the inputs of the entry points.
+
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card and without ``device=`` they raise.
 """
 
 from ._device import resolve_device
-from .convert import operator_from_numpy, plan_from_numpy, plan_to_numpy
+from .convert import layout_from_numpy, operator_from_numpy, plan_from_numpy, plan_to_numpy
 from .models import (
     AbstractMatrix,
     AdjacencyMatrix,
@@ -74,13 +84,36 @@ from .ops.ndft import (
     ndft_fastsum,
     ndft_forward,
 )
-from .ops.nfft import clear_plan_cache, nfft_adjoint, nfft_fastsum, nfft_forward
+from .ops.nfft import (
+    clear_plan_cache,
+    nfft_adjoint,
+    nfft_fastsum,
+    nfft_forward,
+    set_complex_override,
+)
 from .ops.planar import (
     nfft_adjoint_planar,
     nfft_fastsum_real,
     nfft_forward_planar,
     nfft_pair_planar,
 )
+from .ops.plan_io import load_plan, save_plan
+from .ops.plan_stack import (
+    build_plan_stack,
+    index_plan,
+    pad_plan_rows,
+    split_by_batch,
+    squeeze_plan,
+    stack_plans,
+)
+from .ops.streaming import (
+    StreamedLayout,
+    make_streamed_layout,
+    nfft_adjoint_streamed,
+    nfft_fastsum_streamed,
+    nfft_forward_streamed,
+)
+from .ops.window import suggest_window_parameters
 from .utils.diagnostics import accuracy_check
 from .utils.points import (
     compute_points_center,
@@ -92,18 +125,13 @@ from .utils.solve import eigsh_operator, lanczos
 
 __all__ = [
     "AbstractMatrix",
+    "accuracy_check",
     "AdjacencyMatrix",
     "BenesTables",
     "BinnedPlan",
-    "GaussianKernel",
-    "GramMatrix",
-    "InverseMultiquadricKernel",
-    "LaplaceKernel",
-    "MaternKernel",
-    "RadialKernel",
-    "accuracy_check",
     "build_plan",
     "build_plan_device",
+    "build_plan_stack",
     "clear_plan_cache",
     "compute_points_center",
     "compute_points_radius",
@@ -115,27 +143,48 @@ __all__ = [
     "gather_binned",
     "gaussian_analytic_coeffs",
     "gaussian_interpolated_coeffs",
+    "GaussianKernel",
+    "GramMatrix",
+    "index_plan",
     "interpolated_kernel_coeffs",
     "interpolation_grid",
+    "InverseMultiquadricKernel",
     "lanczos",
+    "LaplaceKernel",
+    "layout_from_numpy",
+    "load_plan",
+    "make_streamed_layout",
+    "MaternKernel",
     "ndft_adjoint",
     "ndft_fastsum",
     "ndft_forward",
     "nfft_adjoint",
+    "nfft_adjoint_planar",
+    "nfft_adjoint_streamed",
     "nfft_fastsum",
     "nfft_fastsum_real",
+    "nfft_fastsum_streamed",
     "nfft_forward",
-    "nfft_adjoint_planar",
     "nfft_forward_planar",
+    "nfft_forward_streamed",
     "nfft_pair_planar",
     "operator_from_numpy",
+    "pad_plan_rows",
     "plan_from_numpy",
     "plan_slot_pos_user",
     "plan_to_numpy",
     "radial_interpolation_grid",
+    "RadialKernel",
     "resolve_device",
+    "save_plan",
     "scale_points_by_norm",
+    "set_complex_override",
     "shift_points_by_center",
+    "split_by_batch",
     "spread_binned",
+    "squeeze_plan",
+    "stack_plans",
+    "StreamedLayout",
+    "suggest_window_parameters",
     "to_slot_order",
 ]

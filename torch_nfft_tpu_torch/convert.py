@@ -9,7 +9,8 @@ fingerprint ``pos_fp``, sorted ``order``, ``row_start`` and ``S_occ``.
 again with ``with_benes_tables``). ``operator_from_numpy`` builds the
 port's ``GaussianKernel``, radial kernels, ``GramMatrix`` or
 ``AdjacencyMatrix`` from the leaves and aux data of the JAX object's
-``tree_flatten``.
+``tree_flatten``, and ``layout_from_numpy`` a streamed layout with its
+stacked member plans.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from .models.radial import InverseMultiquadricKernel, LaplaceKernel, MaternKerne
 from .ops.binned import BinnedPlan
 
 __all__ = ["PLAN_ARRAYS", "PLAN_STATICS", "plan_from_numpy", "plan_to_numpy",
-           "operator_from_numpy"]
+           "layout_from_numpy", "operator_from_numpy"]
 
 # array fields and their dtypes
 PLAN_ARRAYS = {
@@ -46,7 +47,8 @@ def plan_from_numpy(arrays: dict, *, n: int, dim: int, N: int, m: int,
                     device=None) -> BinnedPlan:
     """A plan on ``device`` (the card unless "cpu" is asked for) from numpy
     arrays named as in :data:`PLAN_ARRAYS`; shapes are checked. ``order``
-    and ``row_start`` stay on the host."""
+    and ``row_start`` stay on the host. Arrays with a leading member axis
+    give a stacked plan (``ops/plan_stack.py:stack_plans``)."""
     dev = resolve_device(device)
     missing = set(PLAN_ARRAYS) - set(arrays)
     if missing:
@@ -55,14 +57,18 @@ def plan_from_numpy(arrays: dict, *, n: int, dim: int, N: int, m: int,
         name: torch.as_tensor(np.array(arrays[name]), device=dev).to(dtype)
         for name, dtype in PLAN_ARRAYS.items()
     }
-    S = t["slot_pt"].shape[0]
+    # a stacked plan (stack_plans) carries a leading member axis
+    lead = tuple(t["slot_pt"].shape[:-2])
+    if len(lead) > 1 or (lead and (order is not None or row_start is not None)):
+        raise ValueError("a stacked plan has one member axis and no host order/row_start")
+    S = t["slot_pt"].shape[-2]
     expect = {
         "slot_pt": (S, K), "slot_pos": (dim, S * K), "origin": (S, dim),
         "row_batch": (S,), "fill_keys": (S * K,), "row_count": (S,),
     }
     for name, shape in expect.items():
-        if tuple(t[name].shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t[name].shape)}, expected {shape}")
+        if tuple(t[name].shape) != lead + shape:
+            raise ValueError(f"{name} has shape {tuple(t[name].shape)}, expected {lead + shape}")
     host = {}
     for name, a, size in (("order", order, n), ("row_start", row_start, S)):
         if a is not None:
@@ -85,6 +91,22 @@ def plan_to_numpy(plan: BinnedPlan) -> tuple[dict, dict]:
     arrays = {name: getattr(plan, name).cpu().numpy() for name in PLAN_ARRAYS}
     statics = {name: getattr(plan, name) for name in PLAN_STATICS}
     return arrays, statics
+
+
+def layout_from_numpy(pos_stack, counts, plans, N: int, m: int, sigma: float,
+                      window: str = "gaussian", *, device=None):
+    """The port's :class:`~ops.streaming.StreamedLayout` from a JAX layout's
+    fields: ``pos_stack`` (B, n_max, dim) and ``counts`` (B,) as numpy, and
+    ``plans`` None or the stacked plan as the ``(arrays, statics)`` pair of
+    :func:`plan_to_numpy` (statics without ``device``)."""
+    from .ops.streaming import StreamedLayout
+
+    dev = resolve_device(device)
+    if plans is not None:
+        arrays, statics = plans
+        plans = plan_from_numpy(arrays, **statics, device=dev)
+    pos_t = torch.as_tensor(np.array(pos_stack, dtype=np.float32), device=dev)
+    return StreamedLayout(pos_t, np.asarray(counts), plans, N, m, sigma, window)
 
 
 def _leaf(a, dev):

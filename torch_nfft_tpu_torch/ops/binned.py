@@ -70,6 +70,7 @@ __all__ = [
     "from_slot_order",
     "plan_slot_pos_user",
     "default_tile",
+    "merge_active_runs",
     "spread_binned",
     "gather_binned",
     "spread_binned_slot",
@@ -219,6 +220,24 @@ def _active_runs(origin_np, T: int, M: int, dim: int) -> tuple | None:
         runs.append(run)
         if run[1] < nb:
             any_partial = True
+    return tuple(runs) if any_partial else None
+
+
+def merge_active_runs(actives, nb: int, dim: int) -> tuple | None:
+    """Union of per-plan active runs, for stacked plans whose members share
+    one slab: an axis that is full (or unknown, None) in any member is full;
+    otherwise the minimal cyclic run over the union of the members' tiles.
+    None when every axis is full."""
+    runs = []
+    any_partial = False
+    for d in range(dim):
+        if any(a is None or a[d][1] >= nb for a in actives):
+            runs.append((0, nb))
+            continue
+        tiles = np.concatenate([(s + np.arange(c)) % nb for s, c in (a[d] for a in actives)])
+        run = _min_cyclic_run(np.unique(tiles), nb)
+        runs.append(run)
+        any_partial = any_partial or run[1] < nb
     return tuple(runs) if any_partial else None
 
 

@@ -28,12 +28,18 @@ by the content of (pos, batch) and the geometry, as the JAX package does;
 ``device="cpu"`` is given; on the card the binned engine takes m up to 9
 (2m + 2 <= 20 window cells, ``ops/contract.py:check_window_width``),
 checked before any plan is built or kernel launched.
+
+Under ``TORCH_NFFT_TPU_DEBUG=1`` each entry point first checks its points
+and batch vectors (``utils/debug.py:validate_inputs``).
+:func:`set_complex_override` (or ``TORCH_NFFT_TPU_COMPLEX=0``) switches the
+complex pipelines off, as on the JAX package's complex-free TPU runtime.
 """
 
 from __future__ import annotations
 
 import hashlib
 import math
+import os
 from collections import OrderedDict
 
 import numpy as np
@@ -43,11 +49,58 @@ from .._device import resolve_device
 from .binned import build_plan, host_array, run_stages
 from .contract import check_window_width
 from .fft import spectral_adjoint, spectral_forward
-from .planar import _tensor, check_strategy, fastsum_spectral_stages, points_route, shape_of
+from .planar import (
+    _tensor,
+    check_strategy,
+    fastsum_spectral_stages,
+    nfft_adjoint_planar,
+    nfft_fastsum_real,
+    nfft_forward_planar,
+    points_route,
+    shape_of,
+)
 from .spread_gather import plan_or_engine
 from .window import DEFAULT_SIGMA, DEFAULT_WINDOW
 
-__all__ = ["nfft_adjoint", "nfft_forward", "nfft_fastsum", "clear_plan_cache"]
+__all__ = ["nfft_adjoint", "nfft_forward", "nfft_fastsum", "clear_plan_cache",
+           "set_complex_override"]
+
+# None: the complex pipelines run unless TORCH_NFFT_TPU_COMPLEX says 0
+_COMPLEX_OK = None
+
+
+def set_complex_override(value: bool | None) -> None:
+    """Switch the complex-dtype pipelines on (``True``) or off (``False``),
+    or back to the ``TORCH_NFFT_TPU_COMPLEX`` variable (``None``, the
+    default; unset means on). Off, as on the JAX package's complex-free
+    TPU runtime: a real input with a real output runs the planar pipeline
+    (ops/planar.py), anything else raises ``ValueError``."""
+    global _COMPLEX_OK
+    _COMPLEX_OK = None if value is None else bool(value)
+
+
+def _complex_ok() -> bool:
+    if _COMPLEX_OK is not None:
+        return _COMPLEX_OK
+    return os.environ.get("TORCH_NFFT_TPU_COMPLEX", "1") not in ("0", "false", "no")
+
+
+def _no_complex_error(op: str) -> ValueError:
+    return ValueError(
+        f"{op} needs a complex-valued FFT pipeline, but the complex pipelines are "
+        "switched off (set_complex_override(False) or TORCH_NFFT_TPU_COMPLEX=0). "
+        "Either pass real_output=True with real inputs (routes through the pure-real "
+        "planar pipeline), call the planar APIs directly (nfft_adjoint_planar / "
+        "nfft_forward_planar / nfft_fastsum_real), or switch them on with "
+        "set_complex_override(True).")
+
+
+def _validate(pos, batch, batch_size) -> None:
+    """``utils.debug.validate_inputs`` under ``TORCH_NFFT_TPU_DEBUG=1``."""
+    from ..utils.debug import debug_enabled, validate_inputs  # utils imports this module
+
+    if debug_enabled():
+        validate_inputs(pos, batch, batch_size)
 
 # plans built by the entry points, least recently used first
 _PLAN_CACHE: OrderedDict = OrderedDict()
@@ -125,6 +178,7 @@ def nfft_adjoint(x, pos, batch=None, bandwidth=16, cutoff=3, real_output=False, 
     N = int(bandwidth if N is None else N)
     m = int(cutoff if m is None else m)
     batch, batch_size = _normalize_batch(batch, batch_size)
+    _validate(pos, batch, batch_size)
     xs = shape_of(x)
     trailing = tuple(xs[1:])
     C = math.prod(trailing)
@@ -132,6 +186,13 @@ def nfft_adjoint(x, pos, batch=None, bandwidth=16, cutoff=3, real_output=False, 
                        sigma=sigma, window=window, device=device, C=C)
     x = _tensor(x, dev)
     xf = x.reshape(xs[0], C)
+    if not _complex_ok():
+        if not (real_output and not x.is_complex()):
+            raise _no_complex_error("nfft_adjoint with complex output")
+        yr, _ = nfft_adjoint_planar(xf, pos, batch, route.plan, batch_size=batch_size, N=N,
+                                    m=m, sigma=float(sigma), strategy=strategy,
+                                    window=window, device=dev)
+        return yr.reshape((batch_size,) + (N,) * route.dim + trailing)
     g = route.spread(_planes(xf))  # (B, C or 2C, M^dim)
     if x.is_complex():
         g = torch.complex(g[:, :C], g[:, C:])
@@ -152,12 +213,21 @@ def nfft_forward(x, pos, batch=None, cutoff=3, real_output=False, *,
     xs = shape_of(x)
     if xs[0] != batch_size:
         raise ValueError(f"x.shape[0] = {xs[0]} must equal batch_size = {batch_size}")
+    _validate(pos, batch, batch_size)
     N = xs[1]
     trailing = tuple(xs[1 + dim:])
     C = math.prod(trailing)
     dev, route = _side(pos, batch, plan, strategy=strategy, batch_size=batch_size, N=N, m=m,
                        sigma=sigma, window=window, device=device, C=C)
     x = _tensor(x, dev)
+    if not _complex_ok():
+        if not (real_output and not x.is_complex()):
+            raise _no_complex_error("nfft_forward with complex output")
+        yr, _ = nfft_forward_planar(
+            x.reshape((batch_size,) + (N,) * dim + (C,)), None, pos, batch, route.plan,
+            batch_size=batch_size, dim=dim, m=m, sigma=float(sigma), strategy=strategy,
+            real_output=True, window=window, device=dev)
+        return yr.reshape((n,) + trailing)
     z = x.reshape((batch_size,) + (N,) * dim + (C,)).movedim(-1, 1)
     g = spectral_forward(z.to(torch.complex64), dim, route.M, m, float(sigma),
                          window)  # (B, C, M^dim)
@@ -209,6 +279,8 @@ def nfft_fastsum(x, coeffs, sources, targets=None, source_batch=None, target_bat
     target_batch, bs_tgt = _normalize_batch(target_batch, batch_size)
     if bs_src != bs_tgt:
         raise ValueError(f"source batch size {bs_src} != target batch size {bs_tgt}")
+    _validate(sources, source_batch, bs_src)
+    _validate(targets, target_batch, bs_tgt)
     xs = shape_of(x)
     if xs[0] != n_src:
         raise ValueError(f"x has {xs[0]} rows for {n_src} sources")
@@ -224,6 +296,13 @@ def nfft_fastsum(x, coeffs, sources, targets=None, source_batch=None, target_bat
 
     x = _tensor(x, dev)
     xf = x.reshape(n_src, C)
+    if not _complex_ok():
+        if x.is_complex() or coeffs.is_complex():
+            raise _no_complex_error("nfft_fastsum with complex inputs")
+        y = nfft_fastsum_real(xf, coeffs, sources, targets, source_batch, target_batch,
+                              src.plan, tgt.plan, batch_size=bs_src, N=N, m=m,
+                              sigma=float(sigma), strategy=strategy, window=window, device=dev)
+        return y.reshape((tgt.n,) + trailing)
     g = src.spread(_planes(xf))
     g = run_stages(fastsum_spectral_stages(
         coeffs, dim=dim, N=N, M=src.M, m=m, sigma=float(sigma), window=window,

@@ -135,6 +135,10 @@ def setup_plan(pos, batch, plan, *, batch_size, N, m, sigma, window, device):
                                  batch_size=batch_size, window=window, device=dev)
     if not isinstance(plan, BinnedPlan):
         raise TypeError(f"plan must be a BinnedPlan, got {type(plan).__name__}")
+    if plan.slot_pt.dim() == 3:
+        raise ValueError(
+            f"plan is a stack of {plan.slot_pt.shape[0]} member plans (stack_plans); "
+            "pass one member, index_plan(plans, i), with its own points")
     _check_window_match(window, plan, m=m, M=M, sigma=sigma)
     if plan.device != dev:
         raise ValueError(f"the plan lives on {plan.device}, the transform runs on {dev}")

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import functools
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -45,6 +46,8 @@ __all__ = [
     "compute_shifts",
     "compute_psi",
     "compute_psi_and_dpsi",
+    "F32_PIPELINE_FLOOR",
+    "suggest_window_parameters",
 ]
 
 DEFAULT_SIGMA = 2.0
@@ -312,3 +315,56 @@ def compute_psi_and_dpsi(pos: torch.Tensor, shifts: torch.Tensor, N: int, m: int
     M = int(round(sigma * N))
     return window_value_and_deriv_fn(m, sigma, window, M=M)(
         _psi_arg(pos, shifts, N, m, sigma))
+
+
+# Accuracy floor of the port's float32 pipeline on the card: the largest
+# rel-L2 against the float64 NDFT that chip_smoke.py phase 10e measures
+# where window truncation is negligible (es and kb at m = 6-8, sigma = 2,
+# the 3D N = 32 gate): 1.37e-6 (es, m = 6) rising to 5.16e-6 (kb, m = 8)
+# on an NVIDIA H100 80GB HBM3 at 700 W, rounded up. It stands in the error
+# model where the JAX package puts its TPU matmul floor (4e-5), which does
+# not apply here.
+F32_PIPELINE_FLOOR = 6e-6
+
+
+@functools.lru_cache(maxsize=None)
+def _window_error_model(window: str, m: int, sigma: float, floor: float) -> float:
+    """Conservative rel-L2 error model at (window, m, sigma), the JAX
+    package's: window truncation exp(-r(sigma) * beta) (es: r = 0.92 *
+    (1 - 1/(2 sigma)); kb: r = 0.17 + 0.7565 * (1 - 1/(2 sigma))), plus the
+    pipeline ``floor``, plus the deconvolution's amplification of float32
+    rounding at low oversampling, 7e-9 * amp^3.2 with amp the dynamic range
+    max/min of the inverse window coefficients."""
+    if window == "kb":
+        trunc = math.exp(-(0.17 + 0.7565 * (1.0 - 1.0 / (2.0 * sigma))) * kb_beta(m, sigma))
+    else:
+        trunc = math.exp(-0.92 * (1.0 - 1.0 / (2.0 * sigma)) * es_beta(m, sigma))
+    v = phi_hat_inv_np(64, m, float(sigma), window)
+    amp = float(v.max() / v.min())
+    return trunc + floor + 7e-9 * amp**3.2
+
+
+def suggest_window_parameters(tol: float, sigma: float = DEFAULT_SIGMA) -> dict:
+    """The cheapest window reaching ``tol`` relative L2 error: the smallest
+    cutoff m (1-8) of the es and kb families whose error model
+    (:func:`_window_error_model`, at ``F32_PIPELINE_FLOOR``) meets ``tol``,
+    es before kb at equal m. When none does, the most accurate one with a
+    ``UserWarning`` naming the model's minimum. Returns ``{"window",
+    "m", "sigma", "predicted_rel_l2"}``, to pass on as
+    ``nfft_adjoint(x, pos, cutoff=p["m"], window=p["window"])``."""
+    tol = float(tol)
+    floor = F32_PIPELINE_FLOOR
+    errs = {(w, m): _window_error_model(w, m, float(sigma), floor)
+            for m in range(1, 9) for w in ("es", "kb")}
+    feasible = [(m, w) for (w, m), e in errs.items() if e <= tol]
+    if feasible:
+        m, w = min(feasible)
+    else:
+        w, m = min(errs, key=errs.get)
+        warnings.warn(
+            f"tol={tol:g} is below the reachable error at sigma={sigma} (error model "
+            f"minimum {errs[(w, m)]:.1e} at window={w!r} m={m}); returning the most "
+            "accurate configuration. Raising sigma helps against the low-oversampling "
+            f"amplification but not below the ~{floor:.0e} float32 pipeline floor",
+            UserWarning, stacklevel=2)
+    return {"window": w, "m": m, "sigma": sigma, "predicted_rel_l2": errs[(w, m)]}
