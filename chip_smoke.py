@@ -89,7 +89,23 @@ plan's save takes over 30 s), the loaded plan's pairs bit for bit on both
 routes; ``validate_inputs`` under debug;
 the card's float32 pipeline floor (es and kb, m = 6-8, against
 ``window.F32_PIPELINE_FLOOR``) and ``suggest_window_parameters`` at three
-tolerances against the NDFT.
+tolerances against the NDFT. Phases 11-11d run the parallel package
+(``torch.distributed``) at the Gram geometry: B1, B2 and B5 at a grid slab's
+local tile space (slab 1 of 4 of 2^22 points uniform in [-1/2, 1/2)^3,
+its plan padded by 0 and 300 empty rows) against their plain versions; on
+one NCCL rank in this process, the point-sharded fastsum at C = 1 (dense
+route) and 8 (flat route) against ``nfft_fastsum`` on the member plan and
+96 targets against the exact Gaussian sum, its gradient, the sharded
+adjoint and forward, the training step on 2 sets of 2^21 points (the loss
+falls over 3 steps, the first update against one autograd step on
+``nfft_fastsum``), and the grid-sharded adjoint, forward and fastsum on one
+slab against the single-device planar transforms (2e-4); then four gloo
+ranks in spawned processes sharing the card (NCCL refuses two ranks on one
+card), each making its data from the seeds: the point-sharded fastsum and
+its gradient against world 1 (1e-5), the gloo all-reduce of the 512^3
+grid, the train step on data 2 x points 2 against world 1's first update,
+and the grid-sharded transforms on 4 slabs against the planar transforms.
+Each world has a 120 s process-group timeout and a joined deadline.
 
 Every phase prints its seconds; any failure exits non-zero. The line before
 the last is a JSON object listing the kernels with their times and bounds;
@@ -155,6 +171,11 @@ BATCH_GROUP = 8
 FASTSUM_WIDTH, FASTSUM_TARGETS_LOG2 = 0.05, 20
 # the longest save_plan phase 10d allows
 SAVE_S_MAX = 30.0
+
+# phases 11-11d: four ranks share the card (gloo), each world with a 120 s
+# process-group timeout and a joined deadline; the grid-sharded cell bins
+# at T = 16; the training cell is the Gram points as 2 sets of 2^21
+SHARD_P, SHARD_TIMEOUT_S, SHARD_JOIN_S, GRID_T, TRAIN_B = 4, 120, 600, 16, 2
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and float32 outside the
 # tensor cores; the kernels do float32 arithmetic on the CUDA cores
@@ -1529,6 +1550,516 @@ def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
             assert meas <= p["predicted_rel_l2"] <= tol, f"tol {tol:g}: {p}, measured {meas:.3e}"
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-11d: the parallel package over torch.distributed at the Gram
+# geometry. World 1 runs in this process on NCCL; four ranks share the one
+# card over gloo in spawned processes (NCCL refuses two ranks on one card),
+# each making its data from the seeds itself.
+# ---------------------------------------------------------------------------
+
+
+def shard_config() -> dict:
+    """What the spawned ranks need of this module's settings."""
+    return dict(device=None, backend="nccl", ranks="shared", log2=GRAM_LOG2, N=GRAM_N,
+                m=GRAM_M, width=GRAM_SIGMA, T=GRID_T, train_b=TRAIN_B,
+                timeout=SHARD_TIMEOUT_S)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def gram_sharded_data(cfg: dict, dev):
+    """The Gram cell (phase 8's points, seed 41, scaled by the kernel) with
+    its coefficients and kernel width, and values x (n, 1) from seed 43."""
+    n = 1 << cfg["log2"]
+    pts = torch.from_numpy(np.random.default_rng(41).random((n, DIM), dtype=np.float32)
+                           * 2 - 1).to(dev)
+    kernel = tp.GaussianKernel(cfg["width"], dim=DIM, bandwidth=cfg["N"], cutoff=cfg["m"],
+                               device=dev)
+    src = kernel(pts).sources
+    x1 = torch.from_numpy(np.random.default_rng(43).standard_normal((n, 1))
+                          .astype(np.float32)).to(dev)
+    return kernel, src, x1
+
+
+def train_data(cfg: dict, src: torch.Tensor):
+    """The training cell: the Gram points as train_b sets, targets from seed 44."""
+    pos = src.reshape(cfg["train_b"], -1, DIM)
+    y = np.random.default_rng(44).standard_normal(pos.shape[:2] + (1,)).astype(np.float32)
+    return pos, torch.from_numpy(y).to(src.device)
+
+
+def grid_data(cfg: dict, dev):
+    """The grid-sharded cell: 2^log2 points uniform in [-1/2, 1/2)^3 and
+    values from seed 45, a planar spectrum (1, N^3, 1) from seed 46."""
+    n = 1 << cfg["log2"]
+    rng = np.random.default_rng(45)
+    pos = rng.random((n, DIM), dtype=np.float32) - 0.5
+    x = torch.from_numpy(rng.standard_normal((n, 1)).astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(46)
+    shape = (1,) + (cfg["N"],) * DIM + (1,)
+    sr = torch.randn(shape, generator=gen, device=dev)
+    si = torch.randn(shape, generator=gen, device=dev)
+    return pos, x, sr, si
+
+
+def grid_calls(par, lay, mesh, x, sr, si, coeffs) -> dict:
+    """The grid-sharded transforms of phase 11d by name."""
+    return {
+        "adjoint": lambda: par.nfft_adjoint_grid_sharded(x, lay, mesh),
+        "forward": lambda: par.nfft_forward_grid_sharded(sr, si, lay, mesh),
+        "forward_real": lambda: par.nfft_forward_grid_sharded(sr, si, lay, mesh,
+                                                              real_output=True)[0],
+        "fastsum": lambda: par.nfft_fastsum_grid_sharded(x, coeffs, lay, mesh),
+    }
+
+
+def _flat(t) -> torch.Tensor:
+    """A result (a tensor, or planes side by side) as one tensor."""
+    return torch.cat([u.reshape(-1) for u in t]) if isinstance(t, tuple) else t.reshape(-1)
+
+
+def grid_phase(par, cfg: dict, dev, lay, mesh, refs: dict, coeffs) -> dict:
+    """Each grid-sharded transform on this rank: launches, median seconds,
+    rel-L2 against the single-device planar reference."""
+    pos, x, sr, si = grid_data(cfg, dev)
+    out = {}
+    for name, fn in grid_calls(par, lay, mesh, x, sr, si, coeffs).items():
+        fn()
+        torch.cuda.synchronize()
+        reset_launches()
+        got = fn()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        got, t = host_median(fn)
+        out[name] = dict(s=t, launches=launches,
+                         rel=rel_l2(_flat(got), refs[name].to(dev)))
+        del got
+    return out
+
+
+def shard_rank(rank: int, world: int, port: int, tmpdir: str, cfg: dict) -> None:
+    """One of ``world`` ranks: gloo ranks sharing the card, or with
+    ``cfg["ranks"] == "cards"`` NCCL ranks on a card each
+    (tools/shard_cards.py). Phase 11c (the point-sharded fastsum, its
+    gradient, the all-reduce of the grid, the train step on data 2 x points
+    world/2) and phase 11d (the grid-sharded transforms on world slabs).
+    Writes its readings to ``tmpdir/rank<r>.json``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    from torch_nfft_tpu_torch import parallel as par
+    from torch_nfft_tpu_torch.parallel import _comm
+
+    cards = cfg["ranks"] == "cards"
+    dev = tp.resolve_device(f"cuda:{rank}" if cards else cfg["device"])
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if cards else "gloo",
+                            init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=cfg["timeout"]))
+    res = {}
+    try:
+        mesh = par.make_mesh({"points": world}, device_type=dev.type)
+        kernel, src, x1 = gram_sharded_data(cfg, dev)
+        coeffs = kernel.coeffs
+        t0 = time.perf_counter()
+        plans = par.build_sharded_plans(src, n_shards=world, N=cfg["N"], m=cfg["m"],
+                                        sigma=2.0, window="gaussian", device=dev)
+        res["plans_s"] = time.perf_counter() - t0
+
+        def fastsum(x):
+            return par.nfft_fastsum_sharded(x, coeffs, src, cutoff=cfg["m"], mesh=mesh,
+                                            sigma=2.0, window="gaussian", source_plans=plans,
+                                            target_plans=plans)
+
+        fastsum(x1)
+        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        y = fastsum(x1)
+        torch.cuda.synchronize()
+        res["fastsum_launches"] = read_launches()
+        y, res["fastsum_s"] = host_median(lambda: fastsum(x1))
+        res["fastsum_rel"] = rel_l2(y, torch.load(os.path.join(tmpdir, "y1.pt")).to(dev))
+        del y
+        xg = x1.clone().requires_grad_()
+        (fastsum(xg) ** 2).sum().backward()
+        res["grad_rel"] = rel_l2(xg.grad, torch.load(os.path.join(tmpdir, "g1.pt")).to(dev))
+        del xg
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        free, total = torch.cuda.mem_get_info()
+        res["device_used_gib"] = (total - free) / 2**30
+        grid = torch.zeros((1, 1) + (2 * cfg["N"],) * DIM, device=dev)
+        group = mesh.get_group("points")
+        _, res["allreduce_s"] = host_median(lambda: _comm.all_reduce_(grid, group))
+        res["allreduce_bytes"] = grid.numel() * 4
+        del grid, plans
+
+        mesh2 = par.make_mesh({"data": 2, "points": world // 2}, device_type=dev.type)
+        pos_t, y_t = train_data(cfg, src)
+        lr = float(torch.load(os.path.join(tmpdir, "lr.pt")))
+        step, shard = par.make_fastsum_train_step(
+            mesh2, coeffs, batch_size=cfg["train_b"], n_per_set=pos_t.shape[1], cutoff=cfg["m"],
+            learning_rate=lr, sigma=2.0, strategy="binned", window="gaussian")
+        pos_l, y_l = shard(pos_t), shard(y_t)
+        w1, loss0 = step(torch.zeros_like(y_l), pos_l, y_l)
+        res["train_rel"] = rel_l2(w1, shard(torch.load(os.path.join(tmpdir, "w1.pt"))))
+        res["train_loss0"] = float(loss0)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(w1, pos_l, y_l)
+        torch.cuda.synchronize()
+        res["train_step_s"] = time.perf_counter() - t0
+        res["train_launches"] = read_launches()
+        del step, pos_l, y_l, w1, src, x1
+        torch.cuda.empty_cache()
+
+        gmesh = par.make_mesh({"grid": world}, device_type=dev.type)
+        t0 = time.perf_counter()
+        lay = par.build_grid_sharded_layout(grid_data(cfg, dev)[0], n_shards=world,
+                                            N=cfg["N"], m=cfg["m"], T=cfg["T"], device=dev)
+        res["layout_s"] = time.perf_counter() - t0
+        res["layout"] = dict(n_loc=int(lay.pos_stack.shape[1]), A0_loc=lay.A0_loc, NT=lay.NT,
+                             S=int(lay.plans.S), K=lay.plans.K)
+        refs = {k: torch.load(os.path.join(tmpdir, f"ref_{k}.pt"))
+                for k in ("adjoint", "forward", "forward_real", "fastsum")}
+        res["grid"] = grid_phase(par, cfg, dev, lay, gmesh, refs, coeffs)
+        with open(os.path.join(tmpdir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.barrier()
+    except BaseException:
+        with open(os.path.join(tmpdir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_phases(dev, report: list, cfg: dict | None = None) -> None:
+    """Phases 11-11d: the kernels at a grid slab's local tile space against
+    their plain versions; the point-sharded fastsum, adjoint and forward and
+    the training step on one NCCL rank against the single-device entry
+    points; the grid-sharded transforms on one NCCL rank; then four gloo
+    ranks on the card: the point-sharded fastsum and its gradient against
+    world 1, the train step against world 1's first update, the
+    grid-sharded transforms against the single-device planar transforms.
+    Adds each kernel's launches on these paths to ``report``."""
+    import datetime
+    import multiprocessing as mp
+    import shutil
+
+    import torch.distributed as dist
+
+    from torch_nfft_tpu_torch import parallel as par
+    from torch_nfft_tpu_torch.parallel import grid_sharded as gs
+
+    cfg = dict(shard_config(), **(cfg or {}))
+    entry = {r["name"]: r for r in report}
+    N, m, P = cfg["N"], cfg["m"], SHARD_P
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        with Phase("11 kernels vs plain at a slab's tile space"):
+            pos_g, x_g, _, _ = grid_data(cfg, dev)
+            t0 = time.perf_counter()
+            lay = par.build_grid_sharded_layout(pos_g, n_shards=P, N=N, m=m, T=cfg["T"],
+                                                device=dev)
+            t_lay = time.perf_counter() - t0
+            print(f"grid-sharded layout of 2^{cfg['log2']} points in [-1/2, 1/2)^3 on {P} slabs "
+                  f"built in {t_lay:.3f} s: n_loc={lay.pos_stack.shape[1]} A0_loc={lay.A0_loc} "
+                  f"NT={lay.NT} rows (padded)={lay.plans.S} K={lay.plans.K} T={lay.T}")
+            gen = torch.Generator(device=dev).manual_seed(47)
+            for pad in (0, 300):
+                plan = tp.index_plan(lay.plans, 1)
+                plan = tp.pad_plan_rows(plan, plan.S + pad) if pad else plan
+                tid = gs._local_tile_ids(plan, lay.A0_loc, 1)
+                idx = lay.point_index[1].long()
+                xs = torch.cat([x_g, x_g.new_zeros((1, 1))]).index_select(0, idx)
+                vals = slot_values(plan, xs)
+                tiles = torch.randn((lay.NT, 1, plan.H, plan.H ** 2), generator=gen, device=dev)
+                pl = lay.pos_stack[1].clone().requires_grad_()
+                reset_launches()
+                (binned.dense_tiles_local(lay.NT, plan, xs, pl, tid) * tiles).sum().backward()
+                torch.cuda.synchronize()
+                assert read_launches()["pos_grad"] == 1, "dense_tiles_local's backward ran no B5"
+                dp = contract.pos_grad_plain(plan, tiles, vals, tid)
+                dp = unslot_values(plan, dp.transpose(1, 2).reshape(-1, DIM))
+                checks = (
+                    ("spread_tiles_dense",
+                     lambda: contract.spread_tiles_dense(plan, vals, tid, lay.NT),
+                     lambda: contract.spread_tiles_dense_plain(plan, vals, tid, lay.NT)),
+                    ("gather_points", lambda: contract.gather_points(plan, tiles, tid),
+                     lambda: contract.gather_points_plain(plan, tiles, tid)),
+                    ("pos_grad", lambda: pl.grad, lambda: dp))
+                for name, kern, plain in checks:
+                    got, ref = kern(), plain()
+                    mx, rl = float((got - ref).abs().max()), rel_l2_rows(got, ref)
+                    ms = time_ms(kern, 5) if name != "pos_grad" else None
+                    print(f"{name} at slab 1's local tiles (rows padded by {pad}): kernel vs "
+                          f"plain max_abs={mx:.3e} rel_l2={rl:.3e}"
+                          + ("" if ms is None else f"; {ms:.4f} ms"))
+                    assert rl <= 1e-5, f"{name} at the slab's tiles, pad {pad}: {rl:.3e}"
+                    entry[name]["max_abs_err"] = max(entry[name]["max_abs_err"], mx)
+                    if ms is not None and not pad:
+                        entry[name]["slab_ms"] = ms
+                del vals, tiles, pl, dp, xs
+            del lay, pos_g, x_g
+
+        torch.cuda.set_device(dev)
+        dist.init_process_group(cfg["backend"], init_method=f"tcp://localhost:{free_port()}",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=cfg["timeout"]))
+        try:
+            shard_world_of_one(par, cfg, dev, entry, tmpdir)
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+        where = "NCCL ranks, a card each" if cfg["ranks"] == "cards" else \
+            "gloo ranks on the card"
+        with Phase(f"11c-11d {P} {where}"):
+            ctx = mp.get_context("spawn")
+            port = free_port()
+            procs = [ctx.Process(target=shard_rank, args=(r, P, port, tmpdir, cfg))
+                     for r in range(P)]
+            for proc in procs:
+                proc.start()
+            deadline = time.monotonic() + SHARD_JOIN_S
+            for proc in procs:
+                proc.join(max(1.0, deadline - time.monotonic()))
+            hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+            for proc in procs:
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join(30)
+            errs = "".join(open(os.path.join(tmpdir, f), encoding="utf-8").read()
+                           for f in sorted(os.listdir(tmpdir)) if f.endswith(".err"))
+            codes = [proc.exitcode for proc in procs]
+            assert not hung and all(c == 0 for c in codes), \
+                f"the {P}-rank world failed: exit codes {codes}, past the deadline {hung}\n{errs}"
+            ranks = []
+            for r in range(P):
+                with open(os.path.join(tmpdir, f"rank{r}.json"), encoding="utf-8") as f:
+                    ranks.append(json.load(f))
+            report_ranks(ranks, entry, cfg["ranks"] == "cards")
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+
+
+def shard_world_of_one(par, cfg: dict, dev, entry: dict, tmpdir: str) -> None:
+    """Phases 11a, 11b and 11d's world of one, on one NCCL rank; saves what
+    the four ranks are held to into ``tmpdir``."""
+    n, N, m = 1 << cfg["log2"], cfg["N"], cfg["m"]
+    kw = dict(sigma=2.0, window="gaussian")
+    dk = dict(kw, device=dev)
+    mesh = par.make_mesh({"data": 1, "points": 1}, device_type=cfg["device"])
+    with Phase("11a point-sharded transforms, one NCCL rank"):
+        kernel, src, x1 = gram_sharded_data(cfg, dev)
+        coeffs, width = kernel.coeffs, kernel.factor * kernel.sigma
+        x8 = torch.from_numpy(np.random.default_rng(48).standard_normal((n, C_WIDE))
+                              .astype(np.float32)).to(dev)
+        t0 = time.perf_counter()
+        plans = par.build_sharded_plans(src, n_shards=1, N=N, m=m, **dk)
+        torch.cuda.synchronize()
+        member = tp.index_plan(plans, 0)
+        print(f"build_sharded_plans(n_shards=1) in {time.perf_counter() - t0:.3f} s: "
+              f"rows={member.S} K={member.K} T={member.T}")
+        for C, xv in ((1, x1), (C_WIDE, x8)):
+            def sharded(x=xv):
+                return par.nfft_fastsum_sharded(x, coeffs, src, cutoff=m, mesh=mesh,
+                                                source_plans=plans, target_plans=plans, **kw)
+
+            def single(x=xv):
+                return tp.nfft_fastsum(x, coeffs, src, cutoff=m, source_plan=member, **dk)
+
+            sharded()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            sharded()
+            torch.cuda.synchronize()
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            y, t_sh = host_median(sharded)
+            ref, t_1 = host_median(single)
+            rel = rel_l2(y, ref)
+            print(f"nfft_fastsum_sharded C={C} on one NCCL rank: median {t_sh * 1e3:.3f} ms (of 3 "
+                  f"after a warm-up); nfft_fastsum on the member plan {t_1 * 1e3:.3f} ms; vs it "
+                  f"rel_l2={rel:.3e}; launches {launches}; peak memory {peak / 2**30:.2f} GiB "
+                  f"({(peak - base) / 2**30:.2f} GiB above the {base / 2**30:.2f} held)")
+            assert rel <= 1e-5, f"the sharded fastsum C={C} disagrees: {rel:.3e}"
+            spread = "spread_tiles_dense" if C == 1 else "spread_tiles"
+            assert launches[spread] == 1 and launches["gather_points"] == 1, launches
+            for name in KERNELS:
+                entry[name][f"launches_sharded_fastsum_c{C}"] = launches[name]
+            if C == 1:
+                idx = torch.from_numpy(np.random.default_rng(49).choice(n, 96, replace=False)
+                                       ).to(dev)
+                rel_g = rel_l2(y[idx], exact_gauss_sum(src, src[idx], x1, width))
+                print(f"sharded fastsum C=1 at 96 targets vs the exact Gaussian sum: "
+                      f"rel_l2={rel_g:.3e}")
+                assert rel_g <= 1e-3, f"the sharded fastsum is off the Gaussian sum: {rel_g:.3e}"
+                torch.save(y.cpu(), os.path.join(tmpdir, "y1.pt"))
+            del y, ref
+        xg = x1.clone().requires_grad_()
+        (par.nfft_fastsum_sharded(xg, coeffs, src, cutoff=m, mesh=mesh, source_plans=plans,
+                                  target_plans=plans, **kw) ** 2).sum().backward()
+        xr = x1.clone().requires_grad_()
+        (tp.nfft_fastsum(xr, coeffs, src, cutoff=m, source_plan=member, **dk) ** 2
+         ).sum().backward()
+        rel_gr = rel_l2(xg.grad, xr.grad)
+        print(f"d/dx sum(y^2) through the sharded fastsum vs the single-device one: "
+              f"rel_l2={rel_gr:.3e}")
+        assert rel_gr <= 1e-5, f"the sharded gradient disagrees: {rel_gr:.3e}"
+        torch.save(xg.grad.cpu(), os.path.join(tmpdir, "g1.pt"))
+        del xg, xr, x8
+        a, t_a = host_median(lambda: par.nfft_adjoint_sharded(x1, src, bandwidth=N, cutoff=m,
+                                                              mesh=mesh, plans=plans, **kw))
+        ra = rel_l2(a, tp.nfft_adjoint(x1, src, bandwidth=N, cutoff=m, plan=member, **dk))
+        f, t_f = host_median(lambda: par.nfft_forward_sharded(a, src, cutoff=m, mesh=mesh,
+                                                              plans=plans, **kw))
+        rf = rel_l2(f, tp.nfft_forward(a, src, cutoff=m, plan=member, **dk))
+        print(f"nfft_adjoint_sharded {t_a * 1e3:.3f} ms, rel_l2={ra:.3e}; nfft_forward_sharded "
+              f"{t_f * 1e3:.3f} ms, rel_l2={rf:.3e} (vs the single-device entry points)")
+        assert ra <= 1e-5 and rf <= 1e-5, f"sharded adjoint/forward: {ra:.3e}, {rf:.3e}"
+        del a, f, plans, member
+
+    with Phase("11b training step, one NCCL rank"):
+        pos_t, y_t = train_data(cfg, src)
+        B, n_set = pos_t.shape[:2]
+        posf = pos_t.reshape(-1, DIM)
+        bvec = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(n_set)
+        plan_t = tp.build_plan(posf, bvec, N=N, m=m, batch_size=B, **dk)
+        rows = tp.nfft_fastsum(torch.ones((n, 1), device=dev), coeffs, posf, batch=bvec,
+                               batch_size=B, cutoff=m, source_plan=plan_t, **dk)
+        # G >= 0 elementwise: its norm is at most its largest row sum, and
+        # gradient descent on |G w - y|^2 / (B n) falls for lr < B n / |G|^2
+        lam = float(rows.max())
+        lr = 0.5 * B * n_set / lam**2
+        step, shard = par.make_fastsum_train_step(
+            mesh, coeffs, batch_size=B, n_per_set=n_set, cutoff=m, learning_rate=lr,
+            strategy="binned", **kw)
+        pos_l, y_l = shard(pos_t), shard(y_t)
+        w1, loss0 = step(torch.zeros_like(y_l), pos_l, y_l)
+        torch.cuda.synchronize()
+        reset_launches()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        w2, loss1 = step(w1, pos_l, y_l)
+        ev[1].record()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        t_step = ev[0].elapsed_time(ev[1])
+        _, loss2 = step(w2, pos_l, y_l)
+        wr = torch.zeros_like(y_l).requires_grad_()
+        pred = tp.nfft_fastsum(wr.reshape(-1, 1), coeffs, posf, batch=bvec, batch_size=B,
+                               cutoff=m, source_plan=plan_t, **dk)
+        (((pred.reshape(wr.shape) - y_l) ** 2).sum() / (B * n_set)).backward()
+        rel_w = rel_l2(w1, -lr * wr.grad)
+        losses = [float(v) for v in (loss0, loss1, loss2)]
+        print(f"train step ({B} sets of {n_set} points, C=1, lr={lr:.4e} from the largest row "
+              f"sum {lam:.1f}): {t_step:.3f} ms (CUDA events, the second step); launches "
+              f"{launches}; losses {losses}; first update vs one autograd step on "
+              f"nfft_fastsum rel_l2={rel_w:.3e}")
+        assert losses[2] < losses[1] < losses[0], f"the loss did not fall: {losses}"
+        assert rel_w <= 1e-5, f"the train step's update disagrees: {rel_w:.3e}"
+        for name in KERNELS:
+            entry[name]["launches_sharded_train_step"] = launches[name]
+        torch.save(w1.cpu(), os.path.join(tmpdir, "w1.pt"))
+        torch.save(torch.tensor(lr), os.path.join(tmpdir, "lr.pt"))
+        del step, pos_l, y_l, w1, w2, wr, pred, plan_t, rows, src, x1, kernel
+
+    with Phase("11d grid-sharded transforms, one NCCL rank"):
+        pos_g, x_g, sr, si = grid_data(cfg, dev)
+        coeffs_g = coeffs
+        t0 = time.perf_counter()
+        lay = tp.parallel.build_grid_sharded_layout(pos_g, n_shards=1, N=N, m=m, T=cfg["T"],
+                                                    device=dev)
+        t_lay = time.perf_counter() - t0
+        pk = dict(batch_size=1, m=m, strategy="binned", **dk)
+        refs = {
+            "adjoint": _flat(tp.nfft_adjoint_planar(x_g, pos_g, None, N=N, **pk)),
+            "forward": _flat(tp.nfft_forward_planar(sr, si, pos_g, None, dim=DIM, **pk)),
+            "forward_real": _flat(tp.nfft_forward_planar(sr, si, pos_g, None, dim=DIM,
+                                                         real_output=True, **pk)[0]),
+            "fastsum": _flat(tp.nfft_fastsum_real(x_g, coeffs_g, pos_g, pos_g, N=N, **pk)),
+        }
+        for k, v in refs.items():
+            torch.save(v.cpu(), os.path.join(tmpdir, f"ref_{k}.pt"))
+        gmesh = tp.parallel.make_mesh({"grid": 1}, device_type=cfg["device"])
+        res = grid_phase(tp.parallel, cfg, dev, lay, gmesh, refs, coeffs_g)
+        print(f"grid-sharded layout on one slab in {t_lay:.3f} s (NT={lay.NT}, rows {lay.plans.S})")
+        report_grid(res, entry, "w1")
+        del lay, refs, pos_g, x_g, sr, si
+
+
+def report_grid(res: dict, entry: dict, tag: str) -> None:
+    """Print phase 11d's readings and hold them to JAX's 2e-4 bar."""
+    for name, r in res.items():
+        print(f"  {name} ({tag}): median {r['s'] * 1e3:.3f} ms (of 3 after a warm-up); "
+              f"vs the single-device planar transform rel_l2={r['rel']:.3e}; launches "
+              f"{r['launches']}")
+        assert r["rel"] <= 2e-4, f"grid-sharded {name} ({tag}): {r['rel']:.3e}"
+        for k in KERNELS:
+            entry[k][f"launches_grid_{name}_{tag}"] = r["launches"][k]
+
+
+def report_ranks(ranks: list, entry: dict, cards: bool = False) -> None:
+    """Print the four ranks' readings of phases 11c-11d and hold them."""
+    P = len(ranks)
+    r0 = ranks[0]
+    where = "NCCL ranks, a card each" if cards else "gloo ranks sharing the card"
+    print(f"11c point-sharded fastsum C=1 on {P} {where} (stack of {P} "
+          f"plans, {max(r['plans_s'] for r in ranks):.3f} s a rank): rank 0 median "
+          f"{r0['fastsum_s'] * 1e3:.3f} ms (of 3 after a warm-up); launches "
+          f"{r0['fastsum_launches']}; vs world 1 rel_l2 " + ", ".join(
+              f"{r['fastsum_rel']:.3e}" for r in ranks)
+          + "; d/dx sum(y^2) vs world 1 rel_l2 " + ", ".join(f"{r['grad_rel']:.3e}" for r in ranks))
+    if "peak_gib" in r0:
+        print(f"  peak allocated per rank " + ", ".join(f"{r['peak_gib']:.2f}" for r in ranks)
+              + f" GiB; device memory in use {max(r['device_used_gib'] for r in ranks):.2f} GiB "
+              "(all processes, caching allocators included)")
+    transport = "NCCL between the cards" if cards else (
+        "a transport through host memory among processes that share one card, not a "
+        "multi-GPU figure")
+    print(f"  all-reduce of the {r0['allreduce_bytes'] / 2**20:.0f} MiB grid: rank 0 median "
+          f"{r0['allreduce_s'] * 1e3:.3f} ms — {transport}")
+    print(f"  train step on data 2 x points {P // 2}: first update vs world 1's rel_l2 "
+          + ", ".join(f"{r['train_rel']:.3e}" for r in ranks)
+          + f"; loss {r0['train_loss0']:.6e}; rank 0's second step {r0['train_step_s'] * 1e3:.3f} "
+          f"ms, launches {r0['train_launches']}")
+    for r in ranks:
+        assert r["fastsum_rel"] <= 1e-5 and r["grad_rel"] <= 1e-5, \
+            f"11c: a rank disagrees with world 1: {r['fastsum_rel']:.3e}, {r['grad_rel']:.3e}"
+        assert r["train_rel"] <= 1e-5, f"11c: a rank's update disagrees: {r['train_rel']:.3e}"
+    assert r0["fastsum_launches"]["spread_tiles_dense"] == 1 \
+        and r0["fastsum_launches"]["gather_points"] == 1, r0["fastsum_launches"]
+    for k in KERNELS:
+        entry[k][f"launches_sharded_fastsum_p{P}"] = r0["fastsum_launches"][k]
+        entry[k][f"launches_sharded_train_step_p{P}"] = r0["train_launches"][k]
+    lay = r0["layout"]
+    print(f"11d grid-sharded on {P} slabs (layout {max(r['layout_s'] for r in ranks):.3f} s a "
+          f"rank: n_loc={lay['n_loc']} A0_loc={lay['A0_loc']} NT={lay['NT']} rows={lay['S']}); "
+          f"halo {GRAM_M * 2 + 1} x {2 * GRAM_N}^2 floats a plane a shift "
+          f"({(2 * GRAM_M + 1) * (2 * GRAM_N) ** 2 * 4 / 2**20:.2f} MiB), spectrum all-reduce "
+          f"2 x {GRAM_N}^3 floats ({2 * GRAM_N ** 3 * 4 / 2**20:.0f} MiB)")
+    report_grid(r0["grid"], entry, f"p{P}")
+    for name in r0["grid"]:
+        rels = [rr["grid"][name]["rel"] for rr in ranks]
+        print(f"  {name} (p{P}) on every rank: rel_l2 " + ", ".join(f"{v:.3e}" for v in rels))
+        assert max(rels) <= 2e-4, f"grid-sharded {name} (p{P}): {rels}"
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1537,14 +2068,11 @@ def nvidia_smi_line() -> str:
     return out[0].strip()
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script needs one card",
-              file=sys.stderr)
-        return 2
-    dev = tp.resolve_device(None)
+def single_device_phases(dev) -> tuple:
+    """Phases 0-10e; returns (report, card, peak bytes). What they hold on
+    the card is freed on return, before the ranks of phases 11c-11d share
+    it."""
     n = 1 << N_LOG2
-    t_all = time.perf_counter()
 
     with Phase("0 device"):
         card = nvidia_smi_line()
@@ -2570,6 +3098,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     batched_phases(dev, gen, report, head_pos, pts)
     del head_pos, pts
+    return report, card, max(peak_all, torch.cuda.max_memory_allocated())
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script needs one card",
+              file=sys.stderr)
+        return 2
+    dev = tp.resolve_device(None)
+    t_all = time.perf_counter()
+    report, card, peak_all = single_device_phases(dev)
+    tp.clear_plan_cache()
+    torch.cuda.empty_cache()
+    print(f"held on the card before the sharded phases: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    shard_phases(dev, report)
     peak_all = max(peak_all, torch.cuda.max_memory_allocated())
     print(f"total {time.perf_counter() - t_all:.1f} s; peak memory "
           f"{peak_all / 2**30:.2f} GiB; card {card}")

@@ -1049,3 +1049,78 @@ def test_load_plan_defaults_to_the_card(card, rng, tmp_path, monkeypatch):
     kw = dict(batch_size=1, N=16, m=2, sigma=1.625, window="es")
     assert torch.equal(tp.nfft_pair_planar(x, pos, None, loaded, **kw),
                        tp.nfft_pair_planar(x, pos, None, plan, **kw))
+
+
+def test_sharded_transforms_world_of_one_on_nccl(card, rng, tmp_path):
+    """One NCCL rank: the point-sharded fastsum, adjoint and forward on a
+    stack of one plan against the single-device entry points on its member,
+    launching B1 and B2."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from torch_nfft_tpu_torch import parallel as par
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rdv'}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = par.make_mesh({"data": 1, "points": 1})
+        n, N, m = 1 << 14, 32, 3
+        pos, _ = points(rng, n, 3)
+        x = torch.from_numpy(rng.standard_normal((n, 2)).astype(np.float32)).to(card)
+        coeffs = tp.gaussian_analytic_coeffs(0.3, dim=3, N=N, device=card)
+        plans = par.build_sharded_plans(pos, n_shards=1, N=N, m=m)
+        member = tp.index_plan(plans, 0)
+        before = {k: getattr(contract, k).launches for k in KERNELS}
+        y = par.nfft_fastsum_sharded(x, coeffs, pos, cutoff=m, mesh=mesh,
+                                     source_plans=plans, target_plans=plans)
+        torch.cuda.synchronize()
+        ran = {k: getattr(contract, k).launches - before[k] for k in KERNELS}
+        assert ran["spread_tiles_dense"] >= 1 and ran["gather_points"] >= 1, ran
+        assert _rel(y, tp.nfft_fastsum(x, coeffs, pos, cutoff=m, source_plan=member)) <= 1e-5
+        a = par.nfft_adjoint_sharded(x, pos, bandwidth=N, cutoff=m, mesh=mesh, plans=plans)
+        ref = tp.nfft_adjoint(x, pos, bandwidth=N, cutoff=m, plan=member)
+        assert _rel(torch.view_as_real(a), torch.view_as_real(ref)) <= 1e-5
+        f = par.nfft_forward_sharded(a, pos, cutoff=m, mesh=mesh, plans=plans)
+        ref = tp.nfft_forward(a, pos, cutoff=m, plan=member)
+        assert _rel(torch.view_as_real(f), torch.view_as_real(ref)) <= 1e-5
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("pad", [0, 300])
+def test_local_tile_kernels_match_plain(card, rng, pad):
+    """B1, B2 and B5 at a grid-sharded slab's local tile space (slab 1 of
+    4, so that the local tile 0 is not the global one), the slab's plan
+    padded by ``pad`` empty rows: the local tile ids point every empty row
+    at the tile of the row before it, so each tile's rows stay one run."""
+    from torch_nfft_tpu_torch.parallel import grid_sharded as gs
+
+    pos = rng.random((20000, 3), dtype=np.float32) - 0.5
+    lays = {d: tp.parallel.build_grid_sharded_layout(pos, n_shards=4, N=32, m=3, T=8,
+                                                     device=d) for d in (card, "cpu")}
+    out = {}
+    for d, lay in lays.items():
+        plan = tp.index_plan(lay.plans, 1)
+        plan = tp.pad_plan_rows(plan, plan.S + pad)
+        tid = gs._local_tile_ids(plan, lay.A0_loc, 1)
+        g = torch.Generator().manual_seed(5)
+        x = torch.randn((plan.n, 2), generator=g).to(d)
+        tiles = torch.randn((lay.NT, 2, plan.H, plan.H ** 2), generator=g).to(d)
+        w = torch.randn((lay.NT, 2, plan.H, plan.H ** 2), generator=g).to(d)
+        vals = binned.slot_values(plan, x)
+        kern = (contract.spread_tiles_dense(plan, vals, tid, lay.NT),
+                contract.gather_points(plan, tiles, tid))
+        if d == card:
+            plain = (contract.spread_tiles_dense_plain(plan, vals, tid, lay.NT),
+                     contract.gather_points_plain(plan, tiles, tid))
+            for k, p in zip(kern, plain):
+                assert _rel(k, p) <= 1e-5
+        pl = lay.pos_stack[1].clone().requires_grad_()
+        before = contract.pos_grad.launches
+        (binned.dense_tiles_local(lay.NT, plan, x, pl, tid) * w).sum().backward()
+        if d == card:
+            assert contract.pos_grad.launches == before + 1
+        out[str(d)] = (*kern, pl.grad)
+    for k, c in zip(out[str(card)], out["cpu"]):
+        assert _rel(k.cpu(), c) <= 3e-5

@@ -181,6 +181,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "w, v = tp.eigsh_operator(R, 2, num_iters=12)\n"
         "assert w.shape == (2,) and v.shape == (300, 2)\n"
         "assert tp.accuracy_check(pos, 8, 3, device='cpu') < 1e-2\n"
+        "import os, tempfile, torch.distributed as dist\n"
+        "from torch_nfft_tpu_torch import parallel as par\n"
+        "rdv = os.path.join(tempfile.mkdtemp(), 'rdv')\n"
+        "dist.init_process_group('gloo', init_method='file://' + rdv, rank=0, world_size=1)\n"
+        "ys = par.nfft_adjoint_sharded(x, pos, bandwidth=8, cutoff=2,\n"
+        "                              mesh=par.make_mesh(device_type='cpu'))\n"
+        "dist.destroy_process_group()\n"
+        "assert ys.shape == (1, 8, 8, 8, 1) and bool(ys.isfinite().all())\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'torch_nfft_tpu' or m.startswith('torch_nfft_tpu.'))\n"
         "print('loaded:', bad)\n"

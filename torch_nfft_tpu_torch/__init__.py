@@ -42,12 +42,22 @@ a time. ``suggest_window_parameters`` picks a window for a tolerance;
 ``set_complex_override`` switches the complex pipelines off, and
 ``TORCH_NFFT_TPU_DEBUG=1`` checks the inputs of the entry points.
 
+``parallel`` runs the transforms over ranks of ``torch.distributed``:
+point-sharded and grid-sharded transforms and a sharded training step.
+
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card and without ``device=`` they raise.
 """
 
+from . import parallel
 from ._device import resolve_device
-from .convert import layout_from_numpy, operator_from_numpy, plan_from_numpy, plan_to_numpy
+from .convert import (
+    grid_layout_from_numpy,
+    layout_from_numpy,
+    operator_from_numpy,
+    plan_from_numpy,
+    plan_to_numpy,
+)
 from .models import (
     AbstractMatrix,
     AdjacencyMatrix,
@@ -145,6 +155,7 @@ __all__ = [
     "gaussian_interpolated_coeffs",
     "GaussianKernel",
     "GramMatrix",
+    "grid_layout_from_numpy",
     "index_plan",
     "interpolated_kernel_coeffs",
     "interpolation_grid",
@@ -170,6 +181,7 @@ __all__ = [
     "nfft_pair_planar",
     "operator_from_numpy",
     "pad_plan_rows",
+    "parallel",
     "plan_from_numpy",
     "plan_slot_pos_user",
     "plan_to_numpy",

@@ -9,8 +9,9 @@ fingerprint ``pos_fp``, sorted ``order``, ``row_start`` and ``S_occ``.
 again with ``with_benes_tables``). ``operator_from_numpy`` builds the
 port's ``GaussianKernel``, radial kernels, ``GramMatrix`` or
 ``AdjacencyMatrix`` from the leaves and aux data of the JAX object's
-``tree_flatten``, and ``layout_from_numpy`` a streamed layout with its
-stacked member plans.
+``tree_flatten``, ``layout_from_numpy`` a streamed layout with its
+stacked member plans, and ``grid_layout_from_numpy`` a grid-sharded
+layout with its stacked slab plans.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from .models.radial import InverseMultiquadricKernel, LaplaceKernel, MaternKerne
 from .ops.binned import BinnedPlan
 
 __all__ = ["PLAN_ARRAYS", "PLAN_STATICS", "plan_from_numpy", "plan_to_numpy",
-           "layout_from_numpy", "operator_from_numpy"]
+           "layout_from_numpy", "grid_layout_from_numpy", "operator_from_numpy"]
 
 # array fields and their dtypes
 PLAN_ARRAYS = {
@@ -107,6 +108,26 @@ def layout_from_numpy(pos_stack, counts, plans, N: int, m: int, sigma: float,
         plans = plan_from_numpy(arrays, **statics, device=dev)
     pos_t = torch.as_tensor(np.array(pos_stack, dtype=np.float32), device=dev)
     return StreamedLayout(pos_t, np.asarray(counts), plans, N, m, sigma, window)
+
+
+def grid_layout_from_numpy(plans, pos_stack, point_index, *, n: int, n_shards: int,
+                           dim: int, N: int, m: int, sigma: float, T: int, A0_loc: int,
+                           window: str = "gaussian", device=None):
+    """The port's :class:`~parallel.grid_sharded.GridShardedLayout` from a
+    JAX layout's fields: ``plans`` the stacked slab plans as the
+    ``(arrays, statics)`` pair of :func:`plan_to_numpy` (statics without
+    ``device``), ``pos_stack`` (P, n_loc, dim) and ``point_index``
+    (P, n_loc) as numpy, and the static fields."""
+    from .parallel.grid_sharded import GridShardedLayout
+
+    dev = resolve_device(device)
+    arrays, statics = plans
+    return GridShardedLayout(
+        plans=plan_from_numpy(arrays, **statics, device=dev),
+        pos_stack=torch.as_tensor(np.array(pos_stack, dtype=np.float32), device=dev),
+        point_index=torch.as_tensor(np.array(point_index, dtype=np.int32), device=dev),
+        n=int(n), n_shards=int(n_shards), dim=int(dim), N=int(N), m=int(m),
+        sigma=float(sigma), T=int(T), A0_loc=int(A0_loc), window=str(window))
 
 
 def _leaf(a, dev):

@@ -84,6 +84,8 @@ __all__ = [
     "tiles_to_grid",
     "grid_to_tiles",
     "run_stages",
+    "dense_tiles_local",
+    "points_from_tiles_local",
 ]
 
 
@@ -915,3 +917,76 @@ def gather_binned_slot(plan: BinnedPlan, g: torch.Tensor) -> torch.Tensor:
     Differentiable in ``g`` only."""
     _check_grid(plan, g)
     return _GatherSlot.apply(plan, g.to(torch.float32))
+
+
+# Local tile spaces for the grid-sharded transforms (parallel/grid_sharded.py,
+# the JAX package's ``dense_tiles_local``/``points_from_tiles_local``): the
+# dense-route kernels with the caller's row tile ids and tile count, as
+# autograd Functions whose backwards run the other direction's kernel for
+# the values and B5 for the positions.
+
+
+class _DenseTilesLocal(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, NT, plan, x, pos, tid):
+        vals = slot_values(plan, x.to(torch.float32))
+        ctx.plan, ctx.tid = plan, tid
+        ctx.save_for_backward(vals if ctx.needs_input_grad[3] else None, pos)
+        return spread_tiles_dense(plan, vals, tid, NT)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_bar):
+        plan, tid = ctx.plan, ctx.tid
+        vals, pos = ctx.saved_tensors
+        g_bar = g_bar.contiguous()
+        dx = dpos = None
+        if ctx.needs_input_grad[2]:
+            y = gather_points(plan, g_bar, tid)  # (S, C, K)
+            dx = unslot_values(plan, y.transpose(1, 2).reshape(-1, y.shape[1]))
+        if ctx.needs_input_grad[3]:
+            dpos = _pos_cotangent(plan, g_bar, vals, pos, tid)
+        return None, None, dx, dpos, None
+
+
+class _PointsFromTilesLocal(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, NT, plan, tiles, pos, tid):
+        ctx.plan, ctx.tid, ctx.NT = plan, tid, NT
+        ctx.save_for_backward(tiles if ctx.needs_input_grad[3] else None, pos)
+        y = gather_points(plan, tiles, tid)
+        return unslot_values(plan, y.transpose(1, 2).reshape(-1, y.shape[1]))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, y_bar):
+        plan, tid = ctx.plan, ctx.tid
+        tiles, pos = ctx.saved_tensors
+        w_slot = slot_values(plan, y_bar.to(torch.float32))
+        dt = dpos = None
+        if ctx.needs_input_grad[2]:
+            dt = spread_tiles_dense(plan, w_slot, tid, ctx.NT)
+        if ctx.needs_input_grad[3]:
+            dpos = _pos_cotangent(plan, tiles, w_slot, pos, tid)
+        return None, None, dt, dpos, None
+
+
+def dense_tiles_local(NT: int, plan: BinnedPlan, x: torch.Tensor, pos, tid: torch.Tensor):
+    """x (n, C) -> dense tiles (NT, C, H, H^{dim-1}) of a local tile space:
+    row s accumulates into tile ``tid[s]`` (each tile's rows one run, B1's
+    precondition). Differentiable in x (B2) and, when ``pos`` (n, dim)
+    requires grad, in the positions (B5)."""
+    check_points(plan, x)
+    _check_pos(plan, pos)
+    return _DenseTilesLocal.apply(NT, plan, x, pos, tid)
+
+
+def points_from_tiles_local(NT: int, plan: BinnedPlan, tiles: torch.Tensor, pos,
+                            tid: torch.Tensor):
+    """Dense tiles (NT, C, H, H^{dim-1}) of a local tile space -> (n, C) in
+    user order, row s reading tile ``tid[s]``: the transpose of
+    :func:`dense_tiles_local`. Differentiable in the tiles (B1) and, when
+    ``pos`` requires grad, in the positions (B5)."""
+    _check_values(plan, tiles, "tiles")
+    _check_pos(plan, pos)
+    return _PointsFromTilesLocal.apply(NT, plan, tiles, pos, tid)

@@ -37,16 +37,26 @@ held to it.
 
 Grids are channel-first, (batch_size, C, M, ..., M); the spatial axes are
 the last ``dim`` axes of every array here.
+
+The pruned DFT matrices (:func:`_pruned_mats_np`, :func:`_axis_contract`)
+are the JAX package's: one (L, N) matrix per axis folding the DFT, the crop
+to the centered band and the rolloff into one product. The grid-sharded
+transforms (parallel/) contract a grid slab with a block of rows of such a
+matrix and all-reduce the small N^dim spectrum, which no FFT of the slab
+can do. They are float32 products: the entry points pin TF32 off
+(``_device.pin_fp32``), since one TF32 pass would cost ~1e-3.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 
+import numpy as np
 import torch
 
 from .spectral import apply_phi_hat_inv, centered_crop, centered_embed
-from .window import DEFAULT_SIGMA, DEFAULT_WINDOW, phi_hat_inv_centered
+from .window import DEFAULT_SIGMA, DEFAULT_WINDOW, phi_hat_inv_centered, phi_hat_inv_np
 
 __all__ = ["spectral_adjoint", "spectral_forward", "spectral_adjoint_half",
            "spectral_forward_half", "half_spectrum_to_full", "full_to_half",
@@ -198,3 +208,68 @@ def band_filter_half(dim: int, N: int, device=None):
     inside, mirrored = (k != h).float(), (k != -h).float()  # k in B, -k in B
     return 0.5 * (_outer([inside] * (dim - 1) + [inside[h:]])
                   + _outer([mirrored] * (dim - 1) + [mirrored[h:]]))
+
+
+# ---------------------------------------------------------------------------
+# Pruned DFT matrices
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _pruned_mats_np(N: int, M: int, m: int, sigma: float, sign: int,
+                    off: int = 0, L: int | None = None,
+                    window: str = DEFAULT_WINDOW):
+    """(cos, sin) planes of the pruned DFT matrix, (L, N) float32 numpy:
+
+        D[a, j] = exp(sign 2 pi i (off + a) k / M) phi_hat_inv(k), k = j - N // 2,
+
+    rows a covering the grid cells off + [0, L) of an M-cell axis (the full
+    axis by default). A product with it is the M-point DFT, the crop to the
+    centered band and the rolloff in one step (the JAX package's
+    ``ops/fft.py:_pruned_mats_np``)."""
+    L = M if L is None else L
+    k = np.arange(N, dtype=np.float64) - N // 2
+    a = np.arange(L, dtype=np.float64) + off
+    theta = 2.0 * np.pi * np.outer(a, k) / M
+    phinv = phi_hat_inv_np(N, m, sigma, window)
+    cr = np.cos(theta) * phinv[None, :]
+    ci = np.sin(theta) * sign * phinv[None, :]
+    return cr.astype(np.float32), ci.astype(np.float32)
+
+
+def _cells_spec(dim: int, M: int, cells) -> tuple:
+    """Per-axis (cell offset, cell count); None is every axis whole."""
+    if cells is None:
+        return tuple((0, M) for _ in range(dim))
+    return tuple(cells)
+
+
+def _axis_contract(x: torch.Tensor, mat: torch.Tensor, ax: int) -> torch.Tensor:
+    """Axis ``ax`` of x (length L_in) contracted with mat (L_in, L_out): the
+    result has L_out there, as one matmul of (pre, post, L_in) rows."""
+    return torch.matmul(x.movedim(ax, -1), mat).movedim(-1, ax)
+
+
+def _pruned_mats(N: int, M: int, m: int, sigma: float, sign: int, off: int, L: int,
+                 window: str, device, transpose: bool = False):
+    """:func:`_pruned_mats_np` as float32 tensors on ``device``, (L, N), or
+    (N, L) with ``transpose`` (the forward's)."""
+    cr, ci = _pruned_mats_np(N, M, m, float(sigma), sign, off, L, window)
+    if transpose:
+        cr, ci = cr.T, ci.T
+    return (torch.as_tensor(np.ascontiguousarray(cr), device=device),
+            torch.as_tensor(np.ascontiguousarray(ci), device=device))
+
+
+def _axis_contract_planar(xr, xi, mr, mi, ax: int, real_only: bool = False):
+    """(xr + i xi) contracted along ``ax`` with (mr + i mi); xi may be
+    None; ``real_only`` returns (real plane, None)."""
+    rr = _axis_contract(xr, mr, ax)
+    if xi is not None:
+        rr = rr - _axis_contract(xi, mi, ax)
+    if real_only:
+        return rr, None
+    ri = _axis_contract(xr, mi, ax)
+    if xi is not None:
+        ri = ri + _axis_contract(xi, mr, ax)
+    return rr, ri

@@ -64,7 +64,8 @@ def pad_plan_rows(plan: BinnedPlan, S_target: int) -> BinnedPlan:
 
 
 def stack_plans(plans: list[BinnedPlan]) -> BinnedPlan:
-    """Stack plans of one geometry and row count along a new leading axis."""
+    """Stack plans of one geometry and row count along a new leading axis.
+    The members' Benes tables are dropped: a stack runs the sort route."""
     p0 = plans[0]
     key = lambda p: (p.n, p.dim, p.N, p.m, p.sigma, p.T, p.K, p.window)  # noqa: E731
     for p in plans[1:]:
