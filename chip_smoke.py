@@ -106,6 +106,16 @@ its gradient against world 1 (1e-5), the gloo all-reduce of the 512^3
 grid, the train step on data 2 x points 2 against world 1's first update,
 and the grid-sharded transforms on 4 slabs against the planar transforms.
 Each world has a 120 s process-group timeout and a joined deadline.
+Phase 12 runs the compatibility layer (``torch_compat``) at the Gram
+geometry: its fastsum, adjoint and forward with x requiring grad and
+``GaussianKernel(0.4, dim=3, bandwidth=256, cutoff=4)(pts) @ x`` with a
+backward, each output against the port's own entry point (1e-6, and
+whether the bits agree), x.grad against the port's transposed transform
+(1e-5), with launches and the layer's seconds beside the port's. Phase
+12b runs the five demos of examples_torch/ at the JAX demos' defaults,
+each with its own assertion: the RBF fit, the graph smoothing, the learned
+kernel, the sharded training on four gloo ranks sharing the card, and the
+grid-sharded 3D N = 512 adjoint on one NCCL slab with its peak memory.
 
 Every phase prints its seconds; any failure exits non-zero. The line before
 the last is a JSON object listing the kernels with their times and bounds;
@@ -2060,6 +2070,137 @@ def report_ranks(ranks: list, entry: dict, cards: bool = False) -> None:
         assert max(rels) <= 2e-4, f"grid-sharded {name} (p{P}): {rels}"
 
 
+def compat_phases(dev, report: list) -> None:
+    """Phase 12: the compatibility layer (``torch_compat``) at the Gram
+    geometry (phase 8's 2^22 points, ``GaussianKernel(0.4, dim=3,
+    bandwidth=256, cutoff=4)``, C = 1). Its fastsum, adjoint and forward
+    with x requiring grad, and ``kernel(pts) @ x`` with a backward: each
+    output against the port's own entry point on the same inputs (the same
+    cached plan; 1e-6, and whether the bits agree), x.grad against the
+    port's transposed transform of the same cotangent (1e-5), launches
+    over the forward and backward, and the layer's seconds beside the
+    port's (host clock, median of 3, forward only). Adds the launches to
+    ``report``."""
+    from torch_nfft_tpu_torch import torch_compat as tc
+
+    entry = {r["name"]: r for r in report}
+    n = 1 << GRAM_LOG2
+    with Phase("12 torch_compat at the Gram geometry"):
+        pts = torch.from_numpy(np.random.default_rng(41).random((n, DIM), dtype=np.float32)
+                               * 2 - 1).to(dev)
+        x1 = torch.from_numpy(np.random.default_rng(43).standard_normal((n, 1))
+                              .astype(np.float32)).to(dev)
+        t0 = time.perf_counter()
+        ck = tc.GaussianKernel(GRAM_SIGMA, dim=DIM, bandwidth=GRAM_N, cutoff=GRAM_M)
+        t_cpu = time.perf_counter() - t0
+        pk = tp.GaussianKernel(GRAM_SIGMA, dim=DIM, bandwidth=GRAM_N, cutoff=GRAM_M)
+        G_c, G_p = ck(pts), pk(pts)
+        src, coeffs = G_p.sources, pk.coeffs
+        print(f"compat GaussianKernel coefficients on the CPU in {t_cpu:.3f} s; vs the "
+              f"card's rel_l2={rel_l2(ck.coeffs.to(dev), coeffs):.3e}")
+        spectrum = tp.nfft_adjoint(x1, src, bandwidth=GRAM_N, cutoff=GRAM_M)
+        kw = dict(cutoff=GRAM_M)
+        # name: (input, compat call, port call, port transposed call)
+        calls = {
+            "fastsum": (x1, lambda v: tc.nfft_fastsum(v, coeffs, src, **kw),
+                        lambda v: tp.nfft_fastsum(v, coeffs, src, **kw),
+                        lambda dy: tp.nfft_fastsum(dy, coeffs, src, **kw)),
+            "adjoint": (x1, lambda v: tc.nfft_adjoint(v, src, bandwidth=GRAM_N, **kw),
+                        lambda v: tp.nfft_adjoint(v, src, bandwidth=GRAM_N, **kw),
+                        lambda dy: tp.nfft_forward(dy, src, real_output=True, **kw)),
+            "forward": (spectrum, lambda v: tc.nfft_forward(v, src, **kw),
+                        lambda v: tp.nfft_forward(v, src, **kw),
+                        lambda dy: tp.nfft_adjoint(dy, src, bandwidth=GRAM_N, **kw)),
+            "gram": (x1, lambda v: G_c @ v, lambda v: G_p @ v, lambda dy: G_p.T @ dy),
+        }
+        for name, (xin, compat, port, port_t) in calls.items():
+            xg = xin.clone().requires_grad_()
+            torch.cuda.synchronize()
+            reset_launches()
+            y = compat(xg)
+            (y.abs() ** 2).sum().backward()
+            torch.cuda.synchronize()
+            launches = read_launches()
+            with torch.no_grad():
+                ref = port(xin)
+                bits = torch.equal(y.detach(), ref)
+                rel = rel_l2(torch.view_as_real(y.detach()) if y.is_complex() else y.detach(),
+                             torch.view_as_real(ref) if ref.is_complex() else ref)
+                g_ref = port_t(2 * ref)
+                rel_g = rel_l2(torch.view_as_real(xg.grad) if xg.grad.is_complex() else xg.grad,
+                               torch.view_as_real(g_ref) if g_ref.is_complex() else g_ref)
+                _, t_c = host_median(lambda: compat(xin))
+                _, t_p = host_median(lambda: port(xin))
+            print(f"compat {name}: vs the port's {'bit for bit' if bits else 'not bitwise'}, "
+                  f"rel_l2={rel:.3e}; x.grad vs the port's transposed transform "
+                  f"rel_l2={rel_g:.3e}; compat {t_c * 1e3:.3f} ms, port {t_p * 1e3:.3f} ms "
+                  f"(host clock, median of 3, forward only); launches over the forward and "
+                  f"backward {launches}")
+            assert rel <= 1e-6, f"compat {name} disagrees with the port: {rel:.3e}"
+            assert rel_g <= 1e-5, f"compat {name}'s x.grad disagrees: {rel_g:.3e}"
+            assert launches["spread_tiles_dense"] >= 1 and launches["gather_points"] >= 1 \
+                and launches["pos_grad"] == 0, f"compat {name}: launches {launches}"
+            for k in KERNELS:
+                entry[k][f"launches_compat_{name}"] = launches[k]
+            del xg, y, ref, g_ref
+        del calls, G_c, G_p, ck, pk, src, coeffs, pts, x1, spectrum
+    tp.clear_plan_cache()
+    torch.cuda.empty_cache()
+
+
+def demo_phases(report: list) -> None:
+    """Phase 12b: the five demos of examples_torch/ on the card at the JAX
+    demos' defaults, each with its own assertion: their seconds and
+    launches. ``multichip_training`` runs four gloo ranks that share the
+    card (a check of the multi-process path, no multi-GPU figure; rank 0
+    counts its launches); ``grid_sharded_large`` the N = 512 adjoint on
+    one NCCL slab in this process, with its peak memory against the card's."""
+    from examples_torch import (
+        graph_smoothing,
+        grid_sharded_large,
+        learn_kernel,
+        multichip_training,
+        rbf_interpolation,
+    )
+
+    entry = {r["name"]: r for r in report}
+    demos = {
+        "rbf_interpolation": rbf_interpolation.main,
+        "graph_smoothing": graph_smoothing.main,
+        "learn_kernel": learn_kernel.main,
+        "multichip_training": lambda: multichip_training.main(
+            world=SHARD_P, rank_report=read_launches),
+        "grid_sharded_large": grid_sharded_large.main,
+    }
+    with Phase("12b the five demos at their defaults"):
+        for name, run in demos.items():
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = out.get("report") or read_launches()
+            where = f"rank 0 of {SHARD_P} {out['backend']} ranks" \
+                if name == "multichip_training" else "this process"
+            print(f"demo {name}: {seconds:.3f} s, assertion held; launches ({where}) "
+                  f"{launches}; " + ", ".join(
+                      f"{k}={v:.4g}" for k, v in out.items()
+                      if isinstance(v, float) and k != "seconds"))
+            if name == "grid_sharded_large":
+                total = torch.cuda.get_device_properties(0).total_memory
+                fits = out["peak"] < total
+                print(f"  N=512 (M=1024) on one slab: T={out['T']}, {out['NT']} tiles; "
+                      f"layout {out['layout_s']:.3f} s, adjoint {out['adjoint_s']:.3f} s; peak "
+                      f"memory {out['peak'] / 2**30:.2f} GiB of the card's "
+                      f"{total / 2**30:.2f} GiB: the whole oversampled grid "
+                      f"{'fits' if fits else 'does not fit'} one card")
+                assert launches["spread_tiles_dense"] == 1, launches
+            for k in KERNELS:
+                entry[k][f"launches_demo_{name}"] = launches[k]
+    torch.cuda.empty_cache()
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3114,6 +3255,9 @@ def main() -> int:
     print(f"held on the card before the sharded phases: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     shard_phases(dev, report)
+    peak_all = max(peak_all, torch.cuda.max_memory_allocated())
+    compat_phases(dev, report)
+    demo_phases(report)
     peak_all = max(peak_all, torch.cuda.max_memory_allocated())
     print(f"total {time.perf_counter() - t_all:.1f} s; peak memory "
           f"{peak_all / 2**30:.2f} GiB; card {card}")

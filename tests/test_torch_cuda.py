@@ -1124,3 +1124,76 @@ def test_local_tile_kernels_match_plain(card, rng, pad):
         out[str(d)] = (*kern, pl.grad)
     for k, c in zip(out[str(card)], out["cpu"]):
         assert _rel(k.cpu(), c) <= 3e-5
+
+
+def _launches():
+    return {k: getattr(contract, k).launches for k in KERNELS + ("spread_tiles",)}
+
+
+def test_zero_points_on_the_card(card):
+    """C7 on the card: no points, 2D, N = 8, m = 3. Each entry point on
+    every strategy returns the CPU's zeros (a zero (1, 8, 8) adjoint, empty
+    forward and fastsum) on the card."""
+    pos = np.zeros((0, 2), np.float32)
+    x = np.zeros((0,), np.complex64)
+    spectrum = np.zeros((1, 8, 8), np.complex64)
+    coeffs = tp.gaussian_analytic_coeffs(0.1, dim=2, N=8, device="cpu")
+    for strategy in ("auto", "scatter", "matmul", "binned"):
+        for d in (card, "cpu"):
+            kw = dict(cutoff=3, strategy=strategy, device=d)
+            ys = (tp.nfft_adjoint(x, pos, bandwidth=8, **kw), tp.nfft_forward(spectrum, pos, **kw),
+                  tp.nfft_fastsum(x, coeffs, pos, **kw))
+            if d == card:
+                got = ys
+            else:
+                for g, r in zip(got, ys):
+                    assert g.device == card and g.shape == r.shape and g.dtype == r.dtype
+                    assert torch.equal(g.cpu(), r)
+
+
+def test_zero_columns_on_the_card(card, rng):
+    """C8 on the card: x of shape (300, 0) at 300 3D points. The entry points
+    return the CPU's empty results on the card before any FFT (cuFFT is not
+    asked) or kernel runs."""
+    pos = ((rng.random((300, 3), dtype=np.float32) - 0.5) / 4)
+    x = np.zeros((300, 0), np.float32)
+    spectrum = np.zeros((1, 8, 8, 8, 0), np.complex64)
+    coeffs = tp.gaussian_analytic_coeffs(0.1, dim=3, N=8, device="cpu")
+    for strategy in ("auto", "binned", "matmul"):
+        kw = dict(cutoff=2, strategy=strategy)
+        before = _launches()
+        ys = (tp.nfft_adjoint(x, pos, bandwidth=8, device=card, **kw),
+              tp.nfft_forward(spectrum, pos, device=card, **kw),
+              tp.nfft_fastsum(x, coeffs, pos, device=card, **kw))
+        torch.cuda.synchronize()
+        assert _launches() == before
+        refs = (tp.nfft_adjoint(x, pos, bandwidth=8, device="cpu", **kw),
+                tp.nfft_forward(spectrum, pos, device="cpu", **kw),
+                tp.nfft_fastsum(x, coeffs, pos, device="cpu", **kw))
+        assert [tuple(y.shape) for y in ys] == [(1, 8, 8, 8, 0), (300, 0), (300, 0)]
+        for y, r in zip(ys, refs):
+            assert y.device == card and y.shape == r.shape and y.dtype == r.dtype
+
+
+def test_compat_layer_on_the_card_matches_the_cpu(card, rng):
+    """torch_compat on card tensors: the adjoint and x.grad through it, and a
+    Gram matvec ``@`` with its backward, against the same calls on CPU
+    tensors; the results and gradients stay on the card."""
+    from torch_nfft_tpu_torch import torch_compat as tc
+
+    pos, _ = points(rng, 5000, 3)
+    x = rng.standard_normal((5000, 2)).astype(np.float32)
+    out = {}
+    for d in (card, "cpu"):
+        p = torch.from_numpy(pos).to(d)
+        xa = torch.from_numpy(x).to(d).requires_grad_()
+        y = tc.nfft_adjoint(xa, p, bandwidth=16, cutoff=3)
+        (y.abs() ** 2).sum().backward()
+        xg = torch.from_numpy(x).to(d).requires_grad_()
+        G = tc.GaussianKernel(0.4, dim=3, bandwidth=16, cutoff=3)(p)
+        z = G @ xg
+        (z ** 2).sum().backward()
+        out[str(d)] = (torch.view_as_real(y.detach()), xa.grad, z.detach(), xg.grad)
+    for g, c in zip(out[str(card)], out["cpu"]):
+        assert g.device == card
+        assert _rel(g.cpu(), c) <= 3e-5

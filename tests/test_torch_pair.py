@@ -189,6 +189,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "                              mesh=par.make_mesh(device_type='cpu'))\n"
         "dist.destroy_process_group()\n"
         "assert ys.shape == (1, 8, 8, 8, 1) and bool(ys.isfinite().all())\n"
+        "import torch\n"
+        "from torch_nfft_tpu_torch import torch_compat as tc\n"
+        "xt = torch.from_numpy(x).requires_grad_()\n"
+        "tc.nfft_adjoint(xt, torch.from_numpy(pos), bandwidth=8).abs().sum().backward()\n"
+        "assert xt.grad.shape == (300, 1)\n"
+        "import examples_torch.rbf_interpolation, examples_torch.graph_smoothing\n"
+        "import examples_torch.learn_kernel, examples_torch.multichip_training\n"
+        "import examples_torch.grid_sharded_large\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'torch_nfft_tpu' or m.startswith('torch_nfft_tpu.'))\n"
         "print('loaded:', bad)\n"

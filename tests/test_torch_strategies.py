@@ -224,3 +224,80 @@ def test_gram_matrix_below_and_above_the_plan_threshold(rng, n):
     y = pG.from_slot(pG.apply_slot(pG.to_slot(x)))
     assert pG._plans()[0] is not None
     assert_close(y.numpy(), jG @ x)
+
+
+def _entry_call(pkg, entry, x, pos, *, N, m, strategy, coeffs=None, **kw):
+    """One of the three entry points of ``pkg`` (the JAX package or the
+    port) on values ``x`` (a spectrum for the forward) at ``pos``."""
+    if entry == "adjoint":
+        return pkg.nfft_adjoint(x, pos, bandwidth=N, cutoff=m, strategy=strategy, **kw)
+    if entry == "forward":
+        return pkg.nfft_forward(x, pos, cutoff=m, strategy=strategy, **kw)
+    return pkg.nfft_fastsum(x, coeffs, pos, cutoff=m, strategy=strategy, **kw)
+
+
+def _assert_same_empty_or_zero(got, ref):
+    """The port's result has JAX's shape and dtype, and its values."""
+    ref = np.asarray(ref)
+    assert tuple(got.shape) == ref.shape, (tuple(got.shape), ref.shape)
+    assert got.numpy().dtype == ref.dtype, (got.dtype, ref.dtype)
+    assert np.array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("strategy", ["auto", "scatter", "matmul", "binned"])
+@pytest.mark.parametrize("entry", ["adjoint", "forward", "fastsum"])
+def test_zero_points_match_jax(entry, strategy):
+    """No points at all (n = 0, 2D, N = 8, m = 3): the adjoint is a zero
+    (1, 8, 8) grid, the forward and the fastsum empty (0,) vectors, with
+    JAX's dtypes, on every plan-free strategy. On "binned" JAX raises
+    (a division by the empty plan's size); the port returns the same
+    zeros, a documented superset."""
+    pos = np.zeros((0, 2), np.float32)
+    x = np.zeros((1, 8, 8), np.complex64) if entry == "forward" else np.zeros((0,), np.complex64)
+    coeffs = np.asarray(tn.gaussian_analytic_coeffs(0.1, dim=2, N=8))
+    kw = dict(N=8, m=3, coeffs=coeffs)
+    got = _entry_call(tp, entry, x, pos, strategy=strategy, device="cpu", **kw)
+    if strategy == "binned":
+        with pytest.raises(ZeroDivisionError):
+            _entry_call(tn, entry, x, pos, strategy=strategy, **kw)
+        ref = {"adjoint": np.zeros((1, 8, 8), np.complex64)}.get(
+            entry, np.zeros((0,), np.complex64))
+    else:
+        ref = _entry_call(tn, entry, x, pos, strategy=strategy, **kw)
+    _assert_same_empty_or_zero(got, ref)
+
+
+@pytest.mark.parametrize("strategy", ["auto", "binned", "matmul"])
+@pytest.mark.parametrize("entry", ["adjoint", "forward", "fastsum"])
+def test_zero_columns_match_jax(rng, entry, strategy):
+    """No columns (x of shape (300, 0) at 300 3D points, N = 8, m = 2): JAX
+    returns a (1, 8, 8, 8, 0) complex64 grid, a (300, 0) complex64 forward
+    and a (300, 0) float32 fastsum; so does the port, before any FFT or
+    contraction runs."""
+    pos = (rng.random((300, 3), dtype=np.float32) - 0.5) / 4
+    x = (np.zeros((1, 8, 8, 8, 0), np.complex64) if entry == "forward"
+         else np.zeros((300, 0), np.float32))
+    coeffs = np.asarray(tn.gaussian_analytic_coeffs(0.1, dim=3, N=8))
+    kw = dict(N=8, m=2, strategy=strategy, coeffs=coeffs)
+    ref = _entry_call(tn, entry, x, pos, **kw)
+    _assert_same_empty_or_zero(_entry_call(tp, entry, x, pos, device="cpu", **kw), ref)
+
+
+@pytest.mark.parametrize("strategy", ["auto", "matmul"])
+def test_zero_columns_planar_match_jax(rng, strategy):
+    """The planar adjoint and forward at C = 0 give JAX's empty planes."""
+    pos = (rng.random((300, 3), dtype=np.float32) - 0.5) / 4
+    x = np.zeros((300, 0), np.float32)
+    s = np.zeros((1, 8, 8, 8, 0), np.float32)
+    kw = dict(batch_size=1, m=2, strategy=strategy)
+    for ref, got in (
+            (tn.nfft_adjoint_planar(x, pos, None, N=8, **kw),
+             tp.nfft_adjoint_planar(x, pos, None, N=8, device="cpu", **kw)),
+            (tn.nfft_forward_planar(s, s, pos, None, dim=3, **kw),
+             tp.nfft_forward_planar(s, s, pos, None, dim=3, device="cpu", **kw)),
+            (tn.nfft_forward_planar(s, None, pos, None, dim=3, real_output=True, **kw)[:1],
+             tp.nfft_forward_planar(s, None, pos, None, dim=3, real_output=True, device="cpu",
+                                    **kw)[:1])):
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            _assert_same_empty_or_zero(g, r)

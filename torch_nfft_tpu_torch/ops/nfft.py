@@ -56,6 +56,7 @@ from .planar import (
     nfft_adjoint_planar,
     nfft_fastsum_real,
     nfft_forward_planar,
+    no_columns,
     points_route,
     shape_of,
 )
@@ -164,6 +165,19 @@ def _side(pos, batch, plan, *, strategy, batch_size, N, m, sigma, window, device
                         engine=engine)
 
 
+def _empty(shape, complex_out: bool, allowed: bool, op: str, strategy, device):
+    """``planar.no_columns`` in complex64 or float32; raises where the
+    complex pipelines are off and the call needs them (not ``allowed``)."""
+    if not allowed:
+        raise _no_complex_error(op)
+    return no_columns(shape, strategy, device,
+                      torch.complex64 if complex_out else torch.float32)
+
+
+def _is_complex(a) -> bool:
+    return torch.as_tensor(a).is_complex()
+
+
 def _planes(x: torch.Tensor) -> torch.Tensor:
     """(n, C) complex -> (n, 2C) real: the real and imaginary planes."""
     return torch.cat([x.real, x.imag], dim=1) if x.is_complex() else x
@@ -182,6 +196,10 @@ def nfft_adjoint(x, pos, batch=None, bandwidth=16, cutoff=3, real_output=False, 
     xs = shape_of(x)
     trailing = tuple(xs[1:])
     C = math.prod(trailing)
+    if C == 0:
+        return _empty((batch_size,) + (N,) * shape_of(pos)[1] + trailing, not real_output,
+                      _complex_ok() or (real_output and not _is_complex(x)),
+                      "nfft_adjoint with complex output", strategy, device)
     dev, route = _side(pos, batch, plan, strategy=strategy, batch_size=batch_size, N=N, m=m,
                        sigma=sigma, window=window, device=device, C=C)
     x = _tensor(x, dev)
@@ -217,6 +235,10 @@ def nfft_forward(x, pos, batch=None, cutoff=3, real_output=False, *,
     N = xs[1]
     trailing = tuple(xs[1 + dim:])
     C = math.prod(trailing)
+    if C == 0:
+        return _empty((n,) + trailing, not real_output,
+                      _complex_ok() or (real_output and not _is_complex(x)),
+                      "nfft_forward with complex output", strategy, device)
     dev, route = _side(pos, batch, plan, strategy=strategy, batch_size=batch_size, N=N, m=m,
                        sigma=sigma, window=window, device=device, C=C)
     x = _tensor(x, dev)
@@ -286,6 +308,11 @@ def nfft_fastsum(x, coeffs, sources, targets=None, source_batch=None, target_bat
         raise ValueError(f"x has {xs[0]} rows for {n_src} sources")
     trailing = tuple(xs[1:])
     C = math.prod(trailing)
+    if C == 0:
+        complex_x = _is_complex(x)
+        return _empty((shape_of(targets)[0],) + trailing, complex_x,
+                      _complex_ok() or not (complex_x or coeffs.is_complex()),
+                      "nfft_fastsum with complex inputs", strategy, dev)
     kw = dict(strategy=strategy, batch_size=bs_src, N=N, m=m, sigma=sigma, window=window,
               device=dev, C=C)
     _, src = _side(sources, source_batch, source_plan, **kw)

@@ -66,7 +66,7 @@ from .window import DEFAULT_SIGMA, DEFAULT_WINDOW
 __all__ = ["nfft_adjoint_planar", "nfft_forward_planar", "nfft_pair_planar",
            "nfft_fastsum_real", "pair_stages", "fastsum_spectral_stages",
            "fastsum_stages", "slot_io_ok", "grad_pos", "setup_plan", "shape_of",
-           "check_strategy", "points_route"]
+           "check_strategy", "points_route", "no_columns"]
 
 # the JAX package's largest grid for its pruned DFTs (ops/fft.py:PRUNED_MAX),
 # part of its rule for the slot-layout fastsum (slot_io_ok)
@@ -216,6 +216,14 @@ def points_route(pos, batch, plan, *, strategy, batch_size, N, m, sigma, window,
                        sigma=sigma, window=window, grad=None)
 
 
+def no_columns(shape, strategy, device, dtype=torch.float32) -> torch.Tensor:
+    """The result of a call with no columns (C = 0), as the JAX package
+    returns it: zeros of its shape and dtype on the call's device, with
+    nothing planned, spread, transformed or launched."""
+    check_strategy(strategy)
+    return torch.zeros(shape, dtype=dtype, device=resolve_device(device))
+
+
 def _real(a, dev) -> torch.Tensor:
     return torch.as_tensor(a, device=dev).to(torch.float32)
 
@@ -234,6 +242,9 @@ def nfft_adjoint_planar(x, pos, batch=None, plan=None, *, batch_size: int,
     (batch_size, (N,)*dim, C), y[b, k] = sum_i x_i exp(+2 pi i k.pos_i).
     The spectrum of real samples is conjugate symmetric: the spectral
     stage computes half of it (``rfftn``) and mirrors the rest."""
+    if shape_of(x)[1] == 0:
+        y = no_columns((batch_size,) + (N,) * shape_of(pos)[1] + (0,), strategy, device)
+        return y, y.clone()
     dev, route = points_route(pos, batch, plan, strategy=strategy, batch_size=batch_size,
                               N=N, m=m, sigma=sigma, window=window, device=device,
                               C=shape_of(x)[1])
@@ -254,6 +265,9 @@ def nfft_forward_planar(xr, xi, pos, batch=None, plan=None, *, batch_size: int,
     Hermitian part (``irfftn``), and the result is (yr, None)."""
     N = shape_of(xr)[1]
     C = shape_of(xr)[-1]
+    if C == 0:
+        y = no_columns((shape_of(pos)[0], 0), strategy, device)
+        return (y, None) if real_output else (y, y.clone())
     dev, route = points_route(pos, batch, plan, strategy=strategy, batch_size=batch_size,
                               N=N, m=m, sigma=sigma, window=window, device=device, C=C)
     if route.dim != dim:
@@ -306,6 +320,8 @@ def nfft_pair_planar(x, pos, batch=None, plan=None, *, batch_size: int, N: int,
     x (n, C) real -> (n, C) real, equal to
     ``nfft_forward_planar(*nfft_adjoint_planar(...), real_output=True)[0]``.
     The spectrum travels as a half spectrum (``rfftn`` and ``irfftn``)."""
+    if shape_of(x)[1] == 0:
+        return no_columns((shape_of(pos)[0], 0), strategy, device)
     dev, route = points_route(pos, batch, plan, strategy=strategy, batch_size=batch_size,
                               N=N, m=m, sigma=sigma, window=window, device=device,
                               C=shape_of(x)[1])
@@ -425,6 +441,8 @@ def nfft_fastsum_real(x, coeffs, sources, targets, source_batch=None, target_bat
             f"(M <= {PRUNED_MAX}, tiles that partition the grid, a dense tile array "
             "within the budget for both plans); build binned plans for this "
             "geometry or use the user-order entry point.")
+    if C == 0 and not slot_io:
+        return no_columns((shape_of(targets)[0], 0), strategy, device)
     kw = dict(batch_size=batch_size, N=N, m=m, sigma=sigma, window=window, device=device)
     if slot_io:
         dev, source_plan = setup_plan(sources, source_batch, source_plan, **kw)

@@ -62,8 +62,9 @@ def window_weights_and_indices(pos: torch.Tensor, batch: torch.Tensor, N: int, m
 
 
 def _auto_chunk(n: int, W: int, C: int, itemsize: int, budget_bytes: int = 1 << 29) -> int:
-    """Points per chunk keeping the (chunk, W, C) temporary under budget."""
-    return min(n, max(1, budget_bytes // max(1, W * C * itemsize)))
+    """Points per chunk keeping the (chunk, W, C) temporary under budget;
+    at least 1, also for n = 0 (a step of range())."""
+    return max(1, min(n, budget_bytes // max(1, W * C * itemsize)))
 
 
 def _to_grid(g_flat: torch.Tensor, batch_size: int, dim: int, M: int) -> torch.Tensor:
@@ -103,6 +104,8 @@ def _gather_scatter(g_flat, pos, batch, N, m, sigma, point_chunk, window):
     n, dim = pos.shape
     C = g_flat.shape[1]
     W = (2 * m + 2) ** dim
+    if n == 0:
+        return g_flat.new_zeros((0, C))
     if point_chunk is None:
         point_chunk = _auto_chunk(n, W, C, g_flat.element_size())
     out = []
@@ -145,6 +148,8 @@ def _spread_matmul(x, pos, batch, batch_size, N, m, sigma, window):
     n, dim = pos.shape
     C = x.shape[1]
     M = int(round(sigma * N))
+    if n == 0:
+        return x.new_zeros((batch_size * M**dim, C))
     mats = _onehot_rows(pos, batch, batch_size, N, m, sigma, window)
     rhs = x  # rhs[j, (u_1, ..., u_{dim-1}, c)] = prod_d S_d[j, u_d] x[j, c]
     for d in range(dim - 1, 0, -1):
@@ -157,6 +162,8 @@ def _gather_matmul(g_flat, pos, batch, batch_size, N, m, sigma, window):
     n, dim = pos.shape
     C = g_flat.shape[1]
     M = int(round(sigma * N))
+    if n == 0:
+        return g_flat.new_zeros((0, C))
     mats = _onehot_rows(pos, batch, batch_size, N, m, sigma, window)
     t = torch.matmul(mats[0], g_flat.reshape(batch_size * M, -1))  # (n, M^(dim-1) C)
     for d in range(1, dim):
