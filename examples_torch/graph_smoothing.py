@@ -22,9 +22,9 @@ import torch
 import torch_nfft_tpu_torch as tp
 
 
-def main(n=20000, device=None) -> dict:
-    """Smooth the signal by 10 ``sym`` adjacency matvecs and hold the
-    clusters' separation above 3 times the raw signal's; returns both."""
+def problem(n=20000, device=None) -> tuple:
+    """The graph and its signal: (the ``sym`` adjacency operator, the
+    points, the noisy signal, the cluster labels), the last three numpy."""
     dev = tp.resolve_device(device)
     rng = np.random.default_rng(0)
     dim = 2
@@ -39,6 +39,14 @@ def main(n=20000, device=None) -> dict:
     kernel = tp.GaussianKernel(sigma=0.35, dim=dim, bandwidth=32, cutoff=4,
                                max_euclidean_norm=1.5, device=dev)
     adj = kernel.adjacency_matrix(torch.from_numpy(pos).to(dev), normalization="sym")
+    return adj, pos, signal, labels
+
+
+def main(n=20000, device=None) -> dict:
+    """Smooth the signal by 10 ``sym`` adjacency matvecs and hold the
+    clusters' separation above 3 times the raw signal's; returns both."""
+    dev = tp.resolve_device(device)
+    adj, _, signal, labels = problem(n, dev)
 
     smoothed = torch.from_numpy(signal).to(dev)
     for _ in range(10):

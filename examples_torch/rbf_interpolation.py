@@ -35,9 +35,9 @@ def target(p):
     return np.sin(3.0 * p[:, 0]) * np.cos(2.0 * p[:, 1]) + 0.5 * p[:, 0] * p[:, 1]
 
 
-def main(n_train=20000, n_test=2000, device=None) -> dict:
-    """Fit, predict and hold the held-out RMSE under a quarter of the
-    constant predictor's; returns the readings."""
+def problem(n_train=20000, n_test=2000, device=None) -> tuple:
+    """The data and the kernel: (kernel, train points, test points, noisy
+    training values, exact test values) on the device, the values numpy."""
     dev = tp.resolve_device(device)
     rng = np.random.default_rng(3)
 
@@ -54,6 +54,14 @@ def main(n_train=20000, n_test=2000, device=None) -> dict:
     radius = float(np.abs(pts - pts.mean(0)).max()) * 1.01
     kernel = tp.MaternKernel(0.35, nu=1.5, dim=2, bandwidth=64, cutoff=wp["m"],
                              max_infinity_norm=radius, window=wp["window"], device=dev)
+    return kernel, train, test, y_train, y[n_train:]
+
+
+def main(n_train=20000, n_test=2000, device=None) -> dict:
+    """Fit, predict and hold the held-out RMSE under a quarter of the
+    constant predictor's; returns the readings."""
+    dev = tp.resolve_device(device)
+    kernel, train, test, y_train, y_test = problem(n_train, n_test, dev)
 
     # fit: (G + reg I) z = y_train, CG in slot layout
     G = kernel(train)
@@ -67,8 +75,8 @@ def main(n_train=20000, n_test=2000, device=None) -> dict:
     # (sources = train, targets = test)
     pred = (kernel.gram_matrix(train, test) @ z).cpu().numpy()
 
-    rmse = float(np.sqrt(np.mean((pred - y[n_train:]) ** 2)))
-    base = float(np.sqrt(np.mean((y[n_train:] - y_train.mean()) ** 2)))
+    rmse = float(np.sqrt(np.mean((pred - y_test) ** 2)))
+    base = float(np.sqrt(np.mean((y_test - y_train.mean()) ** 2)))
     print(f"held-out RMSE {rmse:.4f} (constant-predictor baseline {base:.4f})", flush=True)
     assert rmse < 0.25 * base, "interpolation failed to beat the baseline"
     print("OK", flush=True)

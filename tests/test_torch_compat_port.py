@@ -433,3 +433,26 @@ def test_results_lie_on_the_input_device(rng):
     G = tc.GaussianKernel(0.5, dim=2, bandwidth=8)(pos)
     assert G.device.type == "cpu"
     assert G.row_sums().device.type == G.to_dense().device.type == "cpu"
+
+
+def test_kernel_front_end_builds_on_the_points_device(rng):
+    """A kernel front end builds no kernel until it is given points (or its
+    attributes are read), then this package's kernel on the points' device:
+    its coefficients, attributes and Gram matvec are those of the package's
+    own kernel, bit for bit."""
+    from torch_nfft_tpu_torch.models import radial
+
+    kw = dict(sigma=0.7, nu=2.5, dim=2, bandwidth=16, cutoff=4)
+    k = tc.MaternKernel(**kw)
+    assert not k._kernels
+    pos, x = _points(rng, 300, 2), _normal(rng, 300, 2)
+    y = k(pos) @ x
+    assert list(k._kernels) == [torch.device("cpu")]
+    own = radial.MaternKernel(**kw, device="cpu")
+    assert torch.equal(k.coeffs, own.coeffs) and torch.equal(y, own(pos) @ x)
+    assert (k.cutoff, k.factor, k.nu, k.scale_by_norm) == (4, own.factor, 2.5,
+                                                           own.scale_by_norm)
+    fresh = tc.GaussianKernel(0.5, dim=2, bandwidth=8)
+    assert fresh.coeffs.device.type == "cpu" and list(fresh._kernels) == [torch.device("cpu")]
+    with pytest.raises(AttributeError):
+        fresh.nu

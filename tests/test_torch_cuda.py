@@ -1178,7 +1178,10 @@ def test_zero_columns_on_the_card(card, rng):
 def test_compat_layer_on_the_card_matches_the_cpu(card, rng):
     """torch_compat on card tensors: the adjoint and x.grad through it, and a
     Gram matvec ``@`` with its backward, against the same calls on CPU
-    tensors; the results and gradients stay on the card."""
+    tensors; the results and gradients stay on the card. The front end
+    builds its kernel on the points' device: its coefficients are bitwise
+    those of the port's own kernel there, and its matvec agrees with that
+    kernel's within 1e-6 (this plan's spread adds by atomics)."""
     from torch_nfft_tpu_torch import torch_compat as tc
 
     pos, _ = points(rng, 5000, 3)
@@ -1190,9 +1193,12 @@ def test_compat_layer_on_the_card_matches_the_cpu(card, rng):
         y = tc.nfft_adjoint(xa, p, bandwidth=16, cutoff=3)
         (y.abs() ** 2).sum().backward()
         xg = torch.from_numpy(x).to(d).requires_grad_()
-        G = tc.GaussianKernel(0.4, dim=3, bandwidth=16, cutoff=3)(p)
-        z = G @ xg
+        kernel = tc.GaussianKernel(0.4, dim=3, bandwidth=16, cutoff=3)
+        z = kernel(p) @ xg
         (z ** 2).sum().backward()
+        port = tp.GaussianKernel(0.4, dim=3, bandwidth=16, cutoff=3, device=d)
+        assert kernel.coeffs.device == p.device and torch.equal(kernel.coeffs, port.coeffs)
+        assert _rel(z.detach(), port(p) @ xg.detach()) <= 1e-6
         out[str(d)] = (torch.view_as_real(y.detach()), xa.grad, z.detach(), xg.grad)
     for g, c in zip(out[str(card)], out["cpu"]):
         assert g.device == card

@@ -20,9 +20,9 @@ passed to the entry points, which run on it: a card tensor runs the CUDA
 kernels, a CPU tensor the plain PyTorch versions. The JAX package's layer
 copies every tensor to the host and back, because its bridge to JAX goes
 through numpy; that copy is how that bridge works, not part of the
-contract, and there is none here. A kernel's coefficients are computed on
-the CPU when it is built (its ``coeffs`` attribute) and copied once to each
-device its operators run on.
+contract, and there is none here. A kernel front end builds this package's
+kernel, coefficients included, on the device of the point sets it is given,
+so that its operators compute what this package's own operators compute.
 """
 
 from __future__ import annotations
@@ -358,28 +358,31 @@ class AdjacencyMatrix(_TorchMatrix):
 
 
 class _KernelFrontend:
-    """Shared torch front end over one of this package's kernels: the kernel
-    built on the CPU in ``_kernels``, copied once to each device whose point
-    sets it is given, producing :class:`GramMatrix` / :class:`AdjacencyMatrix`."""
+    """Shared torch front end over one of this package's kernels, producing
+    :class:`GramMatrix` / :class:`AdjacencyMatrix`. The kernel is built on
+    the device of the first point set it is given, and once more on each
+    other device it is given points on, its coefficients computed there as
+    this package computes them; its attributes (``coeffs``, ``cutoff``,
+    ``factor``, ...) are those of the first kernel built, and reading one
+    before any point set builds the kernel on the CPU."""
+
+    _ATTRS = ("coeffs", "cutoff", "shift_by_center", "scale_by_norm", "factor", "sigma",
+              "nu", "profile")
 
     def _adopt(self, factory, *args, **kwargs):
-        cpu = factory(*args, **kwargs, device=_CPU)
-        self._kernels = {_CPU: cpu}
-        self._make = lambda dev: factory(*args, **kwargs, device=dev,
-                                         _coeffs=cpu.coeffs.to(dev))
-        self.cutoff = cpu.cutoff
-        self.shift_by_center = cpu.shift_by_center
-        self.scale_by_norm = cpu.scale_by_norm
-        self.factor = cpu.factor
-        self.coeffs = cpu.coeffs
-        for attr in ("sigma", "nu", "profile"):
-            if hasattr(cpu, attr):
-                setattr(self, attr, getattr(cpu, attr))
+        self._build = lambda dev: factory(*args, **kwargs, device=dev)
+        self._kernels = {}
 
     def _kernel_on(self, dev: torch.device):
         if dev not in self._kernels:
-            self._kernels[dev] = self._make(dev)
+            self._kernels[dev] = self._build(dev)
         return self._kernels[dev]
+
+    def __getattr__(self, name):
+        if name not in _KernelFrontend._ATTRS or "_kernels" not in self.__dict__:
+            raise AttributeError(name)
+        first = next(iter(self._kernels.values())) if self._kernels else self._kernel_on(_CPU)
+        return getattr(first, name)
 
     def gram_matrix(self, sources, targets=None, source_batch=None,
                     target_batch=None, /, batch=None):
@@ -393,7 +396,7 @@ class _KernelFrontend:
                                 target_batch, batch=batch)
         out = GramMatrix.__new__(GramMatrix)
         out._adopt(op, kernel.coeffs, sources, targets, source_batch, target_batch, batch,
-                   self.cutoff)
+                   kernel.cutoff)
         return out
 
     def __call__(self, *args, **kwargs):
