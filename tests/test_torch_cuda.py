@@ -21,6 +21,7 @@ calls run the plan-free engines (the "auto" rule).
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -1203,3 +1204,112 @@ def test_compat_layer_on_the_card_matches_the_cpu(card, rng):
     for g, c in zip(out[str(card)], out["cpu"]):
         assert g.device == card
         assert _rel(g.cpu(), c) <= 3e-5
+
+
+# ---------------------------------------------------------------------------
+# The span recorder against the device trace
+# ---------------------------------------------------------------------------
+
+CUSTOM = re.compile(r"\b(spread_kernel|spread_contract_kernel|points_kernel)\b")
+STAGE_OF = {"spread": ("spread kernel", "spread tiles kernel"),
+            "points": ("gather kernel", "pos_grad")}
+
+
+def _int32(v):
+    """A thread's ``threading.get_ident()`` as the profiler's runtime
+    events carry it: cut to a signed 32-bit integer."""
+    return ((v & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+
+
+def _innermost(recorded, s, e):
+    """The span that started last among those around [s, e], and the
+    least distance to its bounds in ns."""
+    inside = [sp for sp in recorded if sp.start_ns <= s and e <= sp.end_ns]
+    inner = max(inside, key=lambda sp: (sp.start_ns, sp.id), default=None)
+    return inner, None if inner is None else min(s - inner.start_ns, inner.end_ns - e)
+
+
+def _custom_launches(prof, recorded):
+    """(kernel, its launch's thread, the innermost span at the launch on
+    that thread, the same on any thread, the launch's least distance to
+    that span's bounds in ns) for every custom kernel of the trace, tied
+    to its host launch by correlation id."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels, runtime = [], {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == cuda:
+            if CUSTOM.search(ev.name()):
+                kernels.append((ev.name(), ev.correlation_id()))
+        elif ev.correlation_id() > 0:
+            runtime[ev.correlation_id()] = (ev.start_ns(), ev.end_ns(), ev.device_resource_id())
+    out = []
+    for name, corr in kernels:
+        s, e, thread = runtime[corr]
+        mine = [sp for sp in recorded if _int32(sp.thread) == thread]
+        strict, _ = _innermost(mine, s, e)
+        anywhere, margin = _innermost(recorded, s, e)
+        out.append((name, thread, strict, anywhere, margin))
+    return out
+
+
+def test_custom_launches_fall_inside_their_stage_spans(card, rng, monkeypatch):
+    """The recorder on, ``torch.profiler`` with CUDA activity alone: one
+    ``nfft_pair_planar`` call (dense route, C = 1), its training step (the
+    backward on autograd's device thread) and one Gram matvec at C = 8
+    (flat route, forced). Every launch of B1, B7, B2 and B5 is tied to
+    its host call by correlation id, and that call lies inside the stage
+    span that launched it, on the launching thread and the same clock."""
+    n, N = 1 << 17, 32
+    pos = torch.from_numpy(points(rng, n, 3)[0]).to(card)
+    plan = tp.build_plan_device(pos, N=N, m=2, sigma=1.625, window="es", device=card)
+    kw = dict(batch_size=1, N=N, m=2, sigma=1.625, window="es", strategy="binned",
+              device=card)
+    x1 = torch.randn((n, 1), device=card)
+    x8 = torch.randn((n, 8), device=card)
+    G = tp.GaussianKernel(0.4, dim=3, bandwidth=N, cutoff=4, device=card)(pos)
+
+    def step():
+        x = x1.clone().requires_grad_(True)
+        p = pos.clone().requires_grad_(True)
+        tp.nfft_pair_planar(x, p, None, plan, **kw).sum().backward()
+
+    def gram_flat():
+        with monkeypatch.context() as mp:
+            mp.setattr(binned, "use_fold", lambda *a, **k: False)
+            return G @ x8
+
+    calls = (lambda: tp.nfft_pair_planar(x1, pos, None, plan, **kw), step, gram_flat)
+    for call in calls:  # build the kernels and the operator's plan
+        call()
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    tp.trace.drain()
+    tp.trace.enable()
+    try:
+        with torch.profiler.profile(activities=[act.CUDA]) as prof:
+            for call in calls:
+                call()
+            torch.cuda.synchronize()
+    finally:
+        tp.trace.disable()
+    recorded = tp.trace.drain()
+    roots = sorted(s.name for s in recorded if s.parent is None)
+    assert roots == ["GramMatrix.apply"] + ["backward"] * 4 + ["nfft_pair_planar"] * 2
+    launches = _custom_launches(prof, recorded)
+    kinds = {"spread": 0, "points": 0}
+    for name, _, strict, anywhere, _ in launches:
+        kind = "points" if "points_kernel" in name else "spread"
+        kinds[kind] += 1
+        assert anywhere is not None, f"{name} launched outside every span"
+        assert anywhere.name in STAGE_OF[kind], (name, anywhere.name)
+    assert kinds == {"spread": 4, "points": 6}
+    span_threads = sorted({_int32(s.thread) for s in recorded})
+    launch_threads = sorted({t for _, t, _, _, _ in launches})
+    same = sum(strict is not None and strict.id == anywhere.id
+               for _, _, strict, anywhere, _ in launches)
+    margins = [m for *_, m in launches]
+    print(f"custom launches {len(launches)}: 100% inside their stage span; on the launching "
+          f"thread {same}; threads of the spans {span_threads}, of the launches "
+          f"{launch_threads}; least margin between a launch and its span's bounds "
+          f"{min(margins) / 1e3:.1f} us")
+    assert same == len(launches)

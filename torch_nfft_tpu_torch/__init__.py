@@ -42,6 +42,9 @@ a time. ``suggest_window_parameters`` picks a window for a tolerance;
 ``set_complex_override`` switches the complex pipelines off, and
 ``TORCH_NFFT_TPU_DEBUG=1`` checks the inputs of the entry points.
 
+``trace`` records spans at the port's stage boundaries, off unless
+``trace.enable()`` turns it on, and reads the kernels' launch counters.
+
 ``parallel`` runs the transforms over ranks of ``torch.distributed``:
 point-sharded and grid-sharded transforms and a sharded training step.
 
@@ -49,7 +52,7 @@ Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card and without ``device=`` they raise.
 """
 
-from . import parallel
+from . import parallel, trace
 from ._device import resolve_device
 from .convert import (
     grid_layout_from_numpy,
@@ -199,4 +202,5 @@ __all__ = [
     "StreamedLayout",
     "suggest_window_parameters",
     "to_slot_order",
+    "trace",
 ]

@@ -22,6 +22,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+from . import trace
+
 __all__ = ["NVCC_FLAGS", "LINK_FLAGS", "BuildResult", "build", "library", "check"]
 
 _PKG = Path(__file__).resolve().parent
@@ -129,6 +131,7 @@ def build() -> BuildResult:
             raise RuntimeError(f"nvcc failed ({codes[bad[0]]}):\n"
                                f"{' '.join(cmds[bad[0]])}\n{log}")
         os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
+        trace.count_build()
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
@@ -137,8 +140,10 @@ def build() -> BuildResult:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    lib = ctypes.CDLL(str(build().path))
+    """The loaded kernel library, built first if needed (span ``kernel
+    library``)."""
+    with trace.span("kernel library"):
+        lib = ctypes.CDLL(str(build().path))
     for name, argtypes in _FUNCTIONS.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

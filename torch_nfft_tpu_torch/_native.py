@@ -26,6 +26,7 @@ from pathlib import Path
 
 import numpy as np
 
+from . import trace
 from ._build import BUILD_DIR, CSRC, output_path
 
 __all__ = ["CXX_FLAGS", "build_native", "native_library", "plan_tables", "benes_route"]
@@ -71,13 +72,15 @@ def build_native() -> tuple[Path, float]:
         raise RuntimeError(f"g++ failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
+    trace.count_build()
     return out, seconds
 
 
 @functools.lru_cache(maxsize=None)
 def native_library() -> ctypes.CDLL:
-    """The loaded host library, built first if needed."""
-    lib = ctypes.CDLL(str(build_native()[0]))
+    """The loaded host library, built first if needed (span ``host library``)."""
+    with trace.span("host library"):
+        lib = ctypes.CDLL(str(build_native()[0]))
     for name, (argtypes, restype) in _FUNCTIONS.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

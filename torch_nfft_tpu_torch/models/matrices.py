@@ -17,6 +17,7 @@ import warnings
 
 import torch
 
+from .. import trace
 from .._device import resolve_device
 from ..ops.binned import build_plan, from_slot_order, to_slot_order
 from ..ops.nfft import _normalize_batch, nfft_fastsum
@@ -150,6 +151,7 @@ class GramMatrix(AbstractMatrix):
                 self._plan_cache = (sp, tp)
         return self._plan_cache
 
+    @trace.spanned("GramMatrix.apply")
     def apply(self, x):
         source_plan, target_plan = self._plans()
         return nfft_fastsum(x, self.coeffs, self.sources, self.targets, self.source_batch,
@@ -172,6 +174,7 @@ class GramMatrix(AbstractMatrix):
         _, tp = self._plans(require=True)
         return from_slot_order(tp, v)
 
+    @trace.spanned("GramMatrix.apply_slot")
     def apply_slot(self, v):
         """The matvec in slot layout: a (C, S_src*K) slot vector of the
         source plan -> (C, S_tgt*K) of the target plan, no permutation
@@ -301,6 +304,7 @@ class AdjacencyMatrix(AbstractMatrix):
             x = self._bcast(self.degrees, x) * x
         return x + y if self.shift == "signless" else x - y
 
+    @trace.spanned("AdjacencyMatrix.apply")
     def apply(self, x):
         x = torch.as_tensor(x, device=self.device).to(torch.float32)
         Dx = self.apply_right_normalization(x)

@@ -46,6 +46,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from .. import trace
 from .._device import resolve_device
 from .._native import plan_tables
 from .benes import apply_benes_, plan_benes_tables
@@ -297,6 +298,7 @@ def _sorted_bins(pos, batch, *, M, m, t, nb, nbins, dim):
     return order, counts
 
 
+@trace.spanned("build_plan_device")
 def build_plan_device(pos, batch=None, *, N: int, m: int, sigma: float = 2.0,
                       batch_size: int | None = None, T: int | None = None,
                       K: int | None = None, window: str = "gaussian",
@@ -472,6 +474,7 @@ def plan_tables_np(pos, batch, M, m, T, nb, K, batch_size, pick_K=None):
     return tables, int(K)
 
 
+@trace.spanned("build_plan")
 def build_plan(pos, batch=None, *, N: int, m: int, sigma: float = 2.0,
                batch_size: int | None = None, T: int | None = None,
                K: int | None = None, window: str = "gaussian",
@@ -747,10 +750,36 @@ def gather_route(plan: BinnedPlan, C: int) -> tuple:
     return gather_flat_stages(plan), _row_ids(plan)
 
 
+class _Mark(torch.autograd.Function):
+    """Identity whose backward calls ``mark`` (a :class:`trace.Deferred`'s
+    ``open`` or ``close``) as the gradient passes."""
+
+    @staticmethod
+    def forward(ctx, v, mark):
+        ctx.mark = mark
+        return v.view_as(v)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.mark()
+        return g, None
+
+
 def run_stages(stages: tuple, v):
-    """Run (name, function) stages in order on v."""
-    for _, fn in stages:
-        v = fn(v)
+    """Run (name, function) stages in order on v, each in a span of its
+    name (:mod:`torch_nfft_tpu_torch.trace`). While the recorder is on and
+    v requires grad, the autograd nodes of each stage's backward run
+    inside spans ``backward`` > name as well: marks after the stage open
+    them, marks before it close them."""
+    for name, fn in stages:
+        marks = None
+        if trace.enabled() and torch.is_grad_enabled() and v.requires_grad:
+            marks = trace.deferred(("backward", name))
+            v = _Mark.apply(v, marks.close)
+        with trace.span(name):
+            v = fn(v)
+        if marks is not None:
+            v = _Mark.apply(v, marks.open)
     return v
 
 
@@ -758,8 +787,10 @@ def _pos_cotangent(plan: BinnedPlan, tiles, w_slot, pos, tile_index) -> torch.Te
     """(n, dim) position cotangent, on ``pos``'s device and in its dtype,
     from the tiles (row s reads ``tiles[tile_index[s]]``) and the
     slot-ordered point weights."""
-    dp = pos_grad(plan, tiles, w_slot, tile_index)  # (S, dim, K)
-    dp = unslot_values(plan, dp.transpose(1, 2).reshape(-1, plan.dim))
+    with trace.span("pos_grad"):
+        dp = pos_grad(plan, tiles, w_slot, tile_index)  # (S, dim, K)
+    with trace.span("unslot_values"):
+        dp = unslot_values(plan, dp.transpose(1, 2).reshape(-1, plan.dim))
     return dp.to(pos)
 
 
@@ -778,6 +809,7 @@ class _Spread(torch.autograd.Function):
 
     @staticmethod
     @torch.autograd.function.once_differentiable
+    @trace.spanned("backward")
     def backward(ctx, g_bar):
         plan = ctx.plan
         vals, pos = ctx.saved_tensors
@@ -805,6 +837,7 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     @torch.autograd.function.once_differentiable
+    @trace.spanned("backward")
     def backward(ctx, y_bar):
         plan = ctx.plan
         g, pos = ctx.saved_tensors
@@ -880,6 +913,7 @@ class _SpreadSlot(torch.autograd.Function):
 
     @staticmethod
     @torch.autograd.function.once_differentiable
+    @trace.spanned("backward")
     def backward(ctx, g_bar):
         return None, _gather_slot(ctx.plan, g_bar)
 
@@ -895,6 +929,7 @@ class _GatherSlot(torch.autograd.Function):
 
     @staticmethod
     @torch.autograd.function.once_differentiable
+    @trace.spanned("backward")
     def backward(ctx, v_bar):
         return None, _spread_slot(ctx.plan, v_bar)
 

@@ -45,6 +45,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .. import trace
 from .._device import resolve_device
 from .binned import build_plan, host_array, run_stages
 from .contract import check_window_width
@@ -183,6 +184,7 @@ def _planes(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x.real, x.imag], dim=1) if x.is_complex() else x
 
 
+@trace.spanned("nfft_adjoint")
 def nfft_adjoint(x, pos, batch=None, bandwidth=16, cutoff=3, real_output=False, *,
                  batch_size=None, N=None, m=None, sigma=DEFAULT_SIGMA,
                  strategy="auto", plan=None, window=DEFAULT_WINDOW, device=None):
@@ -219,6 +221,7 @@ def nfft_adjoint(x, pos, batch=None, bandwidth=16, cutoff=3, real_output=False, 
     return y.real if real_output else y
 
 
+@trace.spanned("nfft_forward")
 def nfft_forward(x, pos, batch=None, cutoff=3, real_output=False, *,
                  batch_size=None, m=None, sigma=DEFAULT_SIGMA, strategy="auto",
                  plan=None, window=DEFAULT_WINDOW, device=None):
@@ -259,6 +262,7 @@ def nfft_forward(x, pos, batch=None, cutoff=3, real_output=False, *,
     return torch.complex(y[:, :C], y[:, C:]).reshape((n,) + trailing)
 
 
+@trace.spanned("nfft_fastsum")
 def nfft_fastsum(x, coeffs, sources, targets=None, source_batch=None, target_batch=None,
                  /, batch=None, cutoff=3, *, batch_size=None, m=None, sigma=DEFAULT_SIGMA,
                  strategy="auto", source_plan=None, target_plan=None,

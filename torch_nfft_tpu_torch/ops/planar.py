@@ -36,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from .._device import resolve_device
 from .binned import (
     BinnedPlan,
@@ -234,6 +235,7 @@ def _tensor(a, dev) -> torch.Tensor:
     return a.to(torch.complex64 if a.is_complex() else torch.float32)
 
 
+@trace.spanned("nfft_adjoint_planar")
 def nfft_adjoint_planar(x, pos, batch=None, plan=None, *, batch_size: int,
                         N: int, m: int, sigma: float = DEFAULT_SIGMA,
                         strategy: str = "auto", window: str = DEFAULT_WINDOW,
@@ -254,6 +256,7 @@ def nfft_adjoint_planar(x, pos, batch=None, plan=None, *, batch_size: int,
     return y.real.contiguous(), y.imag.contiguous()
 
 
+@trace.spanned("nfft_forward_planar")
 def nfft_forward_planar(xr, xi, pos, batch=None, plan=None, *, batch_size: int,
                         dim: int, m: int, sigma: float = DEFAULT_SIGMA,
                         strategy: str = "auto", real_output: bool = False,
@@ -313,6 +316,7 @@ def pair_stages(plan: BinnedPlan, *, N: int, m: int, sigma: float,
             + gather_route(plan, C)[0])
 
 
+@trace.spanned("nfft_pair_planar")
 def nfft_pair_planar(x, pos, batch=None, plan=None, *, batch_size: int, N: int,
                      m: int, sigma: float = DEFAULT_SIGMA, strategy: str = "auto",
                      window: str = DEFAULT_WINDOW, device=None) -> torch.Tensor:
@@ -415,6 +419,7 @@ def slot_io_ok(plan, C: int, batch_size: int) -> bool:
     return tiles * C * plan.H**plan.dim * 4 <= FOLD_BUDGET
 
 
+@trace.spanned("nfft_fastsum_real")
 def nfft_fastsum_real(x, coeffs, sources, targets, source_batch=None, target_batch=None,
                       source_plan=None, target_plan=None, *, batch_size: int, N: int,
                       m: int, sigma: float = DEFAULT_SIGMA, strategy: str = "auto",
