@@ -118,7 +118,14 @@ on four gloo ranks sharing the card, and the grid-sharded 3D N = 512
 adjoint on one NCCL slab with its peak memory. The RBF and graph demos
 must launch B1 and B2, and one matvec of each of their operators, rebuilt
 from the demo's data, is held against the plain one-hot matmul engine
-(1e-5).
+(1e-5). Phase 13 holds the dense route's fold and unfold
+(``csrc/tilefold.cu``) against their plain versions at the Gram and the
+headline geometry (the unfold bit for bit, the fold to rel-L2 1e-5 and bit
+for bit across launches) and times both beside the plain versions and the
+byte bound; phase 10a holds them so at a streamed member's geometry. Every
+phase that counts launches counts theirs too: one fold and one unfold per
+dense-route transform pair or matvec, two folds and three unfolds per
+training step, none on the flat route.
 
 Every phase prints its seconds; any failure exits non-zero. The line before
 the last is a JSON object listing the kernels with their times and bounds;
@@ -135,6 +142,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 
@@ -150,6 +158,7 @@ from torch_nfft_tpu_torch.ops.binned import (
     slot_values,
     unslot_values,
 )
+from torch_nfft_tpu_torch.ops import tilefold
 from torch_nfft_tpu_torch.ops.tilefold import FOLD_BUDGET, tile_array_bytes
 from torch_nfft_tpu_torch.ops.planar import fastsum_stages, pair_stages
 from torch_nfft_tpu_torch.ops.tilefold import row_tile_ids, unfold_grid_to_tiles
@@ -202,6 +211,7 @@ GATHER_CU = "torch_nfft_tpu_torch/csrc/gather.cu"  # its body: csrc/points.cuh
 POS_GRAD_CU = "torch_nfft_tpu_torch/csrc/pos_grad.cu"
 PERMUTE_CU = "torch_nfft_tpu_torch/csrc/permute.cu"
 BITONIC_CU = "torch_nfft_tpu_torch/csrc/bitonic.cu"
+TILEFOLD_CU = "torch_nfft_tpu_torch/csrc/tilefold.cu"
 JAX_BITONIC = "torch_nfft_tpu/ops/pallas/bitonic.py"
 KERNELS = {
     "spread_tiles_dense": (contract, "torch_nfft_tpu/ops/pallas/contract.py:369", CONTRACT_CU),
@@ -220,11 +230,20 @@ KERNELS = {
     "bitonic_local_sort": (bitonic, f"{JAX_BITONIC}:224", BITONIC_CU),
     "bitonic_cross_round": (bitonic, f"{JAX_BITONIC}:285", BITONIC_CU),
     "bitonic_local_merge": (bitonic, f"{JAX_BITONIC}:248", BITONIC_CU),
+    # the dense route's tile movement, XLA code in the JAX package
+    "fold_tiles_to_grid": (tilefold, "none: torch_nfft_tpu/ops/tilefold.py is XLA code",
+                           TILEFOLD_CU),
+    "unfold_grid_to_tiles": (tilefold, "none: torch_nfft_tpu/ops/tilefold.py is XLA code",
+                             TILEFOLD_CU),
 }
 SORT_PATH = ("spread_tiles_dense", "gather_points", "pos_grad")
 BENES_PATH = SORT_PATH + ("expand_rows", "compact_rows", "benes_outer", "benes_local")
 FLAT_PATH = ("spread_tiles", "gather_points", "pos_grad")
 BITONIC = ("bitonic_local_sort", "bitonic_cross_round", "bitonic_local_merge")
+TILE_MOVES = ("fold_tiles_to_grid", "unfold_grid_to_tiles")
+# a dense-route training step: the pair folds and unfolds once; its backward
+# folds the point cotangent and unfolds the grid cotangent and the primal grid
+STEP_MOVES = {"fold_tiles_to_grid": 2, "unfold_grid_to_tiles": 3}
 # the spreads (B1, B7) have two designs (contract.spread_design)
 SPREADS = ("spread_tiles_dense", "spread_tiles")
 # pos.grad of the Benes and the sort route's training steps: held to the
@@ -303,6 +322,14 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {name: getattr(mod, name).launches for name, (mod, _, _) in KERNELS.items()}
+
+
+def matvec_launches(spread: str) -> dict:
+    """Each kernel's launches in one matvec or transform pair: the spread
+    (B1 dense, B7 flat) and B2 once, and on the dense route one fold and
+    one unfold."""
+    ran = (spread, "gather_points") + (TILE_MOVES if spread == "spread_tiles_dense" else ())
+    return {k: int(k in ran) for k in KERNELS}
 
 
 def read_designs() -> dict:
@@ -807,9 +834,9 @@ def gram_phases(dev, gen, report: list) -> torch.Tensor:
             torch.cuda.synchronize()
             launches[C] = read_launches()
             peak = torch.cuda.max_memory_allocated()
-            assert launches[C] == {k: 1 if k in (spread, "gather_points") else 0
-                                   for k in KERNELS}, \
-                f"a C={C} Gram matvec must launch {spread} and gather_points once: {launches[C]}"
+            assert launches[C] == matvec_launches(spread), \
+                f"a C={C} Gram matvec must launch {spread} and gather_points once (and on " \
+                f"the dense route fold and unfold once): {launches[C]}"
             y, t_mv = host_median(lambda: G @ xv)
             assert tuple(y.shape) == (n, C) and y.dtype == torch.float32 \
                 and bool(torch.isfinite(y).all()), "bad Gram output"
@@ -1017,10 +1044,9 @@ def radial_phases(dev, gen, report: list, pts: torch.Tensor) -> None:
             G @ xv
             torch.cuda.synchronize()
             launches[C] = read_launches()
-            assert launches[C] == {k: 1 if k in (spread, "gather_points") else 0
-                                   for k in KERNELS}, \
-                f"a C={C} radial matvec must launch {spread} and gather_points once: " \
-                f"{launches[C]}"
+            assert launches[C] == matvec_launches(spread), \
+                f"a C={C} radial matvec must launch {spread} and gather_points once (and on " \
+                f"the dense route fold and unfold once): {launches[C]}"
             y, t_mv = host_median(lambda: G @ xv)
             assert tuple(y.shape) == (n, C) and bool(torch.isfinite(y).all()), \
                 "bad radial output"
@@ -1352,6 +1378,10 @@ def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
             entry[name]["max_abs_err"] = max(entry[name]["max_abs_err"], mx)
             entry[name]["batched_member"] = {"C": C, "ms": ms, "max_abs_err": mx}
         del vals, tiles
+        # the fold at the adjoint's C columns, the unfold at the forward's 2C
+        for name, C in zip(TILE_MOVES, (BATCH_C, 2 * BATCH_C)):
+            print("at member 0: ", end="")
+            entry[name]["batched_member"] = tile_move_check(name, plan0, C, dev, gen)
         # one member's pass by stage: what nfft_adjoint_planar and
         # nfft_forward_planar run for it
         sk = dict(m=BATCH_M, sigma=2.0, window="gaussian")
@@ -1384,8 +1414,8 @@ def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
                   f"{n / t_pair / 1e6:.3f} M points/s; peak {peaks[chunk] / 2**30:.3f} GiB above "
                   f"the {base / 2**30:.3f} GiB held; launches {ran}")
             per = BATCH_B * (1 if chunk is None else BATCH_C)
-            assert ran == {"spread_tiles_dense": per, "gather_points": per}, \
-                f"the streamed pair launched {ran}, not B1 and B2 {per} times each"
+            assert ran == {k: per for k in ("spread_tiles_dense", "gather_points", *TILE_MOVES)}, \
+                f"the streamed pair launched {ran}, not B1, B2, fold and unfold {per} times each"
         rel_c = rel_l2(zr[1], zr[None])
         print(f"column_chunk=1 vs whole: rel_l2={rel_c:.3e}")
         assert rel_c <= 1e-5, f"column chunks disagree: {rel_c:.3e}"
@@ -1467,7 +1497,8 @@ def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
                   f"of 3); launches {ran}; member 0 at 96 sampled targets vs the exact Gaussian "
                   f"sum in float64: rel_l2={rel:.3e}")
             assert rel <= 1e-3, f"streamed fastsum {label}: {rel:.3e}"
-            assert ran == {"spread_tiles_dense": BATCH_B, "gather_points": BATCH_B}, \
+            assert ran == {k: BATCH_B for k in ("spread_tiles_dense", "gather_points",
+                                                *TILE_MOVES)}, \
                 f"the streamed fastsum launched {ran}"
             if tl is None:
                 for name in KERNELS:
@@ -2073,6 +2104,61 @@ def report_ranks(ranks: list, entry: dict, cards: bool = False) -> None:
         assert max(rels) <= 2e-4, f"grid-sharded {name} (p{P}): {rels}"
 
 
+# phase 13: the dense route's fold and unfold (csrc/tilefold.cu) at the
+# Gram geometry (M = 512, T = 16, H = 25) and the headline's (M = 416, T = 8,
+# H = 13), one column
+TILEFOLD_GEOMETRIES = {"gram": (512, 16, 25), "headline": (416, 8, 13)}
+
+
+def tile_move_check(name: str, plan, C: int, dev, gen) -> dict:
+    """The fold (of C columns of tiles) or the unfold (of a grid of C
+    columns) against its plain version: the unfold bit for bit, the fold to
+    rel-L2 1e-5 (the same float32 terms summed in another order), each bit
+    for bit across two launches, one launch a call; its time by CUDA events
+    (mean of 10) beside the plain version's and the byte bound."""
+    B, dim, M, H = plan.batch_size, plan.dim, plan.M, plan.H
+    NT = B * tilefold.tiles_per_axis(plan) ** dim
+    fold = name == "fold_tiles_to_grid"
+    shape = (NT, C, H, H ** (dim - 1)) if fold else (B, C) + (M,) * dim
+    arg = torch.randn(shape, device=dev, generator=gen)
+    wrapper, plain = getattr(tilefold, name), getattr(tilefold, f"{name}_plain")
+    before = wrapper.launches
+    got, again = wrapper(arg, plan), wrapper(arg, plan)
+    assert wrapper.launches == before + 2, f"{name}: one launch a call"
+    assert torch.equal(got, again), f"{name} differs between two launches"
+    ref = plain(arg, plan)
+    err, mx = rel_l2(got, ref), float((got - ref).abs().max())
+    assert fold or torch.equal(got, ref), f"unfold differs from plain: {err:.3e}"
+    assert err <= 1e-5, f"{name} against plain: rel_l2 {err:.3e}"
+    del got, again, ref
+    ms = time_ms(lambda: wrapper(arg, plan), 10)
+    plain_ms = time_ms(lambda: plain(arg, plan), 10)
+    bound_ms = 4.0 * C * (NT * H**dim + B * M**dim) / PEAK_BYTES_PER_S * 1e3
+    print(f"{name} C={C} (M={M} T={plan.T} H={H}): {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms by bytes, {bound_ms / ms:.1%} of bound); rel_l2 against "
+          f"plain {err:.3e}, max_abs {mx:.3e}", flush=True)
+    return {"C": C, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None, "rel_l2": err, "max_abs_err": mx}
+
+
+def tilefold_phase(dev, report: list) -> None:
+    """Phase 13: the fold and the unfold by :func:`tile_move_check` at the
+    Gram and the headline geometry; the headline's numbers are each
+    kernel's entry in ``report``, the Gram's its ``gram`` sub-entry."""
+    entry = {r["name"]: r for r in report}
+    gen = torch.Generator(device=dev).manual_seed(61)
+    for geo, (M, T, H) in TILEFOLD_GEOMETRIES.items():
+        with Phase(f"13 fold and unfold, {geo} geometry"):
+            plan = types.SimpleNamespace(dim=3, M=M, T=T, H=H, batch_size=1)
+            for name in TILE_MOVES:
+                res = tile_move_check(name, plan, 1, dev, gen)
+                if geo == "headline":
+                    entry[name].update(res)
+                else:
+                    entry[name][geo] = res
+            torch.cuda.empty_cache()
+
+
 def compat_phases(dev, report: list) -> None:
     """Phase 12: the compatibility layer (``torch_compat``) at the Gram
     geometry (phase 8's 2^22 points, ``GaussianKernel(0.4, dim=3,
@@ -2647,6 +2733,8 @@ def single_device_phases(dev) -> tuple:
               f"{designs_pair['spread_tiles_dense']}")
         assert launches_pair["spread_tiles_dense"] > 0 and launches_pair["gather_points"] > 0, \
             f"a kernel was not launched: {launches_pair}"
+        assert all(launches_pair[k] == 4 for k in TILE_MOVES), \
+            f"each dense pair must fold and unfold once: {launches_pair}"
         assert designs_pair["spread_tiles_dense"]["wide"] == 0, \
             "the headline dense pair must run the contraction design"
         assert tuple(z.shape) == (n, 1) and bool(torch.isfinite(z).all()), "bad pair output"
@@ -2677,8 +2765,10 @@ def single_device_phases(dev) -> tuple:
         t_first = time.perf_counter() - t0
         launches_step = read_launches()
         print(f"launches in one training step: {launches_step}")
-        assert launches_step == {name: 2 if name in SORT_PATH else 0 for name in KERNELS}, \
-            f"a sort-route training step must launch each kernel twice: {launches_step}"
+        assert launches_step == {**{k: 2 if k in SORT_PATH else 0 for k in KERNELS},
+                                 **STEP_MOVES}, \
+            f"a sort-route training step must launch B1, B2 and B5 twice, fold twice and " \
+            f"unfold three times: {launches_step}"
         times, (fwd_ms, bwd_ms) = run_steps(plan, xl, pl, w)
         t_step = float(np.median(times))
         print(f"training step s: first {t_first:.4f}, then {[round(t, 4) for t in times]}; "
@@ -2723,6 +2813,8 @@ def single_device_phases(dev) -> tuple:
         print(f"launches on the Benes-route pair path (4 pairs): {launches_bpair}")
         missing = [k for k in BENES_PATH if k != "pos_grad" and launches_bpair[k] == 0]
         assert not missing, f"not launched on the Benes-route pair: {missing}"
+        assert all(launches_bpair[k] == 4 for k in TILE_MOVES), \
+            f"each Benes-route pair must fold and unfold once: {launches_bpair}"
         rel_b = rel_l2(z_b, z)
         print(f"Benes-route pair vs sort-route pair: rel_l2={rel_b:.3e}")
         assert rel_b <= 1e-6, f"the Benes-route pair disagrees: {rel_b:.3e}"
@@ -2739,6 +2831,9 @@ def single_device_phases(dev) -> tuple:
         print(f"launches in one Benes-route training step: {launches_bstep}")
         missing = [k for k in BENES_PATH if launches_bstep[k] == 0]
         assert not missing, f"not launched in the Benes-route training step: {missing}"
+        assert {k: launches_bstep[k] for k in TILE_MOVES} == STEP_MOVES, \
+            f"a Benes-route training step must fold twice and unfold three times: " \
+            f"{launches_bstep}"
         rel_bx = rel_l2(xl.grad, sort_grads[0])
         rel_bp = rel_l2(pl.grad, sort_grads[1])
         times, (bfwd_ms, bbwd_ms) = run_steps(plan_b, xl, pl, w)
@@ -2797,7 +2892,8 @@ def single_device_phases(dev) -> tuple:
             and designs_fpair["spread_tiles"]["contraction"] > 0, \
             f"the C={C_WIDE} flat pair must run the contraction design"
         assert launches_fpair["spread_tiles"] > 0 and launches_fpair["gather_points"] > 0 \
-            and launches_fpair["spread_tiles_dense"] == 0, \
+            and launches_fpair["spread_tiles_dense"] == 0 \
+            and all(launches_fpair[k] == 0 for k in TILE_MOVES), \
             f"the C={C_WIDE} pair did not take the flat route: {launches_fpair}"
         assert tuple(z8.shape) == (n, C_WIDE) and bool(torch.isfinite(z8).all()), "bad pair output"
         worst = 0.0
@@ -2968,6 +3064,17 @@ def single_device_phases(dev) -> tuple:
         # every dense-route kernel), the flat-route step, the sort's entry points
         main_launches = {**launches_bstep, "spread_tiles": launches_fstep["spread_tiles"],
                          **{k: launches_sort[k] for k in BITONIC}}
+
+        def path_launches(name: str) -> dict:
+            return {"launches": main_launches[name],
+                    "launches_pair": launches_pair[name] // 4,
+                    "launches_step": launches_step[name],
+                    "launches_benes_pair": launches_bpair[name] // 4,
+                    "launches_benes_step": launches_bstep[name],
+                    "launches_flat_pair": launches_fpair[name] // 4,
+                    "launches_flat_step": launches_fstep[name],
+                    "launches_sort_pairs": launches_sort[name]}
+
         for name, kern, plain, lib, b_ms, b_by in rows:
             ms = time_ms(kern, 10) if callable(kern) else float(np.mean(kern))
             plain_ms = time_ms(plain, 2)
@@ -2977,17 +3084,14 @@ def single_device_phases(dev) -> tuple:
                   f"{b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of bound)")
             report.append({
                 "name": name, "route": "cuda", "source": KERNELS[name][2],
-                "replaces": KERNELS[name][1], "launches": main_launches[name],
-                "launches_pair": launches_pair[name] // 4,
-                "launches_step": launches_step[name],
-                "launches_benes_pair": launches_bpair[name] // 4,
-                "launches_benes_step": launches_bstep[name],
-                "launches_flat_pair": launches_fpair[name] // 4,
-                "launches_flat_step": launches_fstep[name],
-                "launches_sort_pairs": launches_sort[name],
+                "replaces": KERNELS[name][1], **path_launches(name),
                 "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             })
+        # the fold and the unfold are held and timed in phases 10a and 13
+        report += [{"name": name, "route": "cuda", "source": KERNELS[name][2],
+                    "replaces": KERNELS[name][1], **path_launches(name)}
+                   for name in TILE_MOVES]
         # the ragged passes at C_WIDE columns in the layouts of slot_values
         # and unslot_values, bitwise against their plain versions
         stream_r, rows_r, ext_er, ext_cr, bnd_r = ragged_in[C_WIDE]
@@ -3295,6 +3399,7 @@ def main() -> int:
     dev = tp.resolve_device(None)
     t_all = time.perf_counter()
     report, card, peak_all = single_device_phases(dev)
+    tilefold_phase(dev, report)
     tp.clear_plan_cache()
     torch.cuda.empty_cache()
     print(f"held on the card before the sharded phases: "

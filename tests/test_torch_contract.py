@@ -10,6 +10,8 @@ JAX package holds its own Pallas and XLA engines to
 (tests/test_binned.py:129-133).
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -254,10 +256,40 @@ def test_points_layout_rejects_what_the_kernel_cannot_launch(kw, match):
 
 def test_cpu_route_launches_no_kernel(rng):
     pos, x, jplan, plan = _setup(rng, 2, 16, 1, 1, "es")
-    before = (pcontract.spread_tiles_dense.launches, pcontract.gather_points.launches)
+    wrappers = (pcontract.spread_tiles_dense, pcontract.gather_points,
+                ptilefold.fold_tiles_to_grid, ptilefold.unfold_grid_to_tiles)
+    before = [w.launches for w in wrappers]
     g = pbinned.spread_binned(plan, torch.from_numpy(x))
     pbinned.gather_binned(plan, g)
-    assert (pcontract.spread_tiles_dense.launches, pcontract.gather_points.launches) == before
+    assert [w.launches for w in wrappers] == before
+
+
+_FOLD_PLAN = types.SimpleNamespace(dim=2, M=12, T=4, H=7, batch_size=1)  # nb = 3, NT = 9
+
+
+@pytest.mark.parametrize("case", ["tiles dtype", "tiles shape", "tiles strides",
+                                  "grid dtype", "grid shape", "grid rank"])
+def test_fold_unfold_check_inputs(case):
+    """The wrappers refuse what the kernels do not take, on every device:
+    float32 only, the plan's shapes, contiguous tiles (the unfold reads the
+    grid through its strides, so any grid layout goes)."""
+    tiles, grid = torch.zeros((9, 2, 7, 7)), torch.zeros((1, 2, 12, 12))
+    fold, unfold = ptilefold.fold_tiles_to_grid, ptilefold.unfold_grid_to_tiles
+    fn, arg, match = {
+        "tiles dtype": (fold, tiles.double(), "float32"),
+        "tiles shape": (fold, tiles[:8], r"\(9, C, 7, 7\)"),
+        "tiles strides": (fold, tiles.transpose(2, 3), "contiguous"),
+        "grid dtype": (unfold, grid.double(), "float32"),
+        "grid shape": (unfold, torch.zeros((1, 2, 12, 11)), r"\(B, C\) \+ \(12, 12\)"),
+        "grid rank": (unfold, torch.zeros((2, 12, 12)), r"\(B, C\) \+ \(12, 12\)"),
+    }[case]
+    with pytest.raises(ValueError, match=match):
+        fn(arg, _FOLD_PLAN)
+    # the same arrays, well formed, go through the plain versions, and so
+    # does a transposed grid
+    assert fold(tiles, _FOLD_PLAN).shape == grid.shape
+    assert unfold(grid, _FOLD_PLAN).shape == tiles.shape
+    assert unfold(grid.transpose(2, 3), _FOLD_PLAN).shape == tiles.shape
 
 
 def test_binned_checks_shapes(rng):

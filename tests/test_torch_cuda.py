@@ -13,7 +13,9 @@ atomics). The spread's contraction design sums each output over the points
 in slot order, so two launches, and launches with other chunk and band
 sizes, give the same bits.
 The permutation kernels (ragged rows, Benes network) and the bitonic sort
-move words and agree with their plain versions bit for bit.
+move words and agree with their plain versions bit for bit, as does the
+unfold; the fold sums each cell's terms in a fixed order, so two launches
+give the same bits.
 Gradients on the card agree with the same call on the CPU (the plain
 versions) to rel-L2 3e-5, the bar of the transforms against JAX. Tests
 that mean the kernels pass ``strategy="binned"``: without a plan, small
@@ -22,6 +24,7 @@ calls run the plan-free engines (the "auto" rule).
 
 import dataclasses
 import re
+import types
 
 import numpy as np
 import pytest
@@ -30,7 +33,7 @@ from _torch_port import points
 
 import torch_nfft_tpu_torch as tp
 from torch_nfft_tpu_torch import _build, _native
-from torch_nfft_tpu_torch.ops import benes, binned, bitonic, contract, ragged
+from torch_nfft_tpu_torch.ops import benes, binned, bitonic, contract, ragged, tilefold
 from torch_nfft_tpu_torch.ops.tilefold import row_tile_ids, unfold_grid_to_tiles
 
 KERNELS = ("spread_tiles_dense", "gather_points", "pos_grad")
@@ -398,6 +401,94 @@ def test_training_step_launches_each_kernel_twice(card, rng):
     assert {k: getattr(contract, k).launches - before[k] for k in KERNELS} == dict.fromkeys(
         KERNELS, 2)
     assert x.grad.shape == (n, 1) and p.grad.shape == (n, 3)
+
+
+def test_training_step_folds_twice_and_unfolds_three_times(card, rng):
+    """The pair folds once and unfolds once; its backward folds the point
+    cotangent and unfolds the grid cotangent and the primal grid."""
+    n = 5000
+    pos, _ = points(rng, n, 3)
+    x = torch.from_numpy(rng.standard_normal((n, 1)).astype(np.float32)).to(card)
+    p = torch.from_numpy(pos).to(card).requires_grad_()
+    wrappers = (tilefold.fold_tiles_to_grid, tilefold.unfold_grid_to_tiles)
+    before = [w.launches for w in wrappers]
+    z = tp.nfft_pair_planar(x.requires_grad_(), p, None, batch_size=1, N=16, m=2,
+                            sigma=1.625, window="es", strategy="binned")
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1]
+    (z * torch.randn_like(z)).sum().backward()
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [2, 3]
+
+
+# ---------------------------------------------------------------------------
+# The dense route's fold and unfold (csrc/tilefold.cu) against their plain
+# versions. The unfold copies, so it agrees bit for bit; the fold sums the
+# same float32 terms as the plain fold in another order (rel-L2 1e-5, the
+# file's bar), and in a fixed order, so two launches give the same bits.
+# ---------------------------------------------------------------------------
+
+# (M, T, H) per dim, M % T != 0 in 1D and 3D (3D: the plan of N = 16,
+# sigma = 1.625, m = 2, as in test_fold_unfold_match_jax)
+FOLD_GEOMETRIES = {1: (70, 8, 13), 2: (48, 8, 13), 3: (26, 16, 21)}
+# extended axes that wrap more than once (M = 10, T = 8: 21 cells), and
+# J = ceil(H / T) = 4: more than two terms a cell, the kernel's loop
+FOLD_ODD = [(1, 10, 8, 13), (2, 10, 8, 13), (3, 10, 8, 13), (2, 32, 4, 13), (3, 26, 8, 13)]
+# the benchmark's geometries: Gram (gram3d-n22), headline (pair3d-n24)
+FOLD_FULL = {"gram": (512, 16, 25), "headline": (416, 8, 13)}
+
+
+def _fold_unfold_vs_plain(card, dim, M, T, H, B, C):
+    plan = types.SimpleNamespace(dim=dim, M=M, T=T, H=H, batch_size=B)
+    nb = tilefold.tiles_per_axis(plan)
+    gen = torch.Generator(device=card).manual_seed(dim * 1000 + M * 10 + C)
+    tiles = torch.randn((B * nb**dim, C, H, H ** (dim - 1)), device=card, generator=gen)
+    g = torch.randn((B, C) + (M,) * dim, device=card, generator=gen)
+    fold, unfold = tilefold.fold_tiles_to_grid, tilefold.unfold_grid_to_tiles
+    before = (fold.launches, unfold.launches)
+    got, again, tt = fold(tiles, plan), fold(tiles, plan), unfold(g, plan)
+    assert (fold.launches, unfold.launches) == (before[0] + 2, before[1] + 1)
+    torch.cuda.synchronize()
+    assert got.shape == g.shape and tt.shape == tiles.shape
+    assert torch.equal(got, again)
+    assert _rel(got, tilefold.fold_tiles_to_grid_plain(tiles, plan)) <= 1e-5
+    assert torch.equal(tt, tilefold.unfold_grid_to_tiles_plain(g, plan))
+    # the adjoint identity <fold(t), g> = <t, unfold(g)>, summed in float64
+    lhs = float((got.double() * g.double()).sum())
+    rhs = float((tiles.double() * tt.double()).sum())
+    scale = float(torch.linalg.vector_norm(got.double()) * torch.linalg.vector_norm(g.double()))
+    assert abs(lhs - rhs) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("C", [1, 2, 8])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_fold_unfold_kernels_match_plain(card, dim, B, C):
+    _fold_unfold_vs_plain(card, dim, *FOLD_GEOMETRIES[dim], B, C)
+
+
+@pytest.mark.parametrize("dim,M,T,H", FOLD_ODD)
+def test_fold_unfold_kernels_wrap_and_overlap(card, dim, M, T, H):
+    _fold_unfold_vs_plain(card, dim, M, T, H, 2, 2)
+
+
+@pytest.mark.parametrize("geometry", sorted(FOLD_FULL))
+def test_fold_unfold_kernels_at_benchmark_geometries(card, geometry):
+    _fold_unfold_vs_plain(card, 3, *FOLD_FULL[geometry], 1, 1)
+
+
+@pytest.mark.parametrize("view", ["transposed", "column slice", "expanded batch"])
+def test_unfold_kernel_reads_a_strided_grid(card, view):
+    """The unfold reads the grid through its strides: a view gives the same
+    bits as its contiguous copy, and the batch may differ from the plan's."""
+    plan = types.SimpleNamespace(dim=3, M=26, T=16, H=21, batch_size=1)
+    gen = torch.Generator(device=card).manual_seed(7)
+    g = torch.randn((2, 3, 26, 26, 26), device=card, generator=gen)
+    g = {"transposed": g.transpose(2, 4), "column slice": g[:, 1:],
+         "expanded batch": g[:1, :1].expand(3, 2, 26, 26, 26)}[view]
+    before = tilefold.unfold_grid_to_tiles.launches
+    got = tilefold.unfold_grid_to_tiles(g, plan)
+    assert tilefold.unfold_grid_to_tiles.launches == before + 1
+    assert torch.equal(got, tilefold.unfold_grid_to_tiles_plain(g.contiguous(), plan))
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,7 @@ from _torch_port import points
 
 import torch_nfft_tpu_torch as tp
 from torch_nfft_tpu_torch import _native, trace
-from torch_nfft_tpu_torch.ops import benes, binned, bitonic, contract, ragged
+from torch_nfft_tpu_torch.ops import benes, binned, bitonic, contract, ragged, tilefold
 
 N, M_CUT, SIGMA = 16, 2, 2.0
 PAIR = ["slot_values", "spread kernel", "fold", "rfftn", "irfftn", "unfold",
@@ -285,7 +285,8 @@ WRAPPERS = [(contract, "spread_tiles_dense"), (contract, "spread_tiles"),
             (contract, "gather_points"), (contract, "pos_grad"), (ragged, "expand_rows"),
             (ragged, "compact_rows"), (benes, "benes_outer"), (benes, "benes_local"),
             (bitonic, "bitonic_local_sort"), (bitonic, "bitonic_cross_round"),
-            (bitonic, "bitonic_local_merge")]
+            (bitonic, "bitonic_local_merge"), (tilefold, "fold_tiles_to_grid"),
+            (tilefold, "unfold_grid_to_tiles")]
 
 
 def test_counters_equal_the_wrappers_attributes(monkeypatch):

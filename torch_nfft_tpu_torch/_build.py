@@ -65,6 +65,11 @@ _FUNCTIONS = {
     "tnt_bitonic_cross_round": [_P] * 2 + [_L] + [_I] * 5 + [_P],
     # keys, vals, n, jj, b, device, stream
     "tnt_bitonic_local_merge": [_P] * 2 + [_L] + [_I] * 3 + [_P],
+    # tiles in, grid out, B, C, dim, M, T, H, nb, T's divisor, device, stream
+    "tnt_fold_tiles": [_P] * 2 + [_I] * 7 + [_U, _I, _I, _P],
+    # grid in, tiles out, B, C, dim, M, T, H, nb, the grid's 5 strides,
+    # H's divisor, device, stream
+    "tnt_unfold_grid": [_P] * 2 + [_I] * 7 + [_L] * 5 + [_U, _I, _I, _P],
 }
 
 

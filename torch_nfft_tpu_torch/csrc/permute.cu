@@ -89,18 +89,6 @@ constexpr int kRowThreads = 256;
 // zero-tail words per block of the compaction
 constexpr int kTailWords = 8192;
 
-// j / d for 0 <= j < 2^31 without a division: (mulhi(j, mul) + j) >> shift,
-// with mul = 0 for a power-of-two d (a shift) and otherwise Granlund and
-// Montgomery's round-up multiplier (ops/ragged.py:fast_divisor).
-struct FastDiv {
-  uint32_t mul;
-  int shift;
-  __device__ __forceinline__ int operator()(int j) const {
-    const uint32_t u = static_cast<uint32_t>(j);
-    return static_cast<int>((__umulhi(u, mul) + u) >> shift);
-  }
-};
-
 // Word offset of p past the 16-byte boundary at or below it.
 __device__ __forceinline__ int lead_of(const void* p) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);

@@ -7,12 +7,13 @@
 // thread's other bits. A stage at tile bit d < 5 exchanges across lanes, at
 // a bit inside the register bits within a thread; a stage elsewhere first
 // moves the tile through shared memory into a layout whose register bits
-// cover it (each kernel's relayout). Also the launch and copy helpers the
-// kernels share.
+// cover it (each kernel's relayout). Also the launch, copy and division
+// helpers the kernels share.
 
 #pragma once
 
 #include <cstddef>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace tnt {
@@ -46,6 +47,18 @@ __device__ __forceinline__ int layout_for(int d, int T, bool down) {
   if (lo > T - kLogE) lo = T - kLogE;
   return lo < 5 ? 5 : lo;
 }
+
+// j / d for 0 <= j < 2^31 without a division: (mulhi(j, mul) + j) >> shift,
+// with mul = 0 for a power-of-two d (a shift) and otherwise Granlund and
+// Montgomery's round-up multiplier (ops/ragged.py:fast_divisor).
+struct FastDiv {
+  uint32_t mul;
+  int shift;
+  __device__ __forceinline__ int operator()(int j) const {
+    const uint32_t u = static_cast<uint32_t>(j);
+    return static_cast<int>((__umulhi(u, mul) + u) >> shift);
+  }
+};
 
 // Dynamic shared memory above the default 48 KB needs the kernel's opt-in.
 template <class Kernel>

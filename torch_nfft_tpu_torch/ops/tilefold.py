@@ -20,13 +20,26 @@ nb^dim, tile contents row-major over (C, H_0, ..., H_{dim-1}); the grid is
 channel-first, (batch_size, C, M, ..., M), the layout ``torch.fft`` takes.
 The TPU-only compact active slab is not ported: with a full-grid FFT it
 gives identical results.
+
+``fold_tiles_to_grid`` and ``unfold_grid_to_tiles`` launch one CUDA kernel
+each for CUDA tensors (``csrc/tilefold.cu``: the fold in gather form, each
+cell's terms summed in a fixed order, so repeated calls agree bit for bit;
+the unfold a copy, bit for bit the plain unfold, that reads the grid
+through its strides), or raise; they take the
+plain versions (``*_plain``, chains of PyTorch ops) only for CPU tensors.
+``launches`` on each wrapper counts the kernel launches.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .._build import check, library
+from .contract import _require, _route, _stream
+from .ragged import fast_divisor
+
 __all__ = ["row_tile_ids", "fold_tiles_to_grid", "unfold_grid_to_tiles",
+           "fold_tiles_to_grid_plain", "unfold_grid_to_tiles_plain",
            "tile_array_bytes", "use_fold"]
 
 # the JAX package's default memory budget of the dense tile array (a TPU
@@ -82,8 +95,9 @@ def _fold_axis(a: torch.Tensor, ax: int, T: int, M: int) -> torch.Tensor:
     return ext.narrow(ax, 0, M)
 
 
-def fold_tiles_to_grid(tiles: torch.Tensor, plan) -> torch.Tensor:
-    """(NT, C, H, H^{dim-1}) dense tiles -> (batch_size, C, M^dim) grid."""
+def fold_tiles_to_grid_plain(tiles: torch.Tensor, plan) -> torch.Tensor:
+    """Plain version of :func:`fold_tiles_to_grid`: each axis folded in turn
+    onto an extended axis, then wrapped."""
     dim, T, H, M, batch_size = plan.dim, plan.T, plan.H, plan.M, plan.batch_size
     nb = tiles_per_axis(plan)
     C = tiles.shape[1]
@@ -98,10 +112,9 @@ def fold_tiles_to_grid(tiles: torch.Tensor, plan) -> torch.Tensor:
     return a.contiguous()
 
 
-def unfold_grid_to_tiles(g: torch.Tensor, plan) -> torch.Tensor:
-    """(batch_size, C, M^dim) grid -> (NT, C, H, H^{dim-1}) dense tiles:
-    tile[b, u] = grid[(b*T + u) mod M] on every axis (the transpose of
-    :func:`fold_tiles_to_grid`)."""
+def unfold_grid_to_tiles_plain(g: torch.Tensor, plan) -> torch.Tensor:
+    """Plain version of :func:`unfold_grid_to_tiles`: each axis extended
+    periodically and cut into overlapping tiles in turn."""
     dim, T, H, M = plan.dim, plan.T, plan.H, plan.M
     nb = tiles_per_axis(plan)
     J = -(-H // T)
@@ -116,3 +129,55 @@ def unfold_grid_to_tiles(g: torch.Tensor, plan) -> torch.Tensor:
     # (B, C, nb_0, H_0, nb_1, H_1, ...) -> (B, nb_0, nb_1, ..., C, H_0, ...)
     perm = [0] + [2 + 2 * d for d in range(dim)] + [1] + [3 + 2 * d for d in range(dim)]
     return a.permute(perm).reshape(B * nb**dim, C, H, H ** (dim - 1)).contiguous()
+
+
+def _geometry(plan) -> tuple:
+    """(batch_size, dim, M, T, H, nb) of the plan, the kernels' arguments."""
+    return (plan.batch_size, plan.dim, plan.M, plan.T, plan.H, tiles_per_axis(plan))
+
+
+def fold_tiles_to_grid(tiles: torch.Tensor, plan) -> torch.Tensor:
+    """(NT, C, H, H^{dim-1}) dense tiles -> (batch_size, C, M^dim) grid:
+    grid cell i of an axis sums every tile cell (t, u) with
+    (t*T + u) mod M = i."""
+    B, dim, M, T, H, nb = _geometry(plan)
+    _require(tiles.dtype == torch.float32 and tiles.is_contiguous(),
+             "tiles must be contiguous float32")
+    _require(tiles.ndim == 4 and tiles.shape[0] == B * nb**dim
+             and tuple(tiles.shape[2:]) == (H, H ** (dim - 1)),
+             f"tiles must be ({B * nb**dim}, C, {H}, {H ** (dim - 1)})")
+    if not _route(tiles):
+        return fold_tiles_to_grid_plain(tiles, plan)
+    C = tiles.shape[1]
+    out = torch.empty((B, C) + (M,) * dim, dtype=torch.float32, device=tiles.device)
+    check(library().tnt_fold_tiles(tiles.data_ptr(), out.data_ptr(), B, C, dim, M, T, H,
+                                   nb, *fast_divisor(T), *_stream(tiles)))
+    fold_tiles_to_grid.launches += 1
+    return out
+
+
+fold_tiles_to_grid.launches = 0
+
+
+def unfold_grid_to_tiles(g: torch.Tensor, plan) -> torch.Tensor:
+    """(batch_size, C, M^dim) grid -> (NT, C, H, H^{dim-1}) dense tiles:
+    tile[b, u] = grid[(b*T + u) mod M] on every axis (the transpose of
+    :func:`fold_tiles_to_grid`)."""
+    _, dim, M, T, H, nb = _geometry(plan)
+    _require(g.dtype == torch.float32, "the grid must be float32")
+    _require(g.ndim == 2 + dim and tuple(g.shape[2:]) == (M,) * dim,
+             f"the grid must be (B, C) + {(M,) * dim}")
+    if not _route(g):
+        return unfold_grid_to_tiles_plain(g, plan)
+    B, C = g.shape[:2]
+    out = torch.empty((B * nb**dim, C, H, H ** (dim - 1)), dtype=torch.float32,
+                      device=g.device)
+    # the kernel reads the grid through its strides, so a view needs no copy
+    strides = g.stride() + (0,) * (3 - dim)
+    check(library().tnt_unfold_grid(g.data_ptr(), out.data_ptr(), B, C, dim, M, T, H, nb,
+                                    *strides, *fast_divisor(H), *_stream(g)))
+    unfold_grid_to_tiles.launches += 1
+    return out
+
+
+unfold_grid_to_tiles.launches = 0

@@ -25,8 +25,9 @@ its ``backward``. The spans stay in memory until :func:`drain`.
 
 :func:`counters` reads every kernel wrapper's launch counter
 (``ops/contract.py``, ``ops/ragged.py``, ``ops/benes.py``,
-``ops/bitonic.py``) and ``kernel_builds``, the compiles this process ran
-(``_build.build``, ``_native.build_native``), in one snapshot.
+``ops/bitonic.py``, ``ops/tilefold.py``) and ``kernel_builds``, the
+compiles this process ran (``_build.build``, ``_native.build_native``), in
+one snapshot.
 """
 
 from __future__ import annotations
@@ -203,7 +204,7 @@ def counters() -> dict:
     """One snapshot of the program's counters: each kernel wrapper's
     ``launches`` under its name, a spread's ``launches_by_design`` as
     ``<name>.<design>``, and ``kernel_builds``."""
-    from .ops import benes, bitonic, contract, ragged
+    from .ops import benes, bitonic, contract, ragged, tilefold
 
     out = {}
     for mod, names in ((contract, ("spread_tiles_dense", "spread_tiles", "gather_points",
@@ -211,7 +212,8 @@ def counters() -> dict:
                        (ragged, ("expand_rows", "compact_rows")),
                        (benes, ("benes_outer", "benes_local")),
                        (bitonic, ("bitonic_local_sort", "bitonic_cross_round",
-                                  "bitonic_local_merge"))):
+                                  "bitonic_local_merge")),
+                       (tilefold, ("fold_tiles_to_grid", "unfold_grid_to_tiles"))):
         for name in names:
             fn = getattr(mod, name)
             out[name] = getattr(fn, "launches", 0)
