@@ -235,12 +235,18 @@ KERNELS = {
                            TILEFOLD_CU),
     "unfold_grid_to_tiles": (tilefold, "none: torch_nfft_tpu/ops/tilefold.py is XLA code",
                              TILEFOLD_CU),
+    # a grid slab's tile movement (parallel/grid_sharded.py), XLA code in JAX too
+    "fold_tiles_to_slab": (tilefold, "none: torch_nfft_tpu/parallel/grid_sharded.py is XLA "
+                           "code", TILEFOLD_CU),
+    "unfold_slab_to_tiles": (tilefold, "none: torch_nfft_tpu/parallel/grid_sharded.py is XLA "
+                             "code", TILEFOLD_CU),
 }
 SORT_PATH = ("spread_tiles_dense", "gather_points", "pos_grad")
 BENES_PATH = SORT_PATH + ("expand_rows", "compact_rows", "benes_outer", "benes_local")
 FLAT_PATH = ("spread_tiles", "gather_points", "pos_grad")
 BITONIC = ("bitonic_local_sort", "bitonic_cross_round", "bitonic_local_merge")
 TILE_MOVES = ("fold_tiles_to_grid", "unfold_grid_to_tiles")
+SLAB_MOVES = ("fold_tiles_to_slab", "unfold_slab_to_tiles")
 # a dense-route training step: the pair folds and unfolds once; its backward
 # folds the point cotangent and unfolds the grid cotangent and the primal grid
 STEP_MOVES = {"fold_tiles_to_grid": 2, "unfold_grid_to_tiles": 3}
@@ -2095,8 +2101,9 @@ def report_ranks(ranks: list, entry: dict, cards: bool = False) -> None:
     print(f"11d grid-sharded on {P} slabs (layout {max(r['layout_s'] for r in ranks):.3f} s a "
           f"rank: n_loc={lay['n_loc']} A0_loc={lay['A0_loc']} NT={lay['NT']} rows={lay['S']}); "
           f"halo {GRAM_M * 2 + 1} x {2 * GRAM_N}^2 floats a plane a shift "
-          f"({(2 * GRAM_M + 1) * (2 * GRAM_N) ** 2 * 4 / 2**20:.2f} MiB), spectrum all-reduce "
-          f"2 x {GRAM_N}^3 floats ({2 * GRAM_N ** 3 * 4 / 2**20:.0f} MiB)")
+          f"({(2 * GRAM_M + 1) * (2 * GRAM_N) ** 2 * 4 / 2**20:.2f} MiB), half-spectrum "
+          f"all-reduce {2 * (GRAM_N // 2) + 1} x {GRAM_N} x {GRAM_N // 2 + 1} complex64 "
+          f"({(2 * (GRAM_N // 2) + 1) * GRAM_N * (GRAM_N // 2 + 1) * 8 / 2**20:.0f} MiB)")
     report_grid(r0["grid"], entry, f"p{P}")
     for name in r0["grid"]:
         rels = [rr["grid"][name]["rel"] for rr in ranks]
@@ -2108,6 +2115,9 @@ def report_ranks(ranks: list, entry: dict, cards: bool = False) -> None:
 # Gram geometry (M = 512, T = 16, H = 25) and the headline's (M = 416, T = 8,
 # H = 13), one column
 TILEFOLD_GEOMETRIES = {"gram": (512, 16, 25), "headline": (416, 8, 13)}
+# the slab of grid3d-n26 (3D N = 1024, gaussian m = 4, sigma = 2, four
+# slabs): M = 2048, T = 16, H = 25, 32 axis-0 tiles a slab (M, T, H, nb0)
+SLAB_GEOMETRY = (2048, 16, 25, 32)
 
 
 def tile_move_check(name: str, plan, C: int, dev, gen) -> dict:
@@ -2141,10 +2151,57 @@ def tile_move_check(name: str, plan, C: int, dev, gen) -> dict:
             "library_ms": None, "rel_l2": err, "max_abs_err": mx}
 
 
+def slab_move_check(dev, gen, M: int, T: int, H: int, nb0: int) -> dict:
+    """A grid slab's fold and unfold (one column, 3D) against their plain
+    versions: the fold to rel-L2 1e-5 and bit for bit across two launches,
+    the unfold bit for bit at the first, a middle and the last tile row
+    (the last reads the halo); each timed by CUDA events (mean of 10)
+    beside the byte bound: the tiles and the slab with its E extra rows,
+    each once."""
+    plan = types.SimpleNamespace(dim=3, M=M, T=T, H=H, batch_size=1)
+    nb, E, L0 = M // T, H - T, nb0 * T
+    NT = nb0 * nb * nb
+    bound_ms = 4.0 * (NT * H**3 + (L0 + E) * M * M) / PEAK_BYTES_PER_S * 1e3
+    fold, unfold = tilefold.fold_tiles_to_slab, tilefold.unfold_slab_to_tiles
+    tiles = torch.randn((NT, 1, H, H * H), device=dev, generator=gen)
+    before = fold.launches
+    got, again = fold(tiles, plan, nb0), fold(tiles, plan, nb0)
+    assert fold.launches == before + 2, "slab fold: one launch a call"
+    assert torch.equal(got, again), "the slab fold differs between two launches"
+    del again
+    ref = tilefold.fold_tiles_to_slab_plain(tiles, plan, nb0)
+    err = rel_l2_rows(got.reshape(-1, M), ref.reshape(-1, M), 1 << 16)
+    assert err <= 1e-5, f"slab fold against plain: rel_l2 {err:.3e}"
+    del got, ref
+    fold_ms = time_ms(lambda: fold(tiles, plan, nb0), 10)
+    del tiles
+    torch.cuda.empty_cache()
+    g = torch.randn((1, 1, L0, M, M), device=dev, generator=gen)
+    halo = torch.randn((1, 1, E, M, M), device=dev, generator=gen)
+    before = unfold.launches
+    tt = unfold(g, halo, plan, nb0)
+    assert unfold.launches == before + 1, "slab unfold: one launch a call"
+    for t in (0, nb0 // 2, nb0 - 1):
+        nxt = halo if t == nb0 - 1 else g[:, :, (t + 1) * T:(t + 1) * T + E]
+        ref_t = tilefold.unfold_slab_to_tiles_plain(g[:, :, t * T:(t + 1) * T], nxt, plan, 1)
+        assert torch.equal(tt[t * nb * nb:(t + 1) * nb * nb], ref_t), \
+            f"slab unfold differs from plain at tile row {t}"
+    del tt, ref_t
+    unfold_ms = time_ms(lambda: unfold(g, halo, plan, nb0), 10)
+    print(f"slab fold / unfold (M={M} T={T} H={H}, {nb0} axis-0 tiles): {fold_ms:.3f} / "
+          f"{unfold_ms:.3f} ms, bound {bound_ms:.3f} ms by bytes ({bound_ms / fold_ms:.1%} / "
+          f"{bound_ms / unfold_ms:.1%} of bound); fold rel_l2 against plain {err:.3e}, "
+          f"unfold bit for bit", flush=True)
+    return {"fold_tiles_to_slab": {"ms": fold_ms, "bound_ms": bound_ms, "rel_l2": err},
+            "unfold_slab_to_tiles": {"ms": unfold_ms, "bound_ms": bound_ms, "rel_l2": 0.0}}
+
+
 def tilefold_phase(dev, report: list) -> None:
     """Phase 13: the fold and the unfold by :func:`tile_move_check` at the
     Gram and the headline geometry; the headline's numbers are each
-    kernel's entry in ``report``, the Gram's its ``gram`` sub-entry."""
+    kernel's entry in ``report``, the Gram's its ``gram`` sub-entry. Then
+    the slab fold and unfold at the slab of ``grid3d-n26``
+    (:func:`slab_move_check`)."""
     entry = {r["name"]: r for r in report}
     gen = torch.Generator(device=dev).manual_seed(61)
     for geo, (M, T, H) in TILEFOLD_GEOMETRIES.items():
@@ -2157,6 +2214,10 @@ def tilefold_phase(dev, report: list) -> None:
                 else:
                     entry[name][geo] = res
             torch.cuda.empty_cache()
+    with Phase("13b slab fold and unfold, 3D N = 1024 on four slabs"):
+        for name, res in slab_move_check(dev, gen, *SLAB_GEOMETRY).items():
+            entry[name].update(res)
+        torch.cuda.empty_cache()
 
 
 def compat_phases(dev, report: list) -> None:
@@ -3088,10 +3149,11 @@ def single_device_phases(dev) -> tuple:
                 "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             })
-        # the fold and the unfold are held and timed in phases 10a and 13
+        # the fold and the unfold are held and timed in phases 10a and 13,
+        # the slab's in 13b
         report += [{"name": name, "route": "cuda", "source": KERNELS[name][2],
                     "replaces": KERNELS[name][1], **path_launches(name)}
-                   for name in TILE_MOVES]
+                   for name in TILE_MOVES + SLAB_MOVES]
         # the ragged passes at C_WIDE columns in the layouts of slot_values
         # and unslot_values, bitwise against their plain versions
         stream_r, rows_r, ext_er, ext_cr, bnd_r = ragged_in[C_WIDE]

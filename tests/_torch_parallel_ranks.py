@@ -354,4 +354,20 @@ def grid_sharded(inp: dict) -> dict:
     return out
 
 
-JOBS = {"point_sharded": point_sharded, "grid_sharded": grid_sharded}
+def grid_pair(inp: dict) -> dict:
+    """The grid-sharded pair: the adjoint, then the real forward, of each
+    case's values on the rank's slab of the world."""
+    from torch_nfft_tpu_torch import parallel as par
+
+    P = dist.get_world_size()
+    mesh = par.make_mesh({"grid": P}, device_type="cpu")
+    out = {}
+    for key, c in inp.items():
+        lay = par.build_grid_sharded_layout(c["pos"], n_shards=P, N=c["N"], m=c["m"],
+                                            device="cpu")
+        yr, yi = par.nfft_adjoint_grid_sharded(torch.as_tensor(c["x"]), lay, mesh)
+        out[key] = _np(par.nfft_forward_grid_sharded(yr, yi, lay, mesh, real_output=True)[0])
+    return out
+
+
+JOBS = {"point_sharded": point_sharded, "grid_sharded": grid_sharded, "grid_pair": grid_pair}

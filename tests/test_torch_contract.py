@@ -122,6 +122,41 @@ def test_fold_unfold_match_jax(rng, dim, N, m, sigma):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+# (dim, M, T, H, slabs): the grid-sharded layouts' geometries (M % T == 0,
+# H - T <= T), one and several tile rows a slab
+SLAB_CASES = [(2, 32, 8, 13, 2), (2, 64, 16, 25, 4), (3, 16, 4, 7, 2), (3, 32, 8, 13, 4),
+              (3, 64, 16, 25, 2)]
+
+
+@pytest.mark.parametrize("dim,M,T,H,P", SLAB_CASES)
+def test_slab_fold_unfold_plain_match_the_whole_grid(dim, M, T, H, P):
+    """A grid slab's plain fold and unfold against the whole grid's plain
+    fold cut into P slabs: a slab's fold plus the spill of the slab before
+    it is that slab of the whole fold, and its unfold from its rows and the
+    next slab's first E rows (the halo) is its tiles of the whole unfold."""
+    plan = types.SimpleNamespace(dim=dim, M=M, T=T, H=H, batch_size=1)
+    nb, C, E = M // T, 2, H - T
+    nb0 = nb // P
+    L0 = nb0 * T
+    gen = torch.Generator().manual_seed(100 * dim + M + P)
+    tiles = torch.randn((nb**dim, C, H, H ** (dim - 1)), generator=gen)
+    whole = ptilefold.fold_tiles_to_grid_plain(tiles, plan)
+    per = tiles.reshape((P, -1) + tiles.shape[1:])
+    ext = [ptilefold.fold_tiles_to_slab(per[p].contiguous(), plan, nb0) for p in range(P)]
+    for p in range(P):
+        assert ext[p].shape == (1, C, L0 + E) + (M,) * (dim - 1)
+        slab = ext[p][:, :, :L0].clone()
+        slab[:, :, :E] += ext[(p - 1) % P][:, :, L0:]
+        torch.testing.assert_close(slab, whole[:, :, p * L0:(p + 1) * L0], **TOL)
+    g = torch.randn((1, C) + (M,) * dim, generator=gen)
+    want = ptilefold.unfold_grid_to_tiles_plain(g, plan).reshape(per.shape)
+    for p in range(P):
+        nxt = (p + 1) % P * L0
+        got = ptilefold.unfold_slab_to_tiles(g[:, :, p * L0:(p + 1) * L0],
+                                             g[:, :, nxt:nxt + E], plan, nb0)
+        assert torch.equal(got, want[p])
+
+
 @pytest.mark.parametrize("dim,N,B,C", [(1, 16, 1, 1), (2, 16, 2, 2), (3, 8, 2, 3)])
 def test_binned_spread_gather_match_jax(rng, dim, N, B, C):
     pos, x, jplan, plan = _setup(rng, dim, N, B, C, "es")

@@ -492,6 +492,125 @@ def test_unfold_kernel_reads_a_strided_grid(card, view):
 
 
 # ---------------------------------------------------------------------------
+# A grid slab's fold and unfold (csrc/tilefold.cu's slab kernels) against
+# their plain versions: axes 1.. wrapped, axis 0 folded onto its E rows past
+# the slab and unfolded from the halo. The unfold copies (bit for bit), the
+# fold sums in a fixed order (rel-L2 1e-5, two launches bit for bit).
+# ---------------------------------------------------------------------------
+
+# (dim, M, T, H, nb0): layouts' geometries (M % T == 0, E <= T), one slab
+# tile row, and axes 1.. that wrap more than once (the fold's general loop)
+SLAB_GEOMETRIES = [(2, 64, 16, 25, 2), (3, 32, 8, 15, 1), (3, 64, 16, 25, 2),
+                   (3, 10, 8, 13, 2), (2, 26, 8, 13, 3)]
+# the slab of grid3d-n26: 3D N = 1024, m = 4, sigma = 2, four slabs
+SLAB_N1024 = (2048, 16, 25, 32)
+
+
+def _slab_vs_plain(card, dim, M, T, H, nb0, C, view=False):
+    plan = types.SimpleNamespace(dim=dim, M=M, T=T, H=H, batch_size=1)
+    nb, E, L0 = tilefold.tiles_per_axis(plan), H - T, nb0 * T
+    gen = torch.Generator(device=card).manual_seed(dim * 1000 + M * 10 + C)
+    tiles = torch.randn((nb0 * nb ** (dim - 1), C, H, H ** (dim - 1)), device=card,
+                        generator=gen)
+    rest = (M,) * (dim - 1)
+    g = torch.randn((1, C + int(view), L0) + rest, device=card, generator=gen)
+    g = g[:, 1:] if view else g
+    halo = torch.randn((1, C, E) + rest, device=card, generator=gen)
+    fold, unfold = tilefold.fold_tiles_to_slab, tilefold.unfold_slab_to_tiles
+    before = (fold.launches, unfold.launches)
+    got, again, tt = fold(tiles, plan, nb0), fold(tiles, plan, nb0), unfold(g, halo, plan, nb0)
+    assert (fold.launches, unfold.launches) == (before[0] + 2, before[1] + 1)
+    torch.cuda.synchronize()
+    assert got.shape == (1, C, L0 + E) + rest and tt.shape == tiles.shape
+    assert torch.equal(got, again)
+    assert _rel(got, tilefold.fold_tiles_to_slab_plain(tiles, plan, nb0)) <= 1e-5
+    assert torch.equal(tt, tilefold.unfold_slab_to_tiles_plain(g, halo, plan, nb0))
+    # the adjoint identity <fold(t), [g; halo]> = <t, unfold(g, halo)>
+    ext = torch.cat([g, halo], dim=2).double()
+    lhs, rhs = float((got.double() * ext).sum()), float((tiles.double() * tt.double()).sum())
+    scale = float(torch.linalg.vector_norm(got.double()) * torch.linalg.vector_norm(ext))
+    assert abs(lhs - rhs) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("C", [1, 2])
+@pytest.mark.parametrize("dim,M,T,H,nb0", SLAB_GEOMETRIES)
+def test_slab_fold_unfold_kernels_match_plain(card, dim, M, T, H, nb0, C):
+    _slab_vs_plain(card, dim, M, T, H, nb0, C)
+
+
+def test_slab_unfold_reads_a_strided_slab(card):
+    """The slab unfold reads a column slice of a slab through its strides."""
+    _slab_vs_plain(card, 3, 32, 8, 15, 2, 2, view=True)
+
+
+def test_slab_fold_unfold_at_the_n1024_slab(card):
+    """The slab kernels at grid3d-n26's slab (32.8 GB of tiles): the fold
+    against its plain version to rel-L2 1e-5, in float64 a block at a
+    time; the unfold bit for bit at the first, a middle and the last tile
+    row (the last reads the halo)."""
+    M, T, H, nb0 = SLAB_N1024
+    plan = types.SimpleNamespace(dim=3, M=M, T=T, H=H, batch_size=1)
+    nb, E, L0 = M // T, H - T, nb0 * T
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=card).manual_seed(1024)
+    tiles = torch.randn((nb0 * nb * nb, 1, H, H * H), device=card, generator=gen)
+    got = tilefold.fold_tiles_to_slab(tiles, plan, nb0)
+    ref = tilefold.fold_tiles_to_slab_plain(tiles, plan, nb0)
+    del tiles
+    num = den = 0.0
+    for a, b in zip(got.reshape(-1, M).split(1 << 15), ref.reshape(-1, M).split(1 << 15)):
+        num += float(torch.linalg.vector_norm((a - b).double())) ** 2
+        den += float(torch.linalg.vector_norm(b.double())) ** 2
+    assert (num / den) ** 0.5 <= 1e-5
+    del got, ref
+    torch.cuda.empty_cache()
+    g = torch.randn((1, 1, L0, M, M), device=card, generator=gen)
+    halo = torch.randn((1, 1, E, M, M), device=card, generator=gen)
+    tt = tilefold.unfold_slab_to_tiles(g, halo, plan, nb0)
+    for t in (0, nb0 // 2, nb0 - 1):
+        nxt = halo if t == nb0 - 1 else g[:, :, (t + 1) * T:(t + 1) * T + E]
+        want = tilefold.unfold_slab_to_tiles_plain(g[:, :, t * T:(t + 1) * T], nxt, plan, 1)
+        assert torch.equal(tt[t * nb * nb:(t + 1) * nb * nb], want), t
+    del tt, g, halo
+    torch.cuda.empty_cache()
+
+
+def test_grid_sharded_pair_world_of_one_on_nccl(card, rng, tmp_path):
+    """The grid-sharded adjoint and real forward on one NCCL slab (the ring
+    shift sends to itself) against the single-device planar pair on the
+    card: one slab fold and one slab unfold a pair, no dense-route fold."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from torch_nfft_tpu_torch import parallel as par
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rdv'}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = par.make_mesh({"grid": 1})
+        n, N, m = 1 << 14, 32, 4
+        pos, _ = points(rng, n, 3)
+        x = torch.from_numpy(rng.standard_normal((n, 1)).astype(np.float32)).to(card)
+        lay = par.build_grid_sharded_layout(pos, n_shards=1, N=N, m=m, T=16)
+        moves = (tilefold.fold_tiles_to_slab, tilefold.unfold_slab_to_tiles,
+                 tilefold.fold_tiles_to_grid, tilefold.unfold_grid_to_tiles)
+        before = [w.launches for w in moves]
+        yr, yi = par.nfft_adjoint_grid_sharded(x, lay, mesh)
+        z, _ = par.nfft_forward_grid_sharded(yr, yi, lay, mesh, real_output=True)
+        torch.cuda.synchronize()
+        assert [w.launches - b for w, b in zip(moves, before)] == [1, 1, 0, 0]
+        p = torch.from_numpy(pos).to(card)
+        rr, ri = tp.nfft_adjoint_planar(x, p, None, batch_size=1, N=N, m=m, strategy="binned")
+        assert _rel(torch.stack([yr, yi]), torch.stack([rr, ri])) <= 1e-5
+        ref, _ = tp.nfft_forward_planar(rr, ri, p, None, batch_size=1, dim=3, m=m,
+                                        real_output=True, strategy="binned")
+        assert _rel(z, ref) <= 1e-5
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 # The permutation kernels: ragged row passes and the Benes network. They move
 # 32-bit words, so kernel and plain version agree bit for bit.
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ from _torch_port import points
 import torch_nfft_tpu_torch as tp
 from torch_nfft_tpu_torch import _native, trace
 from torch_nfft_tpu_torch.ops import benes, binned, bitonic, contract, ragged, tilefold
+from torch_nfft_tpu_torch.parallel import _comm
 
 N, M_CUT, SIGMA = 16, 2, 2.0
 PAIR = ["slot_values", "spread kernel", "fold", "rfftn", "irfftn", "unfold",
@@ -286,7 +287,8 @@ WRAPPERS = [(contract, "spread_tiles_dense"), (contract, "spread_tiles"),
             (ragged, "compact_rows"), (benes, "benes_outer"), (benes, "benes_local"),
             (bitonic, "bitonic_local_sort"), (bitonic, "bitonic_cross_round"),
             (bitonic, "bitonic_local_merge"), (tilefold, "fold_tiles_to_grid"),
-            (tilefold, "unfold_grid_to_tiles")]
+            (tilefold, "unfold_grid_to_tiles"), (tilefold, "fold_tiles_to_slab"),
+            (tilefold, "unfold_slab_to_tiles")]
 
 
 def test_counters_equal_the_wrappers_attributes(monkeypatch):
@@ -295,8 +297,11 @@ def test_counters_equal_the_wrappers_attributes(monkeypatch):
         monkeypatch.setattr(fn, "launches", 10 + k)
         if hasattr(fn, "launches_by_design"):
             monkeypatch.setattr(fn, "launches_by_design", {"contraction": k, "wide": 2 * k})
+    monkeypatch.setattr(_comm, "sent_bytes", {"all_reduce": 7, "all_gather": 8,
+                                              "ring_shift": 9})
     got = trace.counters()
-    want = {"kernel_builds": trace._REC.builds}
+    want = {"kernel_builds": trace._REC.builds, "sent_bytes.all_reduce": 7,
+            "sent_bytes.all_gather": 8, "sent_bytes.ring_shift": 9}
     for mod, name in WRAPPERS:
         fn = getattr(mod, name)
         want[name] = fn.launches

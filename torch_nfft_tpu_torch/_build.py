@@ -70,6 +70,12 @@ _FUNCTIONS = {
     # grid in, tiles out, B, C, dim, M, T, H, nb, the grid's 5 strides,
     # H's divisor, device, stream
     "tnt_unfold_grid": [_P] * 2 + [_I] * 7 + [_L] * 5 + [_U, _I, _I, _P],
+    # tiles in, slab out, C, dim, M, T, H, nb, axis 0's tiles, T's divisor,
+    # device, stream
+    "tnt_fold_slab": [_P] * 2 + [_I] * 7 + [_U, _I, _I, _P],
+    # slab and halo in, tiles out, C, dim, M, T, H, nb, axis 0's tiles, the
+    # slab's 4 strides, the halo's 2, H's divisor, device, stream
+    "tnt_unfold_slab": [_P] * 3 + [_I] * 7 + [_L] * 6 + [_U, _I, _I, _P],
 }
 
 

@@ -40,11 +40,13 @@ the last ``dim`` axes of every array here.
 
 The pruned DFT matrices (:func:`_pruned_mats_np`, :func:`_axis_contract`)
 are the JAX package's: one (L, N) matrix per axis folding the DFT, the crop
-to the centered band and the rolloff into one product. The grid-sharded
-transforms (parallel/) contract a grid slab with a block of rows of such a
-matrix and all-reduce the small N^dim spectrum, which no FFT of the slab
-can do. They are float32 products: the entry points pin TF32 off
-(``_device.pin_fp32``), since one TF32 pass would cost ~1e-3.
+to the centered band and the rolloff into one product. The point-sharded
+spectral stages (parallel/sharded.py) contract with them; the grid-sharded
+ones (parallel/grid_sharded.py) take the half spectrum of a slab's own
+axes with ``rfftn`` and contract only the sharded axis 0 with a block of
+rows of such a matrix, then all-reduce the half spectrum, which no FFT of
+the slab alone can give. They are float32 products: the entry points pin
+TF32 off (``_device.pin_fp32``), since one TF32 pass would cost ~1e-3.
 """
 
 from __future__ import annotations

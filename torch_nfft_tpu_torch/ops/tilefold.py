@@ -27,10 +27,14 @@ cell's terms summed in a fixed order, so repeated calls agree bit for bit;
 the unfold a copy, bit for bit the plain unfold, that reads the grid
 through its strides), or raise; they take the
 plain versions (``*_plain``, chains of PyTorch ops) only for CPU tensors.
-``launches`` on each wrapper counts the kernel launches.
+``fold_tiles_to_slab`` and ``unfold_slab_to_tiles`` do the same for a grid
+slab of the grid-sharded transforms (axis 0 unwrapped, with its spill rows
+and the halo). ``launches`` on each wrapper counts the kernel launches.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -40,7 +44,8 @@ from .ragged import fast_divisor
 
 __all__ = ["row_tile_ids", "fold_tiles_to_grid", "unfold_grid_to_tiles",
            "fold_tiles_to_grid_plain", "unfold_grid_to_tiles_plain",
-           "tile_array_bytes", "use_fold"]
+           "fold_tiles_to_slab", "unfold_slab_to_tiles", "fold_tiles_to_slab_plain",
+           "unfold_slab_to_tiles_plain", "tile_array_bytes", "use_fold"]
 
 # the JAX package's default memory budget of the dense tile array (a TPU
 # figure, kept so that both packages take the same route)
@@ -181,3 +186,128 @@ def unfold_grid_to_tiles(g: torch.Tensor, plan) -> torch.Tensor:
 
 
 unfold_grid_to_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# A grid slab's fold and unfold (parallel/grid_sharded.py): the slab holds
+# nb0 tiles of axis 0 and all nb of every other axis. Axes 1.. wrap as
+# above; axis 0 does not: its nb0 tiles fold onto M0 = (nb0 - 1) T + H
+# rows, of which the last E = H - T are the spill onto the next slab, and
+# its unfold reads rows past nb0 T from the halo, the next slab's first E
+# rows.
+# ---------------------------------------------------------------------------
+
+
+class _Axes(NamedTuple):
+    """The geometry the plain folds read from a plan, for the tiles of one
+    axis-0 tile row: every axis but axis 0."""
+
+    dim: int
+    T: int
+    H: int
+    M: int
+    batch_size: int = 1
+
+
+def _slab_geometry(plan, nb0: int) -> tuple:
+    """(dim, M, T, H, nb, E) of a slab of ``nb0`` axis-0 tiles; the tiles
+    of the slab are (nb0 * nb^(dim-1), C, H, H^(dim-1))."""
+    dim, M, T, H = plan.dim, plan.M, plan.T, plan.H
+    _require(dim >= 2, "a slab needs dim >= 2")
+    _require(plan.batch_size == 1, "a slab holds one batch member")
+    _require(nb0 >= 1 and H >= T, "a slab needs nb0 >= 1 axis-0 tiles and H >= T")
+    return dim, M, T, H, tiles_per_axis(plan), H - T
+
+
+def _check_slab_tiles(tiles: torch.Tensor, plan, nb0: int) -> None:
+    dim, _, _, H, nb, _ = _slab_geometry(plan, nb0)
+    _require(tiles.dtype == torch.float32 and tiles.is_contiguous(),
+             "tiles must be contiguous float32")
+    _require(tiles.ndim == 4 and tiles.shape[0] == nb0 * nb ** (dim - 1)
+             and tuple(tiles.shape[2:]) == (H, H ** (dim - 1)),
+             f"tiles must be ({nb0 * nb ** (dim - 1)}, C, {H}, {H ** (dim - 1)})")
+
+
+def fold_tiles_to_slab_plain(tiles: torch.Tensor, plan, nb0: int) -> torch.Tensor:
+    """Plain version of :func:`fold_tiles_to_slab`, one axis-0 tile row at a
+    time: its axes 1.. folded by :func:`fold_tiles_to_grid_plain` (axis 0's
+    H cells ride as columns), then added at rows [t T, t T + H)."""
+    dim, M, T, H, nb, E = _slab_geometry(plan, nb0)
+    C = tiles.shape[1]
+    out = tiles.new_zeros((1, C, nb0 * T + E) + (M,) * (dim - 1))
+    rows = tiles.reshape(nb0, nb ** (dim - 1), C * H, H ** (dim - 1))
+    axes = _Axes(dim - 1, T, H, M)
+    for t in range(nb0):
+        part = fold_tiles_to_grid_plain(rows[t].reshape(-1, C * H, H, H ** (dim - 2)), axes)
+        out[0, :, t * T:t * T + H] += part.reshape((C, H) + (M,) * (dim - 1))
+    return out
+
+
+def unfold_slab_to_tiles_plain(g: torch.Tensor, halo: torch.Tensor, plan,
+                               nb0: int) -> torch.Tensor:
+    """Plain version of :func:`unfold_slab_to_tiles`: the slab and the halo
+    side by side on axis 0, each tile row's H rows cut out and unfolded by
+    :func:`unfold_grid_to_tiles_plain` (axis 0's H cells ride as columns)."""
+    dim, M, T, H, nb, E = _slab_geometry(plan, nb0)
+    ext = torch.cat([g, halo], dim=2)
+    C = g.shape[1]
+    axes = _Axes(dim - 1, T, H, M)
+    out = g.new_empty((nb0, nb ** (dim - 1), C, H ** dim))
+    for t in range(nb0):
+        part = ext[0, :, t * T:t * T + H]  # (C, H, M, ...)
+        part = unfold_grid_to_tiles_plain(part.reshape((1, C * H) + (M,) * (dim - 1)), axes)
+        out[t] = part.reshape(nb ** (dim - 1), C, H ** dim)
+    return out.reshape(nb0 * nb ** (dim - 1), C, H, H ** (dim - 1))
+
+
+def fold_tiles_to_slab(tiles: torch.Tensor, plan, nb0: int) -> torch.Tensor:
+    """A slab's dense tiles (nb0 * nb^(dim-1), C, H, H^{dim-1}) -> (1, C,
+    nb0 T + E, M^(dim-1)): grid cell i of axes 1.. sums every tile cell
+    (t, u) with (t T + u) mod M = i, row i of axis 0 those with t T + u = i.
+    Rows [nb0 T, nb0 T + E) are the spill onto the next slab."""
+    dim, M, T, H, nb, E = _slab_geometry(plan, nb0)
+    _check_slab_tiles(tiles, plan, nb0)
+    if not _route(tiles):
+        return fold_tiles_to_slab_plain(tiles, plan, nb0)
+    C = tiles.shape[1]
+    out = torch.empty((1, C, nb0 * T + E) + (M,) * (dim - 1), dtype=torch.float32,
+                      device=tiles.device)
+    check(library().tnt_fold_slab(tiles.data_ptr(), out.data_ptr(), C, dim, M, T, H, nb, nb0,
+                                  *fast_divisor(T), *_stream(tiles)))
+    fold_tiles_to_slab.launches += 1
+    return out
+
+
+fold_tiles_to_slab.launches = 0
+
+
+def unfold_slab_to_tiles(g: torch.Tensor, halo: torch.Tensor, plan, nb0: int) -> torch.Tensor:
+    """The slab (1, C, nb0 T, M^(dim-1)) and its halo (1, C, E, M^(dim-1)),
+    the next slab's first E rows -> the slab's dense tiles (nb0 *
+    nb^(dim-1), C, H, H^{dim-1}): tile cell u reads row t T + u of axis 0
+    (from the halo past the slab) and cells (t T + u) mod M of the others
+    (the transpose of :func:`fold_tiles_to_slab`)."""
+    dim, M, T, H, nb, E = _slab_geometry(plan, nb0)
+    C = g.shape[1]
+    _require(g.dtype == torch.float32 and halo.dtype == torch.float32,
+             "the slab and the halo must be float32")
+    _require(tuple(g.shape) == (1, C, nb0 * T) + (M,) * (dim - 1),
+             f"the slab must be (1, C, {nb0 * T}) + {(M,) * (dim - 1)}")
+    _require(tuple(halo.shape) == (1, C, E) + (M,) * (dim - 1),
+             f"the halo must be (1, C, {E}) + {(M,) * (dim - 1)}")
+    if not _route(g):
+        return unfold_slab_to_tiles_plain(g, halo, plan, nb0)
+    # the kernel reads the halo through the slab's strides on axes 1..
+    if g.stride()[3:] != halo.stride()[3:]:
+        g, halo = g.contiguous(), halo.contiguous()
+    out = torch.empty((nb0 * nb ** (dim - 1), C, H, H ** (dim - 1)), dtype=torch.float32,
+                      device=g.device)
+    strides = g.stride()[1:] + (0,) * (3 - dim)
+    check(library().tnt_unfold_slab(g.data_ptr(), halo.data_ptr(), out.data_ptr(), C, dim, M,
+                                    T, H, nb, nb0, *strides, *halo.stride()[1:3],
+                                    *fast_divisor(H), *_stream(g)))
+    unfold_slab_to_tiles.launches += 1
+    return out
+
+
+unfold_slab_to_tiles.launches = 0

@@ -9,15 +9,22 @@ grid, here:
   point set partitions by slab (:func:`build_grid_sharded_layout`, one plan
   per slab with its rows in the slab's local tile space);
 * the **spread** forms the slab's dense tiles (B1 with local tile ids),
-  folds axes 1.. with the periodic wrap and axis 0 WITHOUT it, and hands
-  the E = 2m+1 cells that spill past the slab to the next rank with ONE
-  ring shift;
-* the **adjoint spectral stage** contracts the slab's row block of the
-  axis-0 pruned DFT matrix and the full matrices of axes 1.., then ONE
-  all-reduce of the N^dim spectrum;
+  folds axes 1.. with the periodic wrap and axis 0 WITHOUT it (one
+  ``csrc/tilefold.cu`` slab fold), and hands the E = 2m+1 cells that spill
+  past the slab to the next rank with ONE ring shift;
+* the **adjoint spectral stage** takes the half spectrum of the slab's
+  own axes 1.. with cuFFT (``rfftn``, cropped to the band, rolloff), then
+  the slab's row block of the axis-0 pruned DFT matrix as one complex
+  matmul, then ONE all-reduce of the half spectrum (half the N^dim band);
 * the **forward spectral stage** builds the rank's slab from the
-  replicated spectrum with no collective, and the **gather** (B2) reads
-  the next slab's first E cells through one ring shift the other way.
+  replicated spectrum with no collective (the axis-0 block, then
+  ``irfftn`` of axes 1..), and the **gather** (B2) reads the next slab's
+  first E cells through one ring shift the other way (one slab unfold).
+
+A slab's tiles are (L0/T) * (M/T)^(dim-1) dense tiles of H^dim cells: at
+3D N = 1024, m = 4, sigma = 2 on four ranks that is 32.8 GB a rank, so no
+stage holds more than one copy of it, and neither spectral stage forms a
+replicated N x M^(dim-1) partial.
 
 Grids are the port's channel-first (B, C, M0, M1, ...), sharded on M0.
 Scope as in JAX: dim >= 2, batch size 1, real planar inputs. The
@@ -45,8 +52,17 @@ from ..ops.binned import (
     host_array,
     points_from_tiles_local,
 )
-from ..ops.fft import _axis_contract_planar, _cells_spec, _pruned_mats
+from .. import trace
+from ..ops.fft import (
+    _cells_spec,
+    _pruned_mats,
+    full_to_half,
+    half_spectrum_to_full,
+    spectral_adjoint_half,
+    spectral_forward_half,
+)
 from ..ops.plan_stack import index_plan, pad_plan_rows, stack_plans
+from ..ops.tilefold import fold_tiles_to_slab, unfold_slab_to_tiles
 from ._comm import all_gather_rows, rank, reduce, ring_shift, size, to_varying
 from .mesh import axis_group, mesh_device
 
@@ -173,132 +189,163 @@ def _local_tile_ids(plan: BinnedPlan, A0_loc: int, shard: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Overlap-add of the slab's tiles: axes 1.. with the periodic wrap, axis 0
-# without it (its spill crosses to the next rank instead)
+# The slab's fold and unfold: axes 1.. with the periodic wrap, axis 0
+# without it (its spill crosses to the next rank instead), on the
+# ``csrc/tilefold.cu`` slab kernels (plain versions on the CPU)
 # ---------------------------------------------------------------------------
 
 
-def _fold_pair(a: torch.Tensor, ax: int, T: int, wrap: bool):
-    """Overlap-add the adjacent (nb, H) axes (ax, ax+1) onto one axis of
-    nb*T cells: tile b's last E = H - T cells land on tile b+1's first E.
-    With ``wrap`` the last tile's go to tile 0 and the result is the axis;
-    without it tile 0 receives nothing, and (axis, spill) is returned, the
-    spill being the last tile's E cells past the axis's end."""
-    nb, H = a.shape[ax], a.shape[ax + 1]
-    E = H - T
-    body, tail = a.narrow(ax + 1, 0, T), a.narrow(ax + 1, T, E)
-    if wrap:
-        shifted = torch.roll(tail, 1, dims=ax)
-    else:
-        shifted = torch.cat([torch.zeros_like(tail.narrow(ax, 0, 1)),
-                             tail.narrow(ax, 0, nb - 1)], dim=ax)
-    out = torch.cat([body.narrow(ax + 1, 0, E) + shifted,
-                     body.narrow(ax + 1, E, T - E)], dim=ax + 1).flatten(ax, ax + 1)
-    return out if wrap else (out, tail.narrow(ax, nb - 1, 1).squeeze(ax))
+def _fold_to_slab(tiles: torch.Tensor, plan: BinnedPlan, A0: int, group) -> torch.Tensor:
+    """The slab's dense tiles -> its grid slab (1, C, L0, M, ...), L0 = A0 T:
+    the fold writes the E rows past the slab, which ONE ring shift adds onto
+    the next rank's first E."""
+    with trace.span("fold"):
+        ext = fold_tiles_to_slab(tiles, plan, A0)
+    L0 = A0 * plan.T
+    recv = ring_shift(ext[:, :, L0:], group, +1)
+    slab = ext[:, :, :L0]
+    slab[:, :, : recv.shape[2]] += recv
+    return slab
 
 
-def _unfold_axis(g: torch.Tensor, ax: int, T: int, H: int, nb: int, nxt=None) -> torch.Tensor:
-    """The (nb, H) tiles of an axis of nb*T cells: tile b covers cells
-    [b*T, b*T + H). Its last E cells are tile b+1's first; for the last
-    tile they are ``nxt`` (the next slab's first E cells) or, without it,
-    tile 0's first (the periodic wrap)."""
-    E = H - T
-    body = g.unflatten(ax, (nb, T))
-    head = body.narrow(ax + 1, 0, E)
-    if nxt is None:
-        tail = torch.roll(head, -1, dims=ax)
-    else:
-        tail = torch.cat([head.narrow(ax, 1, nb - 1), nxt.unsqueeze(ax)], dim=ax)
-    return torch.cat([body, tail], dim=ax + 1)
+def _unfold_from_slab(g: torch.Tensor, plan: BinnedPlan, A0: int, group) -> torch.Tensor:
+    """The grid slab (1, C, L0, M, ...) -> its dense tiles; ONE ring shift
+    brings the next slab's first E rows, the unfold's halo."""
+    halo = ring_shift(g[:, :, : plan.H - plan.T], group, -1)
+    with trace.span("unfold"):
+        return unfold_slab_to_tiles(g, halo, plan, A0)
 
 
-def _fold_slab(tiles: torch.Tensor, lay: GridShardedLayout, group) -> torch.Tensor:
-    """The slab's dense tiles (NT, C, H, H^{dim-1}) -> its grid slab
-    (1, C, L0, M, ...): ONE ring shift moves the axis-0 spill to the next
-    rank."""
-    dim, T, A0 = lay.dim, lay.T, lay.A0_loc
-    nb, H, C = lay.M // T, T + 2 * lay.m + 1, tiles.shape[1]
-    a = tiles.reshape((A0,) + (nb,) * (dim - 1) + (C,) + (H,) * dim)
-    perm = [dim, 0, dim + 1]
-    for d in range(1, dim):
-        perm += [d, dim + 1 + d]
-    a = a.permute(perm)  # (C, A0, H0, nb1, H1, ...)
-    for d in range(1, dim):
-        a = _fold_pair(a, 2 + d, T, wrap=True)
-    slab, spill = _fold_pair(a, 1, T, wrap=False)  # (C, L0, M, ...), (C, E, M, ...)
-    E = spill.shape[1]
-    recv = ring_shift(spill, group, +1)
-    return torch.cat([slab[:, :E] + recv, slab[:, E:]], dim=1).unsqueeze(0)
+class _FoldSlab(torch.autograd.Function):
+    """:func:`_fold_to_slab`; its transpose, the backward, is the unfold."""
+
+    @staticmethod
+    def forward(ctx, tiles, plan, A0, group):
+        ctx.plan, ctx.A0, ctx.group = plan, A0, group
+        return _fold_to_slab(tiles, plan, A0, group)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return _unfold_from_slab(g, ctx.plan, ctx.A0, ctx.group), None, None, None
 
 
-def _unfold_slab(g: torch.Tensor, lay: GridShardedLayout, group) -> torch.Tensor:
-    """The grid slab (1, C, L0, M, ...) -> the slab's dense tiles
-    (NT, C, H, H^{dim-1}); ONE ring shift brings the next slab's first E
-    cells."""
-    dim, T, A0 = lay.dim, lay.T, lay.A0_loc
-    nb, H = lay.M // T, T + 2 * lay.m + 1
-    g = g[0]
-    C = g.shape[0]
-    nxt = ring_shift(g[:, : H - T], group, -1)
-    a = _unfold_axis(g, 1, T, H, A0, nxt)  # (C, A0, H0, M, ...)
-    for d in range(1, dim):
-        a = _unfold_axis(a, 2 * d + 1, T, H, nb)
-    perm = [1] + [2 * d + 1 for d in range(1, dim)] + [0, 2] + [2 * d + 2 for d in range(1, dim)]
-    return a.permute(perm).reshape(lay.NT, C, H, H ** (dim - 1))
+class _UnfoldSlab(torch.autograd.Function):
+    """:func:`_unfold_from_slab`; its transpose, the backward, is the fold."""
+
+    @staticmethod
+    def forward(ctx, g, plan, A0, group):
+        ctx.plan, ctx.A0, ctx.group = plan, A0, group
+        return _unfold_from_slab(g, plan, A0, group)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, t):
+        return _fold_to_slab(t.contiguous(), ctx.plan, ctx.A0, ctx.group), None, None, None
 
 
 # ---------------------------------------------------------------------------
-# Spectral stages of a grid sharded on axis 0
+# Spectral stages of a grid sharded on axis 0: cuFFT's half spectra over the
+# slab's own axes 1.., the slab's rows of the axis-0 pruned DFT matrix as
+# one complex matmul, one all-reduce of the half spectrum
 # ---------------------------------------------------------------------------
+
+
+def _axis0_dft(N: int, M: int, m: int, sigma: float, sign: int, off: int, L: int, window: str,
+               device, half: bool) -> torch.Tensor:
+    """(L, K) complex64 rows off + [0, L) of the pruned DFT matrix of axis 0,
+    D[a, k] = exp(sign 2 pi i (off + a) k / M) phi_hat_inv(k): k in the band
+    [-h, N - h) (K = N) or, with ``half``, in the half spectrum's leading
+    range [-h, h] (K = 2h + 1; the +h column of an even N is the -h
+    column's conjugate, phi_hat being even)."""
+    mr, mi = _pruned_mats(N, M, m, sigma, sign, off, L, window, device)
+    D = torch.complex(mr, mi)
+    if half and N % 2 == 0:
+        D = torch.cat([D, D[:, :1].conj()], dim=1)
+    return D
+
+
+def _contract0(x: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """Axis 2 of x (B, C, L_in, ...) contracted with D (L_in, L_out): one
+    complex matmul of (L_out, L_in) by (L_in, rest)."""
+    B, C, L = x.shape[:3]
+    y = torch.matmul(D.transpose(0, 1), x.reshape(B * C, L, -1))
+    return y.reshape((B, C, D.shape[1]) + tuple(x.shape[3:]))
+
+
+def _whole_axes(g: torch.Tensor, spec: tuple, M: int, embed: bool) -> torch.Tensor:
+    """Axes 1.. of a grid slab between their cells ``spec[d]`` = (offset,
+    count) and the whole M-cell axis: zero-padded to M (``embed``) or cut
+    from it."""
+    for d, (off, L) in enumerate(spec[1:], start=1):
+        ax = 2 + d
+        if (off, L) == (0, M):
+            continue
+        if embed:
+            pad = [0, 0] * (g.ndim - 1 - ax) + [off, M - off - L]
+            g = torch.nn.functional.pad(g, pad)
+        else:
+            g = g.narrow(ax, off, L)
+    return g
 
 
 def spectral_adjoint_pruned_dft_sharded0(gr, gi, dim, N, m, sigma, group, M, cells=None,
                                          window="gaussian"):
     """Adjoint spectral stage of this rank's slab (B, C, L0/P, M1, ...) of
-    a channel-first grid sharded on axis 0 over ``group`` (gi may be None):
-    its row block of the axis-0 pruned DFT, the full matrices of axes 1..,
-    then one all-reduce. Returns the replicated spectrum planes
-    (B, C, (N,)*dim)."""
+    a channel-first grid sharded on axis 0 over ``group`` (gi may be None).
+    Per real plane: the half spectrum of axes 1.. (``rfftn``, crop, rolloff;
+    :func:`ops.fft.spectral_adjoint_half`), then the slab's row block of the
+    axis-0 pruned DFT matrix over the half spectrum's leading range, then
+    one all-reduce of the half spectrum, expanded to the band. Returns the
+    replicated spectrum planes (B, C, (N,)*dim)."""
     spec = _cells_spec(dim, M, cells)
     off0, L0 = spec[0]
     L0_loc = gr.shape[2]
     if L0 % L0_loc:
         raise ValueError(f"local slab length {L0_loc} does not divide axis length {L0}")
-    r = rank(group)
-    mr, mi = _pruned_mats(N, M, m, sigma, +1, off0, L0, window, gr.device)
-    blk = slice(r * L0_loc, (r + 1) * L0_loc)
-    gr, gi = _axis_contract_planar(gr, gi, mr[blk], mi[blk], 2)
-    for d in range(1, dim):
-        off, L = spec[d]
-        gr, gi = _axis_contract_planar(gr, gi, *_pruned_mats(N, M, m, sigma, +1, off, L, window,
-                                                 gr.device), 2 + d)
-    return reduce(gr, group), reduce(gi, group)
+    off = off0 + rank(group) * L0_loc
+    planes = (gr,) if gi is None else (gr, gi)
+    with trace.span("slab spectral"):
+        D = _axis0_dft(N, M, m, sigma, +1, off, L0_loc, window, gr.device, half=True)
+        half = torch.stack([
+            _contract0(spectral_adjoint_half(_whole_axes(g, spec, M, True), dim - 1, N, m,
+                                             sigma, window), D) for g in planes])
+    half = torch.view_as_complex(reduce(torch.view_as_real(half), group))
+    with trace.span("slab spectral"):
+        y = half_spectrum_to_full(half[0], dim, N)
+        if gi is not None:
+            y = y + 1j * half_spectrum_to_full(half[1], dim, N)
+        return y.real, y.imag
 
 
 def spectral_forward_pruned_dft_sharded0(xr, xi, dim, M, m, sigma, group, n_shards,
                                          cells=None, real_only=False, window="gaussian"):
     """Forward spectral stage producing this rank's axis-0 slab
     (B, C, L0/P, M1, ...) from the replicated spectrum planes xr/xi
-    (B, C, (N,)*dim), with no collective; ``real_only`` returns
-    (real plane, None)."""
+    (B, C, (N,)*dim), with no collective: the slab's columns of the axis-0
+    pruned DFT matrix as one complex matmul, then axes 1.. by ``irfftn`` of
+    the half spectrum of the Hermitian part (the real plane) and of the
+    Hermitian part of -i times it (the imaginary plane;
+    :func:`ops.fft.full_to_half`, :func:`ops.fft.spectral_forward_half`).
+    ``real_only`` returns (real plane, None)."""
     N = xr.shape[2]
     spec = _cells_spec(dim, M, cells)
     off0, L0 = spec[0]
     if L0 % n_shards:
         raise ValueError(f"L0={L0} not divisible by n_shards={n_shards}")
     L0_loc = L0 // n_shards
-    r = rank(group)
+    off = off0 + rank(group) * L0_loc
     xr = to_varying(xr, group)
     xi = None if xi is None else to_varying(xi, group)
-    mr, mi = _pruned_mats(N, M, m, sigma, -1, off0, L0, window, xr.device, transpose=True)
-    blk = slice(r * L0_loc, (r + 1) * L0_loc)
-    xr, xi = _axis_contract_planar(xr, xi, mr[:, blk], mi[:, blk], 2, real_only and dim == 1)
-    for d in range(1, dim):
-        off, L = spec[d]
-        xr, xi = _axis_contract_planar(xr, xi, *_pruned_mats(N, M, m, sigma, -1, off, L, window,
-                                                 xr.device, transpose=True),
-                                  2 + d, real_only and d == dim - 1)
-    return xr, xi
+    with trace.span("slab spectral"):
+        D = _axis0_dft(N, M, m, sigma, -1, off, L0_loc, window, xr.device, half=False)
+        z = torch.complex(xr, torch.zeros_like(xr) if xi is None else xi)
+        w = _contract0(z, D.transpose(0, 1))  # (B, C, L0_loc, N, ...)
+        del z
+        out = [_whole_axes(spectral_forward_half(full_to_half(v, dim - 1, N), dim - 1, N, M,
+                                                 m, sigma, window), spec, M, False)
+               for v in ((w,) if real_only else (w, -1j * w))]
+    return out[0], None if real_only else out[1]
 
 
 # ---------------------------------------------------------------------------
@@ -339,13 +386,17 @@ class _Shard:
         return out.index_copy(0, idx, flat)[: self.lay.n]
 
     def spread(self, x: torch.Tensor) -> torch.Tensor:
-        tiles = dense_tiles_local(self.lay.NT, self.plan, self.pack(x), None, self.tid)
-        return _fold_slab(tiles, self.lay, self.group)
+        """(n, C) global values -> this rank's grid slab (1, C, L0, M, ...)."""
+        with trace.span("spread kernel"):
+            tiles = dense_tiles_local(self.lay.NT, self.plan, self.pack(x), None, self.tid)
+        return _FoldSlab.apply(tiles, self.plan, self.lay.A0_loc, self.group)
 
     def gather(self, g: torch.Tensor) -> torch.Tensor:
-        tiles = _unfold_slab(g, self.lay, self.group)
-        return self.unpack(points_from_tiles_local(self.lay.NT, self.plan, tiles, None,
-                                                   self.tid))
+        """This rank's grid slab -> the global (n, C)."""
+        tiles = _UnfoldSlab.apply(g, self.plan, self.lay.A0_loc, self.group)
+        with trace.span("gather kernel"):
+            y = points_from_tiles_local(self.lay.NT, self.plan, tiles, None, self.tid)
+        return self.unpack(y)
 
 
 def _spectrum_in(a, dev) -> torch.Tensor:
@@ -353,6 +404,7 @@ def _spectrum_in(a, dev) -> torch.Tensor:
     return torch.as_tensor(a, device=dev).to(torch.float32).movedim(-1, 1)
 
 
+@trace.spanned("nfft_adjoint_grid_sharded")
 def nfft_adjoint_grid_sharded(x, layout: GridShardedLayout, mesh, *, axis_name: str = "grid"):
     """Grid-sharded adjoint NFFT of real samples x (n, C), in the user point
     order of the ``pos`` the layout was built from. Returns the planes
@@ -365,6 +417,7 @@ def nfft_adjoint_grid_sharded(x, layout: GridShardedLayout, mesh, *, axis_name: 
     return yr.movedim(1, -1), yi.movedim(1, -1)
 
 
+@trace.spanned("nfft_forward_grid_sharded")
 def nfft_forward_grid_sharded(xr, xi, layout: GridShardedLayout, mesh, *,
                               axis_name: str = "grid", real_output: bool = False):
     """Grid-sharded forward NFFT of the planar spectrum xr/xi, each
@@ -384,6 +437,7 @@ def nfft_forward_grid_sharded(xr, xi, layout: GridShardedLayout, mesh, *,
     return y[:, :C], y[:, C:]
 
 
+@trace.spanned("nfft_fastsum_grid_sharded")
 def nfft_fastsum_grid_sharded(x, coeffs, layout: GridShardedLayout, mesh, *,
                               axis_name: str = "grid"):
     """Grid-sharded fastsum (the Gram matvec) of real samples x (n, C) with

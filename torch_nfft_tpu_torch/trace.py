@@ -25,9 +25,10 @@ its ``backward``. The spans stay in memory until :func:`drain`.
 
 :func:`counters` reads every kernel wrapper's launch counter
 (``ops/contract.py``, ``ops/ragged.py``, ``ops/benes.py``,
-``ops/bitonic.py``, ``ops/tilefold.py``) and ``kernel_builds``, the
-compiles this process ran (``_build.build``, ``_native.build_native``), in
-one snapshot.
+``ops/bitonic.py``, ``ops/tilefold.py``), the bytes this rank handed to
+each kind of collective (``parallel/_comm.py``, ``sent_bytes.<kind>``) and
+``kernel_builds``, the compiles this process ran (``_build.build``,
+``_native.build_native``), in one snapshot.
 """
 
 from __future__ import annotations
@@ -203,7 +204,8 @@ def count_build() -> None:
 def counters() -> dict:
     """One snapshot of the program's counters: each kernel wrapper's
     ``launches`` under its name, a spread's ``launches_by_design`` as
-    ``<name>.<design>``, and ``kernel_builds``."""
+    ``<name>.<design>``, the collectives' ``sent_bytes.<kind>``, and
+    ``kernel_builds``."""
     from .ops import benes, bitonic, contract, ragged, tilefold
 
     out = {}
@@ -213,11 +215,16 @@ def counters() -> dict:
                        (benes, ("benes_outer", "benes_local")),
                        (bitonic, ("bitonic_local_sort", "bitonic_cross_round",
                                   "bitonic_local_merge")),
-                       (tilefold, ("fold_tiles_to_grid", "unfold_grid_to_tiles"))):
+                       (tilefold, ("fold_tiles_to_grid", "unfold_grid_to_tiles",
+                                   "fold_tiles_to_slab", "unfold_slab_to_tiles"))):
         for name in names:
             fn = getattr(mod, name)
             out[name] = getattr(fn, "launches", 0)
             for design, n in getattr(fn, "launches_by_design", {}).items():
                 out[f"{name}.{design}"] = n
+    from .parallel import _comm
+
+    for name, n in _comm.sent_bytes.items():
+        out[f"sent_bytes.{name}"] = n
     out["kernel_builds"] = _REC.builds
     return out
