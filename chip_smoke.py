@@ -54,8 +54,10 @@ dim=3, bandwidth=256, cutoff=4)`` on 2^22 points uniform in [-1, 1)^3
 (gaussian window, m = 4, sigma = 2): the spread, gather and
 position-gradient kernels against their plain versions at that geometry
 (bit for bit across two launches) and both spread designs timed; the
-matvec at C = 1 (dense route) and 8 (flat route) with its launches,
-stages and peak memory, 96 sampled targets against the exact Gaussian
+matvec at C = 1 (dense route) and 8 (flat route) with its launches, its
+route (half spectra, ``rfftn``/``irfftn``, which ``nfft_fastsum`` takes
+for a real x, counted by ``fastsum_route.half``), its stages and peak
+memory, 96 sampled targets against the exact Gaussian
 sum in float64 for the symmetric and an asymmetric operator, and C = 8
 column by column against C = 1; 8 power-iteration steps in user and
 slot order; the CG solve, its residual held to the CG's own; the ``sym``
@@ -67,8 +69,9 @@ run the rest of the kernel-matrix user's path on the same points: a
 classes on the card against the CPU at n = 2^14; ``eigsh_operator`` on
 the ``sym`` adjacency in slot and user order (the Perron value 1, the top
 Ritz residual); ``accuracy_check``; the half-spectrum stages
-(``rfftn``/``irfftn``, which the pair and the slot matvec run) against
-the C2C formulation at the headline and the Gram geometry, timed; and the
+(``rfftn``/``irfftn``, which the pair and both Gram matvecs run) against
+the C2C formulation (which ``nfft_fastsum`` keeps for a complex x) at the
+headline and the Gram geometry, timed; and the
 scatter and matmul engines against the NDFT gates, the binned engine and
 its gradients, and a 1500-point Gram matrix (no plan) against the dense
 Gaussian. Phases 10-10e run the batched configuration of BASELINE.json
@@ -152,6 +155,7 @@ import torch
 import torch_nfft_tpu_torch as tp
 from torch_nfft_tpu_torch import _build, _native
 from torch_nfft_tpu_torch.ops import benes, binned, bitonic, contract, ragged
+from torch_nfft_tpu_torch.ops import nfft as pnfft
 from torch_nfft_tpu_torch.ops.binned import (
     dense_tile_ids,
     run_stages,
@@ -768,7 +772,7 @@ def gram_phases(dev, gen, report: list) -> torch.Tensor:
         # B5 as the gather's backward weights it: the tiles of the grid the
         # target gather reads, w = a point cotangent
         stages1 = fastsum_stages(plan, plan, G.coeffs, m=GRAM_M, sigma=2.0,
-                                 window="gaussian", C=1, hermitian=False)
+                                 window="gaussian", C=1)
         tiles_primal = unfold_grid_to_tiles(run_stages(stages1[:6], x1), plan)
         w_ybar = slot_values(plan, torch.randn((n, 1), device=dev, generator=gen))
         b1, b8 = bounds(plan, 1, tiles_read), bounds(plan, C_WIDE, S)
@@ -836,9 +840,13 @@ def gram_phases(dev, gen, report: list) -> torch.Tensor:
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
+            routes = dict(pnfft.fastsum_routes)
             y = G @ xv
             torch.cuda.synchronize()
             launches[C] = read_launches()
+            assert pnfft.fastsum_routes == {"half": routes["half"] + 1, "c2c": routes["c2c"]}, \
+                f"a C={C} Gram matvec of a real x must take the half-spectrum route: " \
+                f"{routes} -> {pnfft.fastsum_routes}"
             peak = torch.cuda.max_memory_allocated()
             assert launches[C] == matvec_launches(spread), \
                 f"a C={C} Gram matvec must launch {spread} and gather_points once (and on " \
@@ -851,9 +859,9 @@ def gram_phases(dev, gen, report: list) -> torch.Tensor:
                   f"{C * n / t_mv / 1e6:.2f} M column-points/s; launches {launches[C]}; peak "
                   f"memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the "
                   f"{base / 2**30:.2f} GiB held)")
-            # the complex-to-complex stages G @ runs (nfft_fastsum)
+            # the stages G @ runs (nfft_fastsum: half spectra for a real x)
             stages = fastsum_stages(plan, plan, G.coeffs, m=GRAM_M, sigma=2.0,
-                                    window="gaussian", C=C, hermitian=False)
+                                    window="gaussian", C=C)
             # bit for bit on the dense route; on the flat route tiles_to_grid's
             # index_add_ adds in another order on every run
             rel_st = rel_l2(run_stages(stages, xv), y)

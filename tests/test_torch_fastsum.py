@@ -22,8 +22,11 @@ import torch_nfft_tpu as tn
 import torch_nfft_tpu_torch as tp
 from torch_nfft_tpu.ops import binned as jbinned
 from torch_nfft_tpu.ops import planar as jplanar
+from torch_nfft_tpu_torch import trace
 from torch_nfft_tpu_torch.ops import binned as pbinned
-from torch_nfft_tpu_torch.ops.planar import fastsum_stages, slot_io_ok
+from torch_nfft_tpu_torch.ops import nfft as pnfft
+from torch_nfft_tpu_torch.ops.planar import (fastsum_spectral_stages, fastsum_stages,
+                                             slot_io_ok)
 
 REL = 1e-5
 
@@ -200,18 +203,18 @@ def test_fastsum_slot_vector_is_the_same_on_the_flat_route(rng, monkeypatch):
 
 
 def test_fastsum_runs_its_stages_in_order(rng):
-    """The stages chip_smoke.py times one by one are the fastsum's own:
-    complex to complex for nfft_fastsum, on half spectra for
-    nfft_fastsum_real."""
+    """The stages chip_smoke.py times one by one are the fastsum's own: on
+    half spectra for nfft_fastsum of real x with real coefficients (so for
+    GramMatrix.apply) and for nfft_fastsum_real, complex to complex for
+    nfft_fastsum of complex x."""
     pos, batch, x, coeffs, jplan, plan = _real_case(rng)
-    for hermitian, spectral, want in (
-            (False, ["ifftn", "filter", "fftn"],
-             tp.nfft_fastsum(x, coeffs, pos, source_plan=plan, cutoff=4, device="cpu")),
-            (True, ["rfftn", "filter", "irfftn"],
-             tp.nfft_fastsum_real(x, coeffs, pos, pos, None, None, plan, plan, batch_size=1,
-                                  N=16, m=4, device="cpu"))):
+    half = ["rfftn", "filter", "irfftn"]
+    for spectral, want in (
+            (half, tp.nfft_fastsum(x, coeffs, pos, source_plan=plan, cutoff=4, device="cpu")),
+            (half, tp.nfft_fastsum_real(x, coeffs, pos, pos, None, None, plan, plan,
+                                        batch_size=1, N=16, m=4, device="cpu"))):
         stages = fastsum_stages(plan, plan, torch.from_numpy(coeffs), m=4, sigma=2.0,
-                                window="gaussian", C=2, hermitian=hermitian)
+                                window="gaussian", C=2)
         assert [name for name, _ in stages] == [
             "slot_values", "spread kernel", "fold", *spectral, "unfold", "gather kernel",
             "unslot_values"]
@@ -219,6 +222,21 @@ def test_fastsum_runs_its_stages_in_order(rng):
         for _, fn in stages:
             v = fn(v)
         assert torch.equal(v, want)
+    # complex x: its real and imaginary planes (4 columns) through the C2C stages
+    xc = (x + 1j * rng.standard_normal(x.shape)).astype(np.complex64)
+    want = tp.nfft_fastsum(xc, coeffs, pos, source_plan=plan, cutoff=4, device="cpu")
+    stages = (pbinned.spread_route(plan, 4)
+              + fastsum_spectral_stages(torch.from_numpy(coeffs), dim=2, N=16, M=plan.M, m=4,
+                                        sigma=2.0, window="gaussian", complex_x=True,
+                                        hermitian=False)
+              + pbinned.gather_route(plan, 4)[0])
+    assert [name for name, _ in stages] == [
+        "slot_values", "spread kernel", "fold", "ifftn", "filter", "fftn", "unfold",
+        "gather kernel", "unslot_values"]
+    v = torch.from_numpy(np.concatenate([xc.real, xc.imag], axis=1))
+    for _, fn in stages:
+        v = fn(v)
+    assert torch.equal(torch.complex(v[:, :2], v[:, 2:]), want)
 
 
 def test_slot_spread_and_gather_are_transposes(rng):
@@ -260,6 +278,96 @@ def test_oracles_match_jax(rng):
     asym = tp.exact_trigonometric_matrix(coeffs, pos, tgt)
     assert tuple(asym.shape) == (80, 80)
     assert_close(asym.numpy(), jndft.exact_trigonometric_matrix(coeffs, pos, tgt))
+
+
+# ---------------------------------------------------------------------------
+# The route rule: a real x on half spectra (real or complex coefficients),
+# a complex x complex to complex
+# ---------------------------------------------------------------------------
+
+
+def _routes():
+    c = trace.counters()
+    return c["fastsum_route.half"], c["fastsum_route.c2c"]
+
+
+def _c2c_stages(*args, **kwargs):
+    """``fastsum_spectral_stages`` held to complex to complex."""
+    return fastsum_spectral_stages(*args, **{**kwargs, "hermitian": False})
+
+
+def _coeffs(rng, N, dim, kind):
+    """Coefficients that are not even, float32 or complex64."""
+    c = rng.standard_normal((N,) * dim)
+    if kind == "complex":
+        c = c + 1j * rng.standard_normal((N,) * dim)
+    return c.astype(np.complex64 if kind == "complex" else np.float32)
+
+
+@pytest.mark.parametrize("strategy", ["binned", "scatter"])
+@pytest.mark.parametrize("dim,N", [(1, 32), (2, 16), (3, 8)])
+def test_fastsum_real_x_runs_half_spectra_and_matches_jax(rng, dim, N, strategy):
+    """Real x and real coefficients that are not even: nfft_fastsum takes
+    the half-spectrum route and agrees with JAX's nfft_fastsum (its C2C
+    round trip's real part)."""
+    n, m = 300, 3
+    pos, _ = make_points(rng, n, dim, scale="box")
+    x = rng.standard_normal((n, 2)).astype(np.float32)
+    c = _coeffs(rng, N, dim, "real")
+    before = _routes()
+    y = tp.nfft_fastsum(x, c, pos, cutoff=m, strategy=strategy, device="cpu")
+    assert _routes() == (before[0] + 1, before[1])
+    assert y.dtype == torch.float32
+    assert_close(y.numpy(), tn.nfft_fastsum(x, c, pos, cutoff=m, strategy=strategy))
+
+
+@pytest.mark.parametrize("kind", ["real", "complex"])
+@pytest.mark.parametrize("wrt", ["x", "coeffs", "sources", "targets"])
+@pytest.mark.parametrize("dim,N", [(2, 16), (3, 8)])
+def test_fastsum_half_route_gradients_match_c2c(rng, monkeypatch, dim, N, wrt, kind):
+    """For a real x, the half-spectrum route's output and its gradients in
+    x, the coefficients (real or complex, not even) and the points equal
+    those through the C2C stages: the same function of all three."""
+    src, _ = make_points(rng, 120, dim, scale="box")
+    tgt, _ = make_points(rng, 90, dim, scale="box")
+    inputs = dict(x=rng.standard_normal((120, 2)).astype(np.float32),
+                  coeffs=_coeffs(rng, N, dim, kind), sources=src, targets=tgt)
+
+    def run():
+        args = {k: torch.from_numpy(v.copy()) for k, v in inputs.items()}
+        args[wrt].requires_grad_()
+        y = tp.nfft_fastsum(args["x"], args["coeffs"], args["sources"], args["targets"],
+                            cutoff=3, strategy="binned", device="cpu")
+        (y**2).sum().backward()
+        return y.detach().numpy(), args[wrt].grad.numpy()
+
+    before = _routes()
+    y_half, g_half = run()
+    assert _routes() == (before[0] + 1, before[1])
+    monkeypatch.setattr(pnfft, "fastsum_spectral_stages", _c2c_stages)
+    y_c2c, g_c2c = run()
+    assert_close(y_half, y_c2c)
+    assert_close(g_half, g_c2c)
+
+
+@pytest.mark.parametrize("which", ["complex x", "complex x and coefficients",
+                                   "complex coefficients"])
+def test_fastsum_route_follows_the_dtype_of_x(rng, which):
+    """A complex x keeps the C2C route, with real or complex
+    coefficients; a real x with complex coefficients takes half spectra.
+    Each agrees with JAX's result."""
+    n, dim, N, m = 200, 2, 16, 3
+    pos, _ = make_points(rng, n, dim, scale="box")
+    x = rng.standard_normal((n, 2)).astype(np.float32)
+    c = _coeffs(rng, N, dim, "real" if which == "complex x" else "complex")
+    if which != "complex coefficients":
+        x = (x + 1j * rng.standard_normal(x.shape)).astype(np.complex64)
+    before = _routes()
+    y = tp.nfft_fastsum(x, c, pos, cutoff=m, strategy="binned", device="cpu")
+    half = which == "complex coefficients"
+    assert _routes() == (before[0] + half, before[1] + (not half))
+    assert y.dtype == (torch.float32 if half else torch.complex64)
+    assert_close(y.numpy(), tn.nfft_fastsum(x, c, pos, cutoff=m, strategy="binned"))
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,7 @@ from _torch_port import points
 
 import torch_nfft_tpu_torch as tp
 from torch_nfft_tpu_torch import _native, trace
-from torch_nfft_tpu_torch.ops import benes, binned, bitonic, contract, ragged, tilefold
+from torch_nfft_tpu_torch.ops import benes, binned, bitonic, contract, nfft, ragged, tilefold
 from torch_nfft_tpu_torch.parallel import _comm
 
 N, M_CUT, SIGMA = 16, 2, 2.0
@@ -90,9 +90,14 @@ def test_off_records_nothing_and_reads_no_clock(monkeypatch, setup, entry):
     trace.disable()
     trace.drain()
     monkeypatch.setattr(trace, "time", types.SimpleNamespace(time_ns=no_clock))
+    before = trace.counters()["fastsum_route.half"]
     out = ENTRIES[entry](*setup)
     assert torch.as_tensor(out[0] if isinstance(out, tuple) else out).numel() > 0
     assert trace.drain() == []
+    # the route counter counts while the recorder is off
+    ran = trace.counters()["fastsum_route.half"] - before
+    assert (ran > 0) == (entry in ("nfft_fastsum", "GramMatrix.apply",
+                                   "AdjacencyMatrix.apply"))
     assert trace.span("a") is trace.span("b")  # one shared object, nothing allocated
 
 
@@ -299,9 +304,11 @@ def test_counters_equal_the_wrappers_attributes(monkeypatch):
             monkeypatch.setattr(fn, "launches_by_design", {"contraction": k, "wide": 2 * k})
     monkeypatch.setattr(_comm, "sent_bytes", {"all_reduce": 7, "all_gather": 8,
                                               "ring_shift": 9})
+    monkeypatch.setattr(nfft, "fastsum_routes", {"half": 5, "c2c": 6})
     got = trace.counters()
     want = {"kernel_builds": trace._REC.builds, "sent_bytes.all_reduce": 7,
-            "sent_bytes.all_gather": 8, "sent_bytes.ring_shift": 9}
+            "sent_bytes.all_gather": 8, "sent_bytes.ring_shift": 9,
+            "fastsum_route.half": 5, "fastsum_route.c2c": 6}
     for mod, name in WRAPPERS:
         fn = getattr(mod, name)
         want[name] = fn.launches

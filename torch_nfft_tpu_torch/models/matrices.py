@@ -101,7 +101,15 @@ class GramMatrix(AbstractMatrix):
     ``nfft_fastsum``'s ``"auto"`` picks (the one-hot matmul engine at such
     sizes), and only the slot-layout API and ``solve`` plan. The operator
     is symmetric when ``targets`` is None or ``is`` the sources and the
-    batch vectors are one object (identity, not equal values)."""
+    batch vectors are one object (identity, not equal values).
+
+    ``@`` takes ``nfft_fastsum``'s route: for a real x the spectral round
+    trip runs on half spectra (``rfftn``, the filter of the coefficients'
+    Hermitian part, ``irfftn``), also with the complex coefficients of
+    :class:`GaussianKernel`; for a complex x complex to complex. The
+    slot-layout matvec runs on half spectra always (``nfft_fastsum_real``,
+    with the coefficients' real part), and so does ``solve`` wherever the
+    slot layout is allowed."""
 
     def __init__(self, coeffs, sources, targets=None, source_batch=None, target_batch=None,
                  /, batch=None, cutoff=3, *, batch_size=None, window="gaussian",

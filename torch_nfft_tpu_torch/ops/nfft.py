@@ -10,10 +10,12 @@ the JAX package's ``ops/nfft.py``, with the same signatures and layouts:
 with k in [-N/2, N/2)^dim stored at index k + N/2. x carries trailing
 column dimensions, flattened to C columns for the engine. The spectral
 stage is ``torch.fft`` complex to complex (ops/fft.py), as the JAX
-package's complex-dtype entry points run it. A complex x travels through
-the real window kernels as its real and imaginary planes side by side on
-the column axis (2C columns); the window weights are real, so the planes
-never mix, and they are recombined on the grid.
+package's complex-dtype entry points run it, except in the fastsum of a
+real x, whose real output is the round trip on half spectra (``rfftn``,
+the coefficients' Hermitian part, ``irfftn``). A complex x travels
+through the real window kernels as its real and imaginary planes side by
+side on the column axis (2C columns); the window weights are real, so the
+planes never mix, and they are recombined on the grid.
 
 All are differentiable in x and, when ``pos`` is a tensor that requires
 grad, in the positions. ``strategy`` follows the JAX package's
@@ -69,6 +71,10 @@ __all__ = ["nfft_adjoint", "nfft_forward", "nfft_fastsum", "clear_plan_cache",
 
 # None: the complex pipelines run unless TORCH_NFFT_TPU_COMPLEX says 0
 _COMPLEX_OK = None
+
+# nfft_fastsum calls by the spectral route they took ("half" spectra or
+# "c2c"); trace.counters() reports them as fastsum_route.<route>
+fastsum_routes = {"half": 0, "c2c": 0}
 
 
 def set_complex_override(value: bool | None) -> None:
@@ -281,9 +287,18 @@ def nfft_fastsum(x, coeffs, sources, targets=None, source_batch=None, target_bat
     ``source_plan``/``target_plan``, the plan cache, or none (the plan-free
     engines, by the rule of the module note). The pipeline: spread on the
     source side, unnormalised inverse DFT, the band filter
-    ``coeffs * phi_hat_inv^2``, forward DFT, gather on the target side
-    (its real plane for real x). Differentiable in x, in the coefficients
-    and, for tensors that require grad, in the sources and targets."""
+    ``coeffs * phi_hat_inv^2``, forward DFT, gather on the target side.
+    Differentiable in x, in the coefficients and, for tensors that require
+    grad, in the sources and targets.
+
+    The spectral route follows the dtype of x. A complex x takes complex
+    to complex (``fastsum_spectral_stages(hermitian=False)``). A real x
+    takes half spectra (``hermitian=True``: ``rfftn``, the half spectrum
+    of the coefficients' Hermitian part, ``irfftn``): its real grid is the
+    real plane of the complex-to-complex round trip, for real and complex
+    coefficients alike, and so are the gradients. ``trace.counters()``
+    counts the calls of each as ``fastsum_route.c2c`` /
+    ``fastsum_route.half``."""
     check_strategy(strategy)
     m = int(cutoff if m is None else m)
     if targets is None:
@@ -327,9 +342,12 @@ def nfft_fastsum(x, coeffs, sources, targets=None, source_batch=None, target_bat
 
     x = _tensor(x, dev)
     xf = x.reshape(n_src, C)
-    if not _complex_ok():
-        if x.is_complex() or coeffs.is_complex():
-            raise _no_complex_error("nfft_fastsum with complex inputs")
+    half = not x.is_complex()
+    complex_ok = _complex_ok()
+    if not complex_ok and (x.is_complex() or coeffs.is_complex()):
+        raise _no_complex_error("nfft_fastsum with complex inputs")
+    fastsum_routes["half" if half else "c2c"] += 1
+    if not complex_ok:
         y = nfft_fastsum_real(xf, coeffs, sources, targets, source_batch, target_batch,
                               src.plan, tgt.plan, batch_size=bs_src, N=N, m=m,
                               sigma=float(sigma), strategy=strategy, window=window, device=dev)
@@ -337,7 +355,7 @@ def nfft_fastsum(x, coeffs, sources, targets=None, source_batch=None, target_bat
     g = src.spread(_planes(xf))
     g = run_stages(fastsum_spectral_stages(
         coeffs, dim=dim, N=N, M=src.M, m=m, sigma=float(sigma), window=window,
-        complex_x=x.is_complex(), hermitian=False), g)
+        complex_x=x.is_complex(), hermitian=half), g)
     y = tgt.gather(g)
     if x.is_complex():
         y = torch.complex(y[:, :C], y[:, C:])

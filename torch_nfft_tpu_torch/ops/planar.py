@@ -346,10 +346,13 @@ def fastsum_spectral_stages(coeffs: torch.Tensor, *, dim: int, N: int, M: int, m
     """The fastsum's spectral round trip as (name, function) stages, grid
     (batch_size, C, M^dim) in and out.
 
-    ``hermitian`` (real x and a real output, :func:`nfft_fastsum_real`):
-    the adjoint's half spectrum (``rfftn``), the filter (the half spectrum
-    of the coefficients' Hermitian part, ``fft.full_to_half``), the real
-    grid (``irfftn``). Otherwise complex to complex (``nfft_fastsum``): the
+    ``hermitian`` (real x and a real output): the adjoint's half spectrum
+    (``rfftn``), the filter (the half spectrum of the coefficients'
+    Hermitian part, ``fft.full_to_half``), the real grid (``irfftn``).
+    Exact for real and complex coefficients alike: the real grid is the
+    real plane of the complex-to-complex round trip. :func:`nfft_fastsum_real`
+    runs it, and ``nfft_fastsum`` for every real x. Otherwise complex to
+    complex (``nfft_fastsum`` with a complex x): the
     unnormalised inverse DFT, the band filter (``fastsum_band_filter``,
     built in the stage), the forward DFT; a real x keeps the output's real
     plane, a complex x arrives and leaves as its real and imaginary planes
@@ -385,13 +388,15 @@ def fastsum_stages(source_plan: BinnedPlan, target_plan: BinnedPlan, coeffs: tor
                    *, m: int, sigma: float, window: str, C: int = 1,
                    hermitian: bool = True) -> tuple:
     """The real fastsum for C columns as (name, function) stages in order:
-    the source plan's spread stages, the spectral round trip (Hermitian, as
-    :func:`nfft_fastsum_real` runs it, or with ``hermitian=False`` complex
-    to complex, as ``nfft_fastsum`` and so ``GramMatrix.apply`` run it), the
-    target plan's gather stages, each on the route (dense or flat grid) its
-    plan takes for C. The entry points run them (the spread and gather
-    stages inside their autograd Functions); chip_smoke.py times them one
-    by one."""
+    the source plan's spread stages, the spectral round trip, the target
+    plan's gather stages, each on the route (dense or flat grid) its plan
+    takes for C. The round trip is Hermitian by default, as
+    :func:`nfft_fastsum_real` and, for a real x, ``nfft_fastsum`` and so
+    ``GramMatrix.apply`` run it; with ``hermitian=False`` it is complex to
+    complex, as ``nfft_fastsum`` runs it for a complex x (whose two
+    planes take 2C columns there). The entry points run them (the
+    spread and gather stages inside their autograd Functions);
+    chip_smoke.py times them one by one."""
     N = coeffs.shape[0]
     return (spread_route(source_plan, C)
             + fastsum_spectral_stages(coeffs, dim=source_plan.dim, N=N, M=source_plan.M,

@@ -26,9 +26,12 @@ its ``backward``. The spans stay in memory until :func:`drain`.
 :func:`counters` reads every kernel wrapper's launch counter
 (``ops/contract.py``, ``ops/ragged.py``, ``ops/benes.py``,
 ``ops/bitonic.py``, ``ops/tilefold.py``), the bytes this rank handed to
-each kind of collective (``parallel/_comm.py``, ``sent_bytes.<kind>``) and
-``kernel_builds``, the compiles this process ran (``_build.build``,
-``_native.build_native``), in one snapshot.
+each kind of collective (``parallel/_comm.py``, ``sent_bytes.<kind>``),
+the ``nfft_fastsum`` calls by spectral route (``ops/nfft.py``,
+``fastsum_route.half`` and ``fastsum_route.c2c``) and ``kernel_builds``,
+the compiles this process ran (``_build.build``,
+``_native.build_native``), in one snapshot. The counters count whether
+the recorder is on or off, and read no clock.
 """
 
 from __future__ import annotations
@@ -204,9 +207,9 @@ def count_build() -> None:
 def counters() -> dict:
     """One snapshot of the program's counters: each kernel wrapper's
     ``launches`` under its name, a spread's ``launches_by_design`` as
-    ``<name>.<design>``, the collectives' ``sent_bytes.<kind>``, and
-    ``kernel_builds``."""
-    from .ops import benes, bitonic, contract, ragged, tilefold
+    ``<name>.<design>``, the collectives' ``sent_bytes.<kind>``, the
+    fastsum's ``fastsum_route.<route>``, and ``kernel_builds``."""
+    from .ops import benes, bitonic, contract, nfft, ragged, tilefold
 
     out = {}
     for mod, names in ((contract, ("spread_tiles_dense", "spread_tiles", "gather_points",
@@ -226,5 +229,7 @@ def counters() -> dict:
 
     for name, n in _comm.sent_bytes.items():
         out[f"sent_bytes.{name}"] = n
+    for name, n in nfft.fastsum_routes.items():
+        out[f"fastsum_route.{name}"] = n
     out["kernel_builds"] = _REC.builds
     return out
