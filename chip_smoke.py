@@ -1399,12 +1399,13 @@ def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
         # one member's pass by stage: what nfft_adjoint_planar and
         # nfft_forward_planar run for it
         sk = dict(m=BATCH_M, sigma=2.0, window="gaussian")
-        stages = (binned.spread_stages(plan0)
+        route0 = binned.TileRoute(plan0, "dense")
+        stages = (route0.spreading
                   + (("rfftn + mirror", lambda g: pfft.half_spectrum_to_full(
                       pfft.spectral_adjoint_half(g, DIM, BATCH_N, **sk), DIM, BATCH_N)),
                      ("fftn (C2C)", lambda y: pfft.spectral_forward(y, DIM, plan0.M, **sk)),
                      ("two planes", lambda g: torch.cat([g.real, g.imag], dim=1)))
-                  + binned.gather_stages(plan0))
+                  + route0.gathering)
         med = stage_ms(stages, layout.pack(x)[0])
         print(f"member 0's streamed pass by stage, C={BATCH_C}, ms (CUDA events, median of 5):")
         for (name, _), ms in zip(stages, med):
@@ -3012,8 +3013,9 @@ def single_device_phases(dev) -> tuple:
 
     with Phase("5i flat-grid route forced at C=1 vs the dense route"):
         st_dense = pair_stages(plan, N=N, m=M_CUT, sigma=SIGMA, window=WINDOW, C=1)
-        st_flat = (binned.spread_flat_stages(plan) + st_dense[3:5]
-                   + binned.gather_flat_stages(plan))
+        flat = binned.TileRoute(plan, "flat")
+        st_flat = (flat.spreading + tuple(s for s in st_dense if s[0] in ("rfftn", "irfftn"))
+                   + flat.gathering)
         rel_f1 = rel_l2(run_stages(st_flat, x), run_stages(st_dense, x))
         print(f"C=1 pair, flat vs dense route: rel_l2={rel_f1:.3e}")
         assert rel_f1 <= 1e-5, f"the forced flat route disagrees: {rel_f1:.3e}"

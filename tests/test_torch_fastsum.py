@@ -225,11 +225,12 @@ def test_fastsum_runs_its_stages_in_order(rng):
     # complex x: its real and imaginary planes (4 columns) through the C2C stages
     xc = (x + 1j * rng.standard_normal(x.shape)).astype(np.complex64)
     want = tp.nfft_fastsum(xc, coeffs, pos, source_plan=plan, cutoff=4, device="cpu")
-    stages = (pbinned.spread_route(plan, 4)
+    route = pbinned.tile_route(plan, 4)
+    stages = (route.spreading
               + fastsum_spectral_stages(torch.from_numpy(coeffs), dim=2, N=16, M=plan.M, m=4,
                                         sigma=2.0, window="gaussian", complex_x=True,
                                         hermitian=False)
-              + pbinned.gather_route(plan, 4)[0])
+              + route.gathering)
     assert [name for name, _ in stages] == [
         "slot_values", "spread kernel", "fold", "ifftn", "filter", "fftn", "unfold",
         "gather kernel", "unslot_values"]

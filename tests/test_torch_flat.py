@@ -99,8 +99,9 @@ def test_spread_tiles_empty_row_is_zero(rng):
     assert torch.equal(got[S], torch.zeros_like(got[S]))
     ref = pcontract.spread_tiles(plan, pbinned.slot_values(plan, torch.from_numpy(x)))
     assert torch.equal(got[:S], ref)
-    assert torch.equal(pbinned.run_stages(pbinned.spread_flat_stages(padded), torch.from_numpy(x)),
-                       pbinned.run_stages(pbinned.spread_flat_stages(plan), torch.from_numpy(x)))
+    assert torch.equal(
+        pbinned.run_stages(pbinned.TileRoute(padded, "flat").spreading, torch.from_numpy(x)),
+        pbinned.run_stages(pbinned.TileRoute(plan, "flat").spreading, torch.from_numpy(x)))
 
 
 @pytest.mark.parametrize("engine", ["windowed", "pallas"])
@@ -120,9 +121,10 @@ def test_flat_spread_gather_match_jax(rng, monkeypatch, engine, dim, B, C):
         monkeypatch.setattr(jbinned, "use_fold", _never_fold)
         ref_g = jbinned._spread_pallas(jplan, jx, jpos, B)
         ref_y = jbinned._gather_pallas(jplan, jg, jpos)
-    got_g = pbinned.run_stages(pbinned.spread_flat_stages(plan), torch.from_numpy(x))
+    flat = pbinned.TileRoute(plan, "flat")
+    got_g = pbinned.run_stages(flat.spreading, torch.from_numpy(x))
     np.testing.assert_allclose(got_g.numpy(), _grid_to_port(ref_g, plan, C), **TOL)
-    got_y = pbinned.run_stages(pbinned.gather_flat_stages(plan),
+    got_y = pbinned.run_stages(flat.gathering,
                                torch.from_numpy(_grid_to_port(g, plan, C)))
     np.testing.assert_allclose(got_y.numpy(), np.asarray(ref_y), **TOL)
 

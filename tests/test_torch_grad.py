@@ -26,6 +26,8 @@ from torch_nfft_tpu.ops import binned as jbinned
 from torch_nfft_tpu.ops import planar as jplanar
 from torch_nfft_tpu.ops import tilefold as jtilefold
 from torch_nfft_tpu.ops.pallas import contract as jcontract
+from torch_nfft_tpu_torch import trace
+from torch_nfft_tpu_torch.ops import binned as pbinned
 from torch_nfft_tpu_torch.ops import contract as pcontract
 from torch_nfft_tpu_torch.ops.tilefold import row_tile_ids
 
@@ -114,6 +116,58 @@ def test_engine_vjps_match_jax(rng, highest_precision, engine, dim, N):
     (tp.gather_binned(plan, gt, pt) * torch.from_numpy(x)).sum().backward()
     assert_close_to_max(gt.grad.numpy(), _grid_to_port(rg, plan, C))
     assert_close_to_max(pt.grad.numpy(), rp)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_local_tile_spaces_match_jax(rng, highest_precision, dim):
+    """dense_tiles_local and points_from_tiles_local on a caller's tile ids
+    (here the plan's own dense ids) against the JAX package's and their
+    custom VJPs: the tiles and the values, and the gradients in the
+    values, the tiles and the positions. Each backward runs inside a
+    ``backward`` span, its stages inside it."""
+    C, N = 2, 8
+    pos, batch, x, jplan, plan = _setup(rng, dim, N, B=1, C=C)
+    NT, tid = plan.NT, pbinned.dense_tile_ids(plan)
+    shape = (NT, C, plan.H, plan.H ** (dim - 1))
+    w = rng.standard_normal(shape).astype(np.float32)
+    tiles = rng.standard_normal(shape).astype(np.float32)
+    y = rng.standard_normal(x.shape).astype(np.float32)
+    jtid, jpos = jnp.asarray(tid.numpy()), jnp.asarray(pos)
+
+    def spread(a, b):
+        return jbinned.dense_tiles_local(NT, jplan, a, b, jtid).reshape(shape)
+
+    def gather(a, b):
+        return jbinned.points_from_tiles_local(NT, jplan, a, b, jtid)
+
+    ref_t = spread(jnp.asarray(x), jpos)
+    rx, rp = jax.grad(lambda a, b: jnp.vdot(spread(a, b), jnp.asarray(w)),
+                      argnums=(0, 1))(jnp.asarray(x), jpos)
+    ref_y = gather(jnp.asarray(tiles), jpos)
+    rt, rq = jax.grad(lambda a, b: jnp.vdot(gather(a, b), jnp.asarray(y)),
+                      argnums=(0, 1))(jnp.asarray(tiles), jpos)
+
+    trace.drain()
+    trace.enable()
+    try:
+        xt = torch.from_numpy(x).requires_grad_()
+        pt = torch.from_numpy(pos).requires_grad_()
+        got_t = pbinned.dense_tiles_local(NT, plan, xt, pt, tid)
+        (got_t * torch.from_numpy(w)).sum().backward()
+        tt = torch.from_numpy(tiles).requires_grad_()
+        qt = torch.from_numpy(pos).requires_grad_()
+        got_y = pbinned.points_from_tiles_local(NT, plan, tt, qt, tid)
+        (got_y * torch.from_numpy(y)).sum().backward()
+    finally:
+        trace.disable()
+        spans = sorted(trace.drain(), key=lambda s: (s.start_ns, s.id))
+    for got, ref in ((got_t.detach(), ref_t), (xt.grad, rx), (pt.grad, rp),
+                     (got_y.detach(), ref_y), (tt.grad, rt), (qt.grad, rq)):
+        assert_close_to_max(got.numpy(), ref)
+    backward = [s for s in spans if s.name == "backward"]
+    assert [[c.name for c in spans if c.parent == b.id] for b in backward] == [
+        ["gather kernel", "unslot_values", "pos_grad", "unslot_values"],
+        ["slot_values", "spread kernel", "pos_grad", "unslot_values"]]
 
 
 def test_value_grads_need_no_pos(rng):

@@ -174,10 +174,8 @@ def _stage_cases():
 @pytest.mark.parametrize("direction,route", _stage_cases())
 def test_run_stages_gives_one_span_per_stage(setup, recorder, direction, route):
     _, _, x, plan = setup
-    stages = {("spread", "dense"): binned.spread_stages,
-              ("gather", "dense"): binned.gather_stages,
-              ("spread", "flat"): binned.spread_flat_stages,
-              ("gather", "flat"): binned.gather_flat_stages}[direction, route](plan)
+    tile_route = binned.TileRoute(plan, route)
+    stages = {"spread": tile_route.spreading, "gather": tile_route.gathering}[direction]
     v = x if direction == "spread" else torch.ones(
         (plan.batch_size, x.shape[1]) + (plan.M,) * plan.dim)
     binned.run_stages(stages, v)

@@ -27,11 +27,13 @@ point -> slot map (the sort route), or, once ``with_benes_tables`` has
 routed them, through the Benes network (ops/benes.py) and the ragged row
 passes (ops/ragged.py), as the JAX package's default headline does.
 
-Both directions are differentiable in the values and in the point
-positions (``_Spread``, ``_Gather``): each value cotangent runs the other
-direction's kernel, and each position cotangent the derivative-window
-kernel ``pos_grad`` on the unfolded tiles, as the JAX package's fused
-backward does. Positions are never read for the forward: the plan's
+A call's way between the points and the grid (the permutation, the tile
+space, the movement between tiles and grid) is one :class:`TileRoute`,
+which :func:`tile_route` picks. Both directions are differentiable in the
+values and in the point positions (``_Spread``, ``_Gather``, on any
+route): each value cotangent runs the other direction's kernel, and each
+position cotangent the derivative-window kernel ``pos_grad`` on the
+unfolded tiles, as the JAX package's fused backward does. Positions are never read for the forward: the plan's
 ``slot_pos`` is, and ``pos`` is the input that receives the gradient.
 
 The T/K heuristics are copied from the JAX package for parity; they encode
@@ -41,6 +43,7 @@ TPU limits and are not tuned for the GPU.
 from __future__ import annotations
 
 import math
+from collections.abc import Callable
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -76,12 +79,8 @@ __all__ = [
     "gather_binned",
     "spread_binned_slot",
     "gather_binned_slot",
-    "spread_stages",
-    "gather_stages",
-    "spread_flat_stages",
-    "gather_flat_stages",
-    "spread_route",
-    "gather_route",
+    "TileRoute",
+    "tile_route",
     "tiles_to_grid",
     "grid_to_tiles",
     "run_stages",
@@ -636,29 +635,6 @@ def check_points(plan: BinnedPlan, x: torch.Tensor) -> None:
         raise ValueError(f"x has {x.shape[0]} points, the plan {plan.n}")
 
 
-def spread_stages(plan: BinnedPlan) -> tuple:
-    """The spread as (name, function) stages in order, each function taking
-    the previous one's result: x (n, C) -> grid (batch_size, C, M^dim).
-    :func:`spread_binned` runs them; chip_smoke.py times them one by one."""
-    return (
-        ("slot_values", lambda x: slot_values(plan, x.to(torch.float32))),
-        ("spread kernel",
-         lambda v: spread_tiles_dense(plan, v, dense_tile_ids(plan), plan.NT)),
-        ("fold", lambda tiles: fold_tiles_to_grid(tiles, plan)),
-    )
-
-
-def gather_stages(plan: BinnedPlan) -> tuple:
-    """The gather as stages, the transpose of :func:`spread_stages`:
-    grid (batch_size, C, M^dim) -> (n, C)."""
-    return (
-        ("unfold", lambda g: unfold_grid_to_tiles(g.to(torch.float32), plan)),
-        ("gather kernel", lambda tiles: gather_points(plan, tiles, row_tile_ids(plan))),
-        ("unslot_values",  # (S, C, K) -> (S*K, C) -> user order
-         lambda y: unslot_values(plan, y.transpose(1, 2).reshape(-1, y.shape[1]))),
-    )
-
-
 def _cell_chunks(plan: BinnedPlan, C: int, entries: int = 1 << 23):
     """Row ranges whose (R, C, H^dim) cell index stays under ``entries``."""
     S = plan.S
@@ -707,49 +683,6 @@ def grid_to_tiles(plan: BinnedPlan, g: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _row_ids(plan: BinnedPlan) -> torch.Tensor:
-    """(S,) int32 identity tile index: row s reads per-row tile s."""
-    return torch.arange(plan.S, dtype=torch.int32, device=plan.device)
-
-
-def spread_flat_stages(plan: BinnedPlan) -> tuple:
-    """The spread on the flat-grid route, as (name, function) stages:
-    x (n, C) -> grid (batch_size, C, M^dim) through per-row tiles."""
-    return (
-        ("slot_values", lambda x: slot_values(plan, x.to(torch.float32))),
-        ("spread tiles kernel", lambda v: spread_tiles(plan, v)),
-        ("tiles to grid", lambda tiles: tiles_to_grid(plan, tiles)),
-    )
-
-
-def gather_flat_stages(plan: BinnedPlan) -> tuple:
-    """The gather on the flat-grid route, the transpose of
-    :func:`spread_flat_stages`: grid (batch_size, C, M^dim) -> (n, C)."""
-    return (
-        ("grid to tiles", lambda g: grid_to_tiles(plan, g.to(torch.float32))),
-        ("gather kernel", lambda tiles: gather_points(plan, tiles, _row_ids(plan))),
-        ("unslot_values",
-         lambda y: unslot_values(plan, y.transpose(1, 2).reshape(-1, y.shape[1]))),
-    )
-
-
-def spread_route(plan: BinnedPlan, C: int) -> tuple:
-    """The spread's stages for C columns: dense unless the dense tile array
-    exceeds the budget of :func:`tilefold.use_fold`, then flat."""
-    if use_fold(plan, C, 4, plan.batch_size):
-        return spread_stages(plan)
-    return spread_flat_stages(plan)
-
-
-def gather_route(plan: BinnedPlan, C: int) -> tuple:
-    """(stages, tile_index): the gather's stages for C columns on the route
-    :func:`spread_route` takes, and the index by which row s reads its tile
-    from the first stage's tiles (dense tile ids, or the identity)."""
-    if use_fold(plan, C, 4, plan.batch_size):
-        return gather_stages(plan), row_tile_ids(plan)
-    return gather_flat_stages(plan), _row_ids(plan)
-
-
 class _Mark(torch.autograd.Function):
     """Identity whose backward calls ``mark`` (a :class:`trace.Deferred`'s
     ``open`` or ``close``) as the gradient passes."""
@@ -783,10 +716,145 @@ def run_stages(stages: tuple, v):
     return v
 
 
-def _pos_cotangent(plan: BinnedPlan, tiles, w_slot, pos, tile_index) -> torch.Tensor:
+@dataclass(frozen=True, eq=False)
+class TileRoute:
+    """How one call's values travel between its points and the grid, as
+    named (name, function) stages for :func:`run_stages`.
+
+    The permutation: user order (n, C) <-> the (C, S*K) slot layout
+    (``into_slots``: ``slot_values``; ``out_of_slots``: ``unslot_values``),
+    or, with ``slots``, values already in the slot layout, which only
+    change shape. The tile ``space`` of the kernels and the movement
+    between its tiles and the grid (``to_grid``, ``to_tiles``):
+
+    * ``"dense"``: the dense tile array, row s spreading into tile
+      :func:`dense_tile_ids` ``[s]`` and reading tile ``row_tile_ids[s]``,
+      moved by the fold and unfold of ops/tilefold.py;
+    * ``"flat"``: per-row tiles (``spread_tiles``, the identity tile
+      index), moved by :func:`tiles_to_grid` and :func:`grid_to_tiles`;
+    * ``"local"``: a caller's dense space of ``NT`` tiles, row s on tile
+      ``tid[s]``, moved by the caller's ``fold`` and ``unfold`` (which
+      record their own spans) or not at all.
+
+    :func:`tile_route` picks a call's route; ``spread`` and ``gather`` run
+    it as an autograd Function. Each tile index is formed in the stage
+    that reads it."""
+
+    plan: BinnedPlan
+    space: str
+    slots: bool = False
+    tid: torch.Tensor | None = None
+    NT: int = 0
+    fold: Callable | None = None  # local: tiles -> grid
+    unfold: Callable | None = None  # local: grid -> tiles
+
+    @property
+    def into_slots(self) -> tuple:
+        plan = self.plan
+        return () if self.slots else (
+            ("slot_values", lambda x: slot_values(plan, x.to(torch.float32))),)
+
+    @property
+    def spread_kernel(self) -> tuple:
+        plan = self.plan
+        if self.space == "flat":
+            return (("spread tiles kernel", lambda v: spread_tiles(plan, v)),)
+        return (("spread kernel", lambda v: spread_tiles_dense(plan, v, *self._spread_ids())),)
+
+    @property
+    def to_grid(self) -> tuple:
+        plan = self.plan
+        if self.space == "dense":
+            return (("fold", lambda tiles: fold_tiles_to_grid(tiles, plan)),)
+        if self.space == "flat":
+            return (("tiles to grid", lambda tiles: tiles_to_grid(plan, tiles)),)
+        return ()
+
+    @property
+    def to_tiles(self) -> tuple:
+        plan = self.plan
+        if self.space == "dense":
+            return (("unfold", lambda g: unfold_grid_to_tiles(g.to(torch.float32), plan)),)
+        if self.space == "flat":
+            return (("grid to tiles", lambda g: grid_to_tiles(plan, g.to(torch.float32))),)
+        return ()
+
+    @property
+    def gather_kernel(self) -> tuple:
+        return (("gather kernel",
+                 lambda tiles: gather_points(self.plan, tiles, self.tile_index())),)
+
+    @property
+    def out_of_slots(self) -> tuple:
+        plan = self.plan
+        return () if self.slots else (
+            ("unslot_values",  # (S, C, K) -> (S*K, C) -> user order
+             lambda y: unslot_values(plan, y.transpose(1, 2).reshape(-1, y.shape[1]))),)
+
+    @property
+    def spreading(self) -> tuple:
+        """The spread, x (n, C) -> grid (batch_size, C, M^dim), on a
+        user-order dense or flat route."""
+        return self.into_slots + self.spread_kernel + self.to_grid
+
+    @property
+    def gathering(self) -> tuple:
+        """The gather, the transpose of :attr:`spreading`."""
+        return self.to_tiles + self.gather_kernel + self.out_of_slots
+
+    def _spread_ids(self) -> tuple:
+        """(row tile ids, tile count) of the spread into dense tiles."""
+        if self.space == "local":
+            return self.tid, self.NT
+        return dense_tile_ids(self.plan), self.plan.NT
+
+    def tile_index(self) -> torch.Tensor:
+        """(S,) int32 index of the tile that row s reads."""
+        if self.space == "dense":
+            return row_tile_ids(self.plan)
+        if self.space == "flat":  # row s reads per-row tile s
+            return torch.arange(self.plan.S, dtype=torch.int32, device=self.plan.device)
+        return self.tid
+
+    def values_in(self, x: torch.Tensor) -> torch.Tensor:
+        """The values in the slot layout (C, S*K), contiguous."""
+        return run_stages(self.into_slots, x).contiguous()
+
+    def values_out(self, y: torch.Tensor) -> torch.Tensor:
+        """The gather kernel's (S, C, K) -> the caller's order."""
+        if self.slots:
+            return y.transpose(0, 1).reshape(y.shape[1], -1)
+        return run_stages(self.out_of_slots, y)
+
+    def grid_from(self, tiles: torch.Tensor) -> torch.Tensor:
+        if self.fold is not None:
+            return self.fold(tiles)
+        return run_stages(self.to_grid, tiles)
+
+    def tiles_from(self, g: torch.Tensor) -> torch.Tensor:
+        """The kernels' tiles, contiguous, of the grid (or local tiles) g."""
+        if self.unfold is not None:
+            return self.unfold(g)
+        return run_stages(self.to_tiles, g).contiguous()
+
+    def spread(self, x: torch.Tensor, pos: torch.Tensor | None = None) -> torch.Tensor:
+        return _Spread.apply(self, x, pos)
+
+    def gather(self, g: torch.Tensor, pos: torch.Tensor | None = None) -> torch.Tensor:
+        return _Gather.apply(self, g, pos)
+
+
+def tile_route(plan: BinnedPlan, C: int, *, slots: bool = False) -> TileRoute:
+    """The route for C columns on ``plan``: the dense tile space unless its
+    array exceeds the budget of :func:`tilefold.use_fold`, then flat."""
+    dense = use_fold(plan, C, 4, plan.batch_size)
+    return TileRoute(plan, "dense" if dense else "flat", slots=slots)
+
+
+def _pos_cotangent(route: TileRoute, tiles, w_slot, pos) -> torch.Tensor:
     """(n, dim) position cotangent, on ``pos``'s device and in its dtype,
-    from the tiles (row s reads ``tiles[tile_index[s]]``) and the
-    slot-ordered point weights."""
+    from the route's tiles and the slot-ordered point weights."""
+    plan, tile_index = route.plan, route.tile_index()
     with trace.span("pos_grad"):
         dp = pos_grad(plan, tiles, w_slot, tile_index)  # (S, dim, K)
     with trace.span("unslot_values"):
@@ -795,61 +863,55 @@ def _pos_cotangent(plan: BinnedPlan, tiles, w_slot, pos, tile_index) -> torch.Te
 
 
 class _Spread(torch.autograd.Function):
-    """x (n, C), pos (n, dim) or None -> grid (batch_size, C, M^dim), on the
-    route :func:`spread_route` picks for C. Backward: dx = gather of g_bar,
-    dpos = pos_grad(tiles of g_bar, w = x), the tiles read once for both."""
+    """Values, pos (n, dim) or None -> the route's grid. Backward: dx = the
+    gather of g_bar, dpos = pos_grad(tiles of g_bar, w = x in slot order),
+    the tiles read once for both."""
 
     @staticmethod
-    def forward(ctx, plan, x, pos):
-        stages = spread_route(plan, x.shape[1])
-        vals = run_stages(stages[:1], x)  # slot-ordered (C, S*K)
-        ctx.plan = plan
+    def forward(ctx, route, x, pos):
+        vals = route.values_in(x)
+        ctx.route = route
         ctx.save_for_backward(vals if ctx.needs_input_grad[2] else None, pos)
-        return run_stages(stages[1:], vals)
+        return route.grid_from(run_stages(route.spread_kernel, vals))
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     @trace.spanned("backward")
     def backward(ctx, g_bar):
-        plan = ctx.plan
+        route = ctx.route
         vals, pos = ctx.saved_tensors
-        stages, tile_index = gather_route(plan, g_bar.shape[1])
-        tiles = run_stages(stages[:1], g_bar)
+        tiles = route.tiles_from(g_bar)
         dx = dpos = None
         if ctx.needs_input_grad[1]:
-            dx = run_stages(stages[1:], tiles)
+            dx = route.values_out(run_stages(route.gather_kernel, tiles))
         if ctx.needs_input_grad[2]:
-            dpos = _pos_cotangent(plan, tiles, vals, pos, tile_index)
+            dpos = _pos_cotangent(route, tiles, vals, pos)
         return None, dx, dpos
 
 
 class _Gather(torch.autograd.Function):
-    """grid (batch_size, C, M^dim), pos (n, dim) or None -> (n, C), on the
-    route :func:`gather_route` picks for C. Backward: dg = spread(y_bar),
-    dpos = pos_grad(tiles of g, w = y_bar), y_bar put in slot order once for
-    both."""
+    """The route's grid, pos (n, dim) or None -> values: the transpose of
+    :class:`_Spread`. Backward: dg = spread(y_bar), dpos = pos_grad(tiles
+    of g, w = y_bar), y_bar put in slot order once for both."""
 
     @staticmethod
-    def forward(ctx, plan, g, pos):
-        ctx.plan = plan
+    def forward(ctx, route, g, pos):
+        ctx.route = route
         ctx.save_for_backward(g if ctx.needs_input_grad[2] else None, pos)
-        return run_stages(gather_route(plan, g.shape[1])[0], g)
+        return route.values_out(run_stages(route.gather_kernel, route.tiles_from(g)))
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     @trace.spanned("backward")
     def backward(ctx, y_bar):
-        plan = ctx.plan
+        route = ctx.route
         g, pos = ctx.saved_tensors
-        stages = spread_route(plan, y_bar.shape[1])
-        w_slot = run_stages(stages[:1], y_bar)  # slot-ordered (C, S*K)
+        w_slot = route.values_in(y_bar)
         dg = dpos = None
         if ctx.needs_input_grad[1]:
-            dg = run_stages(stages[1:], w_slot)
+            dg = route.grid_from(run_stages(route.spread_kernel, w_slot))
         if ctx.needs_input_grad[2]:
-            g_stages, tile_index = gather_route(plan, g.shape[1])
-            tiles = run_stages(g_stages[:1], g)
-            dpos = _pos_cotangent(plan, tiles, w_slot, pos, tile_index)
+            dpos = _pos_cotangent(route, route.tiles_from(g), w_slot, pos)
         return None, dg, dpos
 
 
@@ -866,7 +928,7 @@ def spread_binned(plan: BinnedPlan, x: torch.Tensor,
     (n, dim); the forward reads the plan's copy)."""
     check_points(plan, x)
     _check_pos(plan, pos)
-    return _Spread.apply(plan, x, pos)
+    return tile_route(plan, x.shape[1]).spread(x, pos)
 
 
 def _check_grid(plan: BinnedPlan, g: torch.Tensor) -> None:
@@ -884,54 +946,13 @@ def gather_binned(plan: BinnedPlan, g: torch.Tensor,
     given, in ``pos``."""
     _check_grid(plan, g)
     _check_pos(plan, pos)
-    return _Gather.apply(plan, g, pos)
+    return tile_route(plan, g.shape[1]).gather(g, pos)
 
 
 # Slot layout: the spread and gather without the user <-> slot permutation,
 # for iterated matvecs on one point set (the JAX package's
 # ``spread_binned_dft_slot`` / ``gather_binned_dft_slot``). The slot vector
 # is the same (C, S*K) on the dense and the flat route.
-
-
-def _spread_slot(plan: BinnedPlan, v: torch.Tensor) -> torch.Tensor:
-    return run_stages(spread_route(plan, v.shape[0])[1:], v.contiguous())
-
-
-def _gather_slot(plan: BinnedPlan, g: torch.Tensor) -> torch.Tensor:
-    y = run_stages(gather_route(plan, g.shape[1])[0][:2], g)  # (S, C, K)
-    return y.transpose(0, 1).reshape(y.shape[1], -1)
-
-
-class _SpreadSlot(torch.autograd.Function):
-    """(C, S*K) slot vector -> grid (batch_size, C, M^dim). Backward: the
-    slot gather, also permutation-free."""
-
-    @staticmethod
-    def forward(ctx, plan, v):
-        ctx.plan = plan
-        return _spread_slot(plan, v)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    @trace.spanned("backward")
-    def backward(ctx, g_bar):
-        return None, _gather_slot(ctx.plan, g_bar)
-
-
-class _GatherSlot(torch.autograd.Function):
-    """grid (batch_size, C, M^dim) -> (C, S*K) slot vector, padded slots
-    zero. Backward: the slot spread."""
-
-    @staticmethod
-    def forward(ctx, plan, g):
-        ctx.plan = plan
-        return _gather_slot(plan, g)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    @trace.spanned("backward")
-    def backward(ctx, v_bar):
-        return None, _spread_slot(ctx.plan, v_bar)
 
 
 def spread_binned_slot(plan: BinnedPlan, v: torch.Tensor) -> torch.Tensor:
@@ -943,7 +964,7 @@ def spread_binned_slot(plan: BinnedPlan, v: torch.Tensor) -> torch.Tensor:
     if v.ndim != 2 or v.shape[1] != plan.S * plan.K:
         raise ValueError(f"v has shape {tuple(v.shape)}, the plan's slot vectors "
                          f"are (C, {plan.S * plan.K})")
-    return _SpreadSlot.apply(plan, v.to(torch.float32))
+    return tile_route(plan, v.shape[0], slots=True).spread(v.to(torch.float32))
 
 
 def gather_binned_slot(plan: BinnedPlan, g: torch.Tensor) -> torch.Tensor:
@@ -951,59 +972,13 @@ def gather_binned_slot(plan: BinnedPlan, g: torch.Tensor) -> torch.Tensor:
     no permutation (the transpose of :func:`spread_binned_slot`).
     Differentiable in ``g`` only."""
     _check_grid(plan, g)
-    return _GatherSlot.apply(plan, g.to(torch.float32))
+    return tile_route(plan, g.shape[1], slots=True).gather(g.to(torch.float32))
 
 
 # Local tile spaces for the grid-sharded transforms (parallel/grid_sharded.py,
 # the JAX package's ``dense_tiles_local``/``points_from_tiles_local``): the
-# dense-route kernels with the caller's row tile ids and tile count, as
-# autograd Functions whose backwards run the other direction's kernel for
-# the values and B5 for the positions.
-
-
-class _DenseTilesLocal(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, NT, plan, x, pos, tid):
-        vals = slot_values(plan, x.to(torch.float32))
-        ctx.plan, ctx.tid = plan, tid
-        ctx.save_for_backward(vals if ctx.needs_input_grad[3] else None, pos)
-        return spread_tiles_dense(plan, vals, tid, NT)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g_bar):
-        plan, tid = ctx.plan, ctx.tid
-        vals, pos = ctx.saved_tensors
-        g_bar = g_bar.contiguous()
-        dx = dpos = None
-        if ctx.needs_input_grad[2]:
-            y = gather_points(plan, g_bar, tid)  # (S, C, K)
-            dx = unslot_values(plan, y.transpose(1, 2).reshape(-1, y.shape[1]))
-        if ctx.needs_input_grad[3]:
-            dpos = _pos_cotangent(plan, g_bar, vals, pos, tid)
-        return None, None, dx, dpos, None
-
-
-class _PointsFromTilesLocal(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, NT, plan, tiles, pos, tid):
-        ctx.plan, ctx.tid, ctx.NT = plan, tid, NT
-        ctx.save_for_backward(tiles if ctx.needs_input_grad[3] else None, pos)
-        y = gather_points(plan, tiles, tid)
-        return unslot_values(plan, y.transpose(1, 2).reshape(-1, y.shape[1]))
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, y_bar):
-        plan, tid = ctx.plan, ctx.tid
-        tiles, pos = ctx.saved_tensors
-        w_slot = slot_values(plan, y_bar.to(torch.float32))
-        dt = dpos = None
-        if ctx.needs_input_grad[2]:
-            dt = spread_tiles_dense(plan, w_slot, tid, ctx.NT)
-        if ctx.needs_input_grad[3]:
-            dpos = _pos_cotangent(plan, tiles, w_slot, pos, tid)
-        return None, None, dt, dpos, None
+# dense-route kernels with the caller's row tile ids and tile count, on a
+# local route with no tile movement.
 
 
 def dense_tiles_local(NT: int, plan: BinnedPlan, x: torch.Tensor, pos, tid: torch.Tensor):
@@ -1013,7 +988,7 @@ def dense_tiles_local(NT: int, plan: BinnedPlan, x: torch.Tensor, pos, tid: torc
     requires grad, in the positions (B5)."""
     check_points(plan, x)
     _check_pos(plan, pos)
-    return _DenseTilesLocal.apply(NT, plan, x, pos, tid)
+    return TileRoute(plan, "local", tid=tid, NT=NT).spread(x, pos)
 
 
 def points_from_tiles_local(NT: int, plan: BinnedPlan, tiles: torch.Tensor, pos,
@@ -1024,4 +999,4 @@ def points_from_tiles_local(NT: int, plan: BinnedPlan, tiles: torch.Tensor, pos,
     ``pos`` requires grad, in the positions (B5)."""
     _check_values(plan, tiles, "tiles")
     _check_pos(plan, pos)
-    return _PointsFromTilesLocal.apply(NT, plan, tiles, pos, tid)
+    return TileRoute(plan, "local", tid=tid, NT=NT).gather(tiles, pos)

@@ -43,12 +43,11 @@ from .binned import (
     build_plan_device,
     gather_binned,
     gather_binned_slot,
-    gather_route,
     position_fingerprint,
     run_stages,
     spread_binned,
     spread_binned_slot,
-    spread_route,
+    tile_route,
 )
 from .contract import check_window_width
 from .fft import (
@@ -310,10 +309,11 @@ def pair_stages(plan: BinnedPlan, *, N: int, m: int, sigma: float,
     the route (dense or flat grid) the pair takes for C.
     :func:`nfft_pair_planar` runs them (the spread and gather stages inside
     their autograd Functions); chip_smoke.py times them one by one."""
-    return (spread_route(plan, C)
+    route = tile_route(plan, C)
+    return (route.spreading
             + _spectral_stages(dim=plan.dim, N=N, M=plan.M, m=m, sigma=sigma, window=window,
                                device=plan.device)
-            + gather_route(plan, C)[0])
+            + route.gathering)
 
 
 @trace.spanned("nfft_pair_planar")
@@ -398,10 +398,10 @@ def fastsum_stages(source_plan: BinnedPlan, target_plan: BinnedPlan, coeffs: tor
     spread and gather stages inside their autograd Functions);
     chip_smoke.py times them one by one."""
     N = coeffs.shape[0]
-    return (spread_route(source_plan, C)
+    return (tile_route(source_plan, C).spreading
             + fastsum_spectral_stages(coeffs, dim=source_plan.dim, N=N, M=source_plan.M,
                                       m=m, sigma=sigma, window=window, hermitian=hermitian)
-            + gather_route(target_plan, C)[0])
+            + tile_route(target_plan, C).gathering)
 
 
 def slot_io_ok(plan, C: int, batch_size: int) -> bool:

@@ -20,7 +20,7 @@ alike, multiplies the gradient by the group's size.
 
 :func:`ring_shift` stands for ``lax.ppermute`` by one place around a group
 (``batch_isend_irecv``). It is a plain transfer: the grid-sharded slab's
-fold and unfold, whose autograd Functions are each other's backward,
+fold and unfold, each the other's backward on the shard's tile route,
 call it in both directions. A group of one rank is a ring of one: NCCL
 sends to itself, otherwise the shift is a copy. A group of one does no
 all-reduce or all-gather. Every function takes its group explicitly;

@@ -44,14 +44,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..ops.binned import (
-    BinnedPlan,
-    build_plan,
-    default_tile,
-    dense_tiles_local,
-    host_array,
-    points_from_tiles_local,
-)
+from ..ops.binned import BinnedPlan, TileRoute, build_plan, default_tile, host_array
 from .. import trace
 from ..ops.fft import (
     _cells_spec,
@@ -216,34 +209,6 @@ def _unfold_from_slab(g: torch.Tensor, plan: BinnedPlan, A0: int, group) -> torc
         return unfold_slab_to_tiles(g, halo, plan, A0)
 
 
-class _FoldSlab(torch.autograd.Function):
-    """:func:`_fold_to_slab`; its transpose, the backward, is the unfold."""
-
-    @staticmethod
-    def forward(ctx, tiles, plan, A0, group):
-        ctx.plan, ctx.A0, ctx.group = plan, A0, group
-        return _fold_to_slab(tiles, plan, A0, group)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        return _unfold_from_slab(g, ctx.plan, ctx.A0, ctx.group), None, None, None
-
-
-class _UnfoldSlab(torch.autograd.Function):
-    """:func:`_unfold_from_slab`; its transpose, the backward, is the fold."""
-
-    @staticmethod
-    def forward(ctx, g, plan, A0, group):
-        ctx.plan, ctx.A0, ctx.group = plan, A0, group
-        return _unfold_from_slab(g, plan, A0, group)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, t):
-        return _fold_to_slab(t.contiguous(), ctx.plan, ctx.A0, ctx.group), None, None, None
-
-
 # ---------------------------------------------------------------------------
 # Spectral stages of a grid sharded on axis 0: cuFFT's half spectra over the
 # slab's own axes 1.., the slab's rows of the axis-0 pruned DFT matrix as
@@ -354,8 +319,10 @@ def spectral_forward_pruned_dft_sharded0(xr, xi, dim, M, m, sigma, group, n_shar
 
 
 class _Shard:
-    """One rank's view of a layout on a mesh axis: its plan, local tile
-    ids and points, and the packing of global values into its slab."""
+    """One rank's view of a layout on a mesh axis: its plan, its points,
+    the packing of global values into its slab, and its tile route (the
+    slab's local tile ids, its fold and its unfold), on which the spread
+    and the gather run as the binned engine's autograd Functions."""
 
     def __init__(self, layout: GridShardedLayout, mesh, axis_name: str):
         self.lay = layout
@@ -368,9 +335,13 @@ class _Shard:
             raise ValueError(f"the layout lives on {layout.plans.device}, the mesh "
                              f"computes on {self.dev}")
         self.r = rank(self.group)
-        self.plan = index_plan(layout.plans, self.r)
-        self.tid = _local_tile_ids(self.plan, layout.A0_loc, self.r)
+        self.plan = plan = index_plan(layout.plans, self.r)
         self.index = layout.point_index[self.r].to(torch.int64)
+        A0, group = layout.A0_loc, self.group
+        self.route = TileRoute(plan, "local", tid=_local_tile_ids(plan, A0, self.r),
+                               NT=layout.NT,
+                               fold=lambda tiles: _fold_to_slab(tiles, plan, A0, group),
+                               unfold=lambda g: _unfold_from_slab(g, plan, A0, group))
 
     def pack(self, x: torch.Tensor) -> torch.Tensor:
         """(n, C) global values -> this slab's (n_loc, C), padded slots 0."""
@@ -387,16 +358,11 @@ class _Shard:
 
     def spread(self, x: torch.Tensor) -> torch.Tensor:
         """(n, C) global values -> this rank's grid slab (1, C, L0, M, ...)."""
-        with trace.span("spread kernel"):
-            tiles = dense_tiles_local(self.lay.NT, self.plan, self.pack(x), None, self.tid)
-        return _FoldSlab.apply(tiles, self.plan, self.lay.A0_loc, self.group)
+        return self.route.spread(self.pack(x))
 
     def gather(self, g: torch.Tensor) -> torch.Tensor:
         """This rank's grid slab -> the global (n, C)."""
-        tiles = _UnfoldSlab.apply(g, self.plan, self.lay.A0_loc, self.group)
-        with trace.span("gather kernel"):
-            y = points_from_tiles_local(self.lay.NT, self.plan, tiles, None, self.tid)
-        return self.unpack(y)
+        return self.unpack(self.route.gather(g))
 
 
 def _spectrum_in(a, dev) -> torch.Tensor:
