@@ -34,14 +34,17 @@ times each kernel with CUDA events beside its bound, its plain version and
 one PyTorch call of the same function where there is one (the sort's
 kernels call by call along its schedule; the ragged row passes also at C = 8
 in the layouts the slot permutations pass them; the two spreads at C = 1 and
-8 also beside the share of the float32 peak their issued flops reach and a
-yardstick for the contraction alone, ``torch.bmm`` of preformed operands
+8 also beside the share of the 67 TFLOP/s peak their issued flops reach and
+a yardstick for the contraction alone, ``torch.bmm`` of preformed operands
 over every row), times the sort, the Benes network, the ragged passes and
-the spreads' contraction with other block, tile, row-group, chunk and band
-sizes (each bitwise equal to the defaults), holds both spread designs
-against the plain versions on the headline points binned at T = 8 and
-T = 16, times the per-row spread's two designs at T = 8-24 and C = 1-8
-(which set ``contract.DENSE_RATIO_MAX``), times the gather and the
+the spreads' contractions with other block, tile, row-group, chunk, band
+and warp sizes (each equal to the defaults, bit for bit or, the tensor
+design's, to a float32 ulp), holds the three spread designs against the
+plain versions on the headline points binned at T = 8 and T = 16, times
+the per-row spread's three designs at T = 8-24 and C = 1-8 (which set
+``contract.DENSE_RATIO_MAX`` and the tensor design's rows and columns,
+each time beside its share of the bound and the issued flops' share of
+the peak), times the gather and the
 position gradient at C = 1 and 8 in every launch layout (threads a
 block, lanes sorted by bank or not: the times behind
 ``contract.POINTS_LAYOUT``; phase 1 requires every instantiation of their
@@ -53,7 +56,7 @@ package's fastsum bench at full width through ``GaussianKernel(0.4,
 dim=3, bandwidth=256, cutoff=4)`` on 2^22 points uniform in [-1, 1)^3
 (gaussian window, m = 4, sigma = 2): the spread, gather and
 position-gradient kernels against their plain versions at that geometry
-(bit for bit across two launches) and both spread designs timed; the
+(bit for bit across two launches) and the three spread designs timed; the
 matvec at C = 1 (dense route) and 8 (flat route) with its launches, its
 route (half spectra, ``rfftn``/``irfftn``, which ``nfft_fastsum`` takes
 for a real x, counted by ``fastsum_route.half``), its stages and peak
@@ -204,7 +207,8 @@ SAVE_S_MAX = 30.0
 SHARD_P, SHARD_TIMEOUT_S, SHARD_JOIN_S, GRID_T, TRAIN_B = 4, 120, 600, 16, 2
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and float32 outside the
-# tensor cores; the kernels do float32 arithmetic on the CUDA cores
+# tensor cores, which is also the FP64 tensor cores' (the spread's tensor
+# design); the other kernels do float32 arithmetic on the CUDA cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
@@ -254,7 +258,7 @@ SLAB_MOVES = ("fold_tiles_to_slab", "unfold_slab_to_tiles")
 # a dense-route training step: the pair folds and unfolds once; its backward
 # folds the point cotangent and unfolds the grid cotangent and the primal grid
 STEP_MOVES = {"fold_tiles_to_grid": 2, "unfold_grid_to_tiles": 3}
-# the spreads (B1, B7) have two designs (contract.spread_design)
+# the spreads (B1, B7) have three designs (contract.spread_design)
 SPREADS = ("spread_tiles_dense", "spread_tiles")
 # pos.grad of the Benes and the sort route's training steps: held to the
 # limit set when the spread's float atomics reordered its sums on every run
@@ -347,12 +351,15 @@ def read_designs() -> dict:
     return {name: dict(getattr(contract, name).launches_by_design) for name in SPREADS}
 
 
-def issued_flops(plan, C: int) -> float:
-    """Flops the contraction design issues for one spread of the plan's n
-    points at C columns: each point's multiply-adds over every row and
-    column of its bands' thread tiles, zero padding included (the operands'
+def issued_flops(plan, C: int, name: str | None = None) -> float:
+    """Flops a dense spread design (the default for the geometry, or
+    ``name``) issues for one spread of the plan's n points at C columns:
+    each point's multiply-adds over every row and column of its bands'
+    thread tiles or m16 x n8 tiles, zero padding included (the operands'
     formation not counted)."""
-    d = contract.spread_design(plan.dim, plan.H, plan.m, C, name="contraction")
+    d = contract.spread_design(plan.dim, plan.H, plan.m, C, name=name)
+    if d.name == "wide":
+        d = contract.spread_design(plan.dim, plan.H, plan.m, C, name="contraction")
     return 2.0 * plan.n * d.issued_macs
 
 
@@ -385,19 +392,33 @@ def spread_yardstick(plan, vals, chunk: int = 256) -> float:
     return total
 
 
+DESIGNS = ("contraction", "tensor", "wide")
+
+
 def design_ms(spread, plan, C: int, reps: int):
-    """([contraction ms, wide ms], rel-L2 between the two): ``spread(d)``,
-    a spread of C columns on ``plan`` under the design ``d``, timed and run
-    once under each design, the two outputs held against each other
-    (1e-5)."""
-    designs = [contract.spread_design(plan.dim, plan.H, plan.m, C, name=d_name)
-               for d_name in ("contraction", "wide")]
-    times = [time_ms(lambda: spread(d), reps) for d in designs]
-    outs = [spread(d) for d in designs]
-    rel = rel_l2_rows(outs[0], outs[1])
-    del outs
-    assert rel <= 1e-5, f"the two designs disagree: {rel:.3e}"
+    """({design: ms}, largest rel-L2 of a design against the contraction):
+    ``spread(d)``, a spread of C columns on ``plan`` under the design
+    ``d``, timed and run once under each of DESIGNS, the outputs held
+    against the contraction's (1e-5)."""
+    designs = {d_name: contract.spread_design(plan.dim, plan.H, plan.m, C, name=d_name)
+               for d_name in DESIGNS}
+    times = {k: time_ms(lambda: spread(d), reps) for k, d in designs.items()}
+    want = spread(designs["contraction"])
+    rel = max(rel_l2_rows(spread(designs[k]), want) for k in DESIGNS[1:])
+    del want
+    assert rel <= 1e-5, f"the designs disagree: {rel:.3e}"
     return times, rel
+
+
+def design_line(times: dict, plan, C: int, bound_ms: float) -> str:
+    """Each design's time, its share of the bound and, for the two dense
+    designs, the issued flops' share of the 67 TFLOP/s peak."""
+    parts = []
+    for k, ms in times.items():
+        share = "" if k == "wide" else (
+            f", issued {issued_flops(plan, C, k) / (ms * 1e-3) / PEAK_F32_FLOPS:.1%} of peak")
+        parts.append(f"{k} {ms:.4f} ms ({bound_ms / ms:.1%} of bound{share})")
+    return "; ".join(parts)
 
 
 def ptxas_report(log: str, kernel: str) -> list:
@@ -818,17 +839,19 @@ def gram_phases(dev, gen, report: list) -> torch.Tensor:
             entry[name]["max_abs_err"] = max(entry[name]["max_abs_err"], mx)
         del tiles1, tiles8, tiles_primal, w_ybar
         # the spread designs at this ratio: the first reading of the rule at m = 4
-        for name, C, fn in (
+        for name, C, fn, b_d in (
                 ("spread_tiles_dense", 1,
-                 lambda d: contract.spread_tiles_dense(plan, vals1, tid_s, plan.NT, d)),
-                ("spread_tiles", 1, lambda d: contract.spread_tiles(plan, vals1, d)),
-                ("spread_tiles", C_WIDE, lambda d: contract.spread_tiles(plan, vals8, d))):
-            (t_c, t_w), rel_d = design_ms(fn, plan, C, 3)
+                 lambda d: contract.spread_tiles_dense(plan, vals1, tid_s, plan.NT, d), b1[0][0]),
+                ("spread_tiles", 1, lambda d: contract.spread_tiles(plan, vals1, d), b1[3][0]),
+                ("spread_tiles", C_WIDE, lambda d: contract.spread_tiles(plan, vals8, d),
+                 b8[3][0])):
+            times_d, rel_d = design_ms(fn, plan, C, 3)
             chosen = contract.spread_design(DIM, H, plan.m, C)
             print(f"{name} C={C} at the Gram geometry (H={H}, L={2 * plan.m + 2}, ratio "
-                  f"{chosen.ratio:.2f}): contraction {t_c:.4f} ms, wide {t_w:.4f} ms, faster "
-                  f"{'contraction' if t_c < t_w else 'wide'}, the rule takes {chosen.name}; "
-                  f"designs agree to rel_l2={rel_d:.3e}")
+                  f"{chosen.ratio:.2f}, bound {b_d:.4f} ms): "
+                  f"{design_line(times_d, plan, C, b_d)}; faster "
+                  f"{min(times_d, key=times_d.get)}, the rule takes {chosen.name}; designs "
+                  f"agree to rel_l2={rel_d:.3e}")
         del vals1, vals8
 
     launches = {}
@@ -1386,7 +1409,7 @@ def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
                   f"H={plan0.H}): kernel vs plain max_abs={mx:.3e} rel_l2={rl:.3e}; two launches "
                   f"bitwise equal: {same}{ran}; {ms:.4f} ms")
             # the wide spread design sums by float atomics: no bitwise repeat
-            must_repeat = design is None or design.get("contraction", 0) > 0
+            must_repeat = design is None or design.get("wide", 0) == 0
             assert rl <= 1e-5 and (same or not must_repeat), \
                 f"{name} at member 0: {rl:.3e}, repeat {same}"
             entry[name]["max_abs_err"] = max(entry[name]["max_abs_err"], mx)
@@ -2436,12 +2459,16 @@ def single_device_phases(dev) -> tuple:
             if "ptxas" in line and ("registers" in line or "Compiling" in line
                                     or "spill" in line or "smem" in line):
                 print("  " + line.strip())
-        if res.log:  # a fresh build: the contraction spread keeps no stack
+        if res.log:  # a fresh build: the FP32 contraction spread keeps no stack
             rep_ptx = ptxas_report(res.log, "spread_contract_kernel")
             for name, regs, stack, spill in rep_ptx:
                 print(f"spread_contract_kernel {name[-60:]}: {regs} registers, "
                       f"{stack} bytes stack, {spill} bytes spilled")
-            assert rep_ptx and all(st == 0 and sp == 0 for _, _, st, sp in rep_ptx), \
+            # <kPerRow, kMT = 0, 1>: the contraction; the tensor design's
+            # 32 and 40 doubles a lane spill a few words at 128 registers
+            fp32 = [r for r in rep_ptx if "ELi0ELi1EE" in r[0]]
+            assert len(fp32) == 2 and len(rep_ptx) == 6, rep_ptx
+            assert all(st == 0 and sp == 0 for _, _, st, sp in fp32), \
                 "the contraction spread uses stack or spills"
             # nor does any instantiation of the gather and the position
             # gradient (L = 2..20, staged at C = 1 / C > 1, or global)
@@ -2516,8 +2543,8 @@ def single_device_phases(dev) -> tuple:
               f"ratio {design_b1.ratio:.2f}, R={design_b1.R}, "
               f"KC={design_b1.KC}); two launches "
               f"bitwise equal: {torch.equal(again, tiles_k)}")
-        assert designs_b1["contraction"] == 1 and torch.equal(again, tiles_k), \
-            "B1 at the headline must run the contraction and repeat bit for bit"
+        assert designs_b1["tensor"] == 1 and torch.equal(again, tiles_k), \
+            "B1 at the headline must run the tensor design and repeat bit for bit"
         del tiles_k, again
         gen = torch.Generator(device=dev).manual_seed(5)
         grid = torch.randn((1, 1) + (plan.M,) * DIM, device=dev, generator=gen)
@@ -2661,8 +2688,9 @@ def single_device_phases(dev) -> tuple:
                   f"bitwise equal: {same}")
             assert errs[-1][1] <= 1e-5, f"spread_tiles disagrees: {errs[-1][1]:.3e}"
             assert empty_zero, "the empty row's tile is not zero"
-            assert designs["contraction"] == 1 and same, \
-                "B7 at the headline must run the contraction and repeat bit for bit"
+            want_d = contract.spread_design(DIM, plan.H, plan.m, xc.shape[1]).name
+            assert want_d != "wide" and designs[want_d] == 1 and same, \
+                f"B7 at the headline must run the {want_d} design and repeat bit for bit"
             del v_e, t_k
         err["spread_tiles"] = tuple(map(max, zip(*errs)))
         del plan_e
@@ -2805,8 +2833,9 @@ def single_device_phases(dev) -> tuple:
             f"a kernel was not launched: {launches_pair}"
         assert all(launches_pair[k] == 4 for k in TILE_MOVES), \
             f"each dense pair must fold and unfold once: {launches_pair}"
-        assert designs_pair["spread_tiles_dense"]["wide"] == 0, \
-            "the headline dense pair must run the contraction design"
+        assert designs_pair["spread_tiles_dense"]["wide"] == 0 \
+            and designs_pair["spread_tiles_dense"]["tensor"] > 0, \
+            "the headline dense pair must run the tensor design"
         assert tuple(z.shape) == (n, 1) and bool(torch.isfinite(z).all()), "bad pair output"
         rel_h = sampled_frequency_check(plan, pos, x, dev)
         print(f"headline rel_l2 at 96 sampled frequencies: {rel_h:.3e}")
@@ -3198,9 +3227,10 @@ def single_device_phases(dev) -> tuple:
             next(r for r in report if r["name"] == name)[f"c{C_WIDE}"] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None}
-        # the two spreads: their design, the share of the float32 peak the
-        # contraction's issued flops reach, and the yardstick of the
-        # contraction alone (torch.bmm of preformed operands); B7 also at C=1
+        # the two spreads: their design, the share of the 67 TFLOP/s peak
+        # (FP32 CUDA cores, FP64 tensor cores) the design's issued flops
+        # reach, and the yardstick of the contraction alone (torch.bmm of
+        # preformed operands); B7 also at C=1
         ms1 = time_ms(lambda: contract.spread_tiles(plan, vals), 10)
         for name, C_s, ms_s, b_s in (
                 ("spread_tiles_dense", 1, None, b_spread),
@@ -3214,7 +3244,7 @@ def single_device_phases(dev) -> tuple:
             print(f"{name} C={C_s}: {ms_s:.4f} ms, {d.name} design (R={d.R}, KC={d.KC}, "
                   f"{d.row_bands} band(s) of {d.threads} threads), "
                   f"{b_s / ms_s:.1%} of its bound; issued flops {issued_flops(plan, C_s):.3e} "
-                  f"= {share:.1%} of the float32 peak; yardstick (contraction alone, "
+                  f"= {share:.1%} of the 67 TFLOP/s peak; yardstick (contraction alone, "
                   f"torch.bmm of preformed float32 operands over all {plan.S} rows, "
                   f"256 a call, times added) {yard:.4f} ms")
             info = {"design": d.name, "issued_flop_share": share, "yardstick_ms": yard,
@@ -3315,26 +3345,41 @@ def single_device_phases(dev) -> tuple:
                       f"bitwise equal to the defaults'")
             ragged.GROUP_LOG2 = keep
             del stream_r, rows_r, want_e, want_c
-        # the spreads' contraction with other chunk sizes KC and bands of R
-        # rows, each bitwise equal to the defaults'
-        grid_sp = {1: ((8, None), (32, None), (16, 8)),
-                   C_WIDE: ((16, None), (64, None), (32, 104), (32, 40))}
+        # the spreads' contractions with other chunk sizes KC, bands of R rows
+        # and (the tensor design) most warps a block, each equal to the
+        # design's defaults: the contraction bit for bit, the tensor design
+        # to a float32 ulp
+        grid_sp = {("contraction", 1): ((8, None, None), (32, None, None), (16, 8, None)),
+                   ("contraction", C_WIDE): ((16, None, None), (64, None, None),
+                                             (32, 104, None), (32, 40, None)),
+                   ("tensor", 1): ((16, None, None), (128, None, None), (64, 8, None),
+                                   (64, None, 4)),
+                   ("tensor", C_WIDE): ((32, None, None), (64, 64, None), (64, 40, 8))}
         for name, C_s, fn in (
                 ("spread_tiles_dense", 1,
                  lambda d: contract.spread_tiles_dense(plan, vals, tid_spread, plan.NT, d)),
                 ("spread_tiles", 1, lambda d: contract.spread_tiles(plan, vals, d)),
                 ("spread_tiles", C_WIDE, lambda d: contract.spread_tiles(plan, vals8, d))):
-            want = fn(None)
-            for KC_g, R_g in ((None, None),) + grid_sp[C_s]:
-                d = contract.spread_design(DIM, plan.H, plan.m, C_s, KC=KC_g, R=R_g)
-                assert torch.equal(fn(d), want), \
-                    f"{name} C={C_s} with KC={d.KC}, R={d.R} differs from the defaults'"
-                print(f"{name} C={C_s} KC={d.KC} R={d.R} ({d.row_bands} band(s) of "
-                      f"{d.threads} threads, {d.smem} B shared): "
-                      f"{time_ms(lambda: fn(d), 5):.4f} ms, bitwise equal to the defaults'")
-            del want
-        # both designs on the headline points binned at T = 8 (the plan's) and
-        # T = 16, each against the plain version on the same inputs
+            for d_name in ("contraction", "tensor"):
+                want = fn(contract.spread_design(DIM, plan.H, plan.m, C_s, name=d_name))
+                for KC_g, R_g, w_g in ((None, None, None),) + grid_sp[d_name, C_s]:
+                    kw = dict(warps=w_g) if d_name == "tensor" else {}
+                    d = contract.spread_design(DIM, plan.H, plan.m, C_s, name=d_name, KC=KC_g,
+                                               R=R_g, **kw)
+                    got = fn(d)
+                    same = torch.equal(got, want)
+                    big = torch.maximum(got.abs(), want.abs())
+                    ulp = bool(((got - want).abs() <= torch.nextafter(big, big + 1) - big).all())
+                    del got, big
+                    assert same or (d_name == "tensor" and ulp), \
+                        f"{name} C={C_s} {d_name} with KC={d.KC}, R={d.R} differs from its defaults'"
+                    print(f"{name} C={C_s} {d_name} KC={d.KC} R={d.R} ({d.row_bands}x{d.col_bands} "
+                          f"band(s) of {d.threads} threads, {d.smem} B shared): "
+                          f"{time_ms(lambda: fn(d), 5):.4f} ms, "
+                          f"{'bitwise equal to' if same else 'within a float32 ulp of'} the defaults'")
+                del want
+        # the three designs on the headline points binned at T = 8 (the
+        # plan's) and T = 16, each against the plain version on the same inputs
         plans_t = {8: plan, 16: tp.build_plan_device(
             pos, None, N=N, m=M_CUT, sigma=SIGMA, batch_size=1, window=WINDOW, T=16)}
         for T_t, p_t in plans_t.items():
@@ -3350,7 +3395,7 @@ def single_device_phases(dev) -> tuple:
                 ref = plain()
                 chosen = contract.spread_design(DIM, p_t.H, p_t.m, C_s)
                 line = []
-                for d_name in ("contraction", "wide"):
+                for d_name in DESIGNS:
                     d = contract.spread_design(DIM, p_t.H, p_t.m, C_s, name=d_name)
                     out = fn(d)
                     rel_d = rel_l2_rows(out, ref)
@@ -3363,9 +3408,11 @@ def single_device_phases(dev) -> tuple:
                       f"{p_t.S} rows): {'; '.join(line)}; the rule takes {chosen.name}")
             del v1, v8, tid_t
         del plans_t
-        # the per-row spread under both designs at more tile sizes and
-        # columns: the times behind contract.DENSE_RATIO_MAX (the two designs
-        # held against each other)
+        # the per-row spread under the three designs at more tile sizes and
+        # columns: the times behind contract.DENSE_RATIO_MAX and the tensor
+        # design's contract.TENSOR_ROWS / TENSOR_COLUMNS (the designs held
+        # against each other), each beside its share of the bound and the
+        # issued flops' share of the peak
         faster = {}
         for T_t in (8, 10, 12, 16, 20, 24):
             p_t = plan if T_t == plan.T else tp.build_plan_device(
@@ -3376,18 +3423,20 @@ def single_device_phases(dev) -> tuple:
                                            p_t, C_s, 3 if T_t * C_s <= 16 else 1)
                 del v_t
                 chosen = contract.spread_design(DIM, p_t.H, p_t.m, C_s)
-                won = "contraction" if times_d[0] < times_d[1] else "wide"
-                faster.setdefault(C_s, []).append((chosen.ratio, won))
+                won = min(times_d, key=times_d.get)
+                faster.setdefault(C_s, []).append((chosen.ratio, p_t.H, won))
+                b_t = bounds(p_t, C_s, p_t.S)[3][0]
                 print(f"spread_tiles C={C_s} at T={T_t} (H={p_t.H}, ratio {chosen.ratio:.2f}, "
-                      f"{p_t.S} rows): contraction {times_d[0]:.4f} ms, wide {times_d[1]:.4f} "
-                      f"ms, faster {won}, the rule takes {chosen.name}; designs agree to "
+                      f"{p_t.S} rows, bound {b_t:.4f} ms): {design_line(times_d, p_t, C_s, b_t)}; "
+                      f"faster {won}, the rule takes {chosen.name}; designs agree to "
                       f"rel_l2={rel_d:.3e}")
             del p_t
         for C_s, runs in faster.items():
-            won_c = ", ".join(f"{r:.2f}" for r, w in runs if w == "contraction")
+            won_d = {k: ", ".join(f"{r:.2f} (H={h})" for r, h, w in runs if w == k)
+                     for k in DESIGNS}
             limit = contract.DENSE_RATIO_MAX[max(c for c in contract.DENSE_RATIO_MAX if c <= C_s)]
-            print(f"C={C_s}: the contraction was faster at ratios [{won_c}]; "
-                  f"contract.DENSE_RATIO_MAX takes it up to {limit}")
+            print(f"C={C_s}: faster at ratios: " + "; ".join(f"{k} [{v}]" for k, v in won_d.items())
+                  + f"; contract.DENSE_RATIO_MAX takes the dense designs up to {limit}")
         # the gather's and the position gradient's launch layouts: threads a
         # block, the lanes' order sorted by bank or not, at C = 1 (dense
         # tiles) and C_WIDE (per-row tiles); every layout gives the same

@@ -343,10 +343,14 @@ def test_binned_checks_shapes(rng):
 
 
 @pytest.mark.parametrize("dim,T,m,C,design", [
-    (3, 8, 2, 1, "contraction"),  # the 3D headline: (13 / 6)^3 = 10.2
+    (3, 8, 2, 1, "tensor"),  # the 3D headline: (13 / 6)^3 = 10.2, 13 rows
+    (3, 8, 2, 2, "tensor"),  # 26 rows
+    (3, 8, 2, 4, "contraction"),  # 52 rows on 169 columns
     (3, 8, 2, 8, "contraction"),
+    (3, 16, 4, 1, "tensor"),  # the Gram geometry: (25 / 10)^3 = 15.6
+    (3, 16, 4, 8, "tensor"),  # 200 rows on 625 columns
     (3, 16, 2, 1, "wide"),  # (21 / 6)^3 = 43
-    (3, 16, 2, 8, "contraction"),
+    (3, 16, 2, 8, "tensor"),  # 441 columns
     (2, 32, 2, 1, "wide"),  # (37 / 6)^2 = 38
     (2, 32, 2, 8, "contraction"),
     (3, 32, 3, 1, "wide"),  # (39 / 8)^3 = 116
@@ -373,10 +377,14 @@ def test_spread_design_limit_grows_with_the_columns():
         limit = pcontract.DENSE_RATIO_MAX[max(k for k in keys if k <= C)]
         for H in range(7, 60):
             ratio = (H / 6) ** 3
-            want = "contraction" if ratio <= limit else "wide"
+            tensor = C * H <= pcontract.TENSOR_ROWS or H * H >= pcontract.TENSOR_COLUMNS
+            want = "wide" if ratio > limit else "tensor" if tensor else "contraction"
             assert pcontract.spread_design(3, H, 2, C).name == want, (C, H)
+            if ratio <= limit:  # 1D and 2D tiles keep the FP32 contraction
+                assert pcontract.spread_design(2, H, 2, C).name != "tensor", (C, H)
     assert pcontract.spread_design(3, 13, 2, 1, name="wide").name == "wide"
     assert pcontract.spread_design(3, 59, 2, 1, name="contraction").name == "contraction"
+    assert pcontract.spread_design(1, 59, 2, 1, name="tensor").name == "tensor"
     with pytest.raises(ValueError, match="unknown spread design"):
         pcontract.spread_design(3, 13, 2, 1, name="sparse")
 
@@ -416,15 +424,122 @@ def test_spread_bands_cover_the_tile(dim, H, m, C, KC, R):
 
 
 def test_spread_design_defaults_at_the_headline():
-    """C = 1: one band of 13 rows, 16 points a chunk; C = 8: two bands of 56
-    and 48 rows, 32 points a chunk (8 x 8 outputs a thread)."""
-    d1 = pcontract.spread_design(3, 13, 2, 1)
+    """The contraction at C = 1: one band of 13 rows, 16 points a chunk; at
+    C = 8 (its default there): two bands of 56 and 48 rows, 32 points a
+    chunk (8 x 8 outputs a thread). The tensor design, the default at
+    C = 1: one m16 tile of rows by 22 n8 tiles in 3 warps of 8, 8 and 6,
+    64 points a chunk."""
+    d1 = pcontract.spread_design(3, 13, 2, 1, name="contraction")
     d8 = pcontract.spread_design(3, 13, 2, 8)
     assert (d1.R, d1.row_bands, d1.KC, d1.threads) == (13, 1, 16, 64)
     assert (d8.R, d8.row_bands, d8.KC, d8.threads) == (56, 2, 32, 160)
     assert (d1.PB, d1.col_bands) == (d8.PB, d8.col_bands) == (169, 1)
     # per point: 16 x 176 multiply-adds at C = 1, 2 x 56 x 176 at C = 8
     assert (d1.issued_macs, d8.issued_macs) == (16 * 176, 112 * 176)
+    t1 = pcontract.spread_design(3, 13, 2, 1)
+    assert t1.name == "tensor" and d8.name == "contraction"
+    assert (t1.R, t1.PB, t1.MT, t1.WN, t1.RG, t1.CG, t1.threads, t1.KC) == (
+        13, 169, 1, 8, 1, 3, 96, 64)
+    assert t1.issued_macs == 16 * 176
+
+
+def _tensor_bands(d):
+    """The (rows, columns) each warp of each band of a tensor design holds,
+    clipped to OUT, and the m16 x n8 tiles it issues."""
+    rows, P = d.C * d.H, d.H ** (d.dim - 1)
+    mm, mn, _ = pcontract.MMA
+    out = []
+    for r0 in range(0, rows, d.R):
+        Rv = min(d.R, rows - r0)
+        for p0 in range(0, P, d.PB):
+            PBv = min(d.PB, P - p0)
+            for w in range(d.threads // 32):
+                wm, wn = w % d.RG, w // d.RG
+                m_t = max(0, min(d.MT, -(-Rv // mm) - wm * d.MT))
+                n_t = max(0, min(d.WN, -(-PBv // mn) - wn * d.WN))
+                ra = r0 + wm * d.MT * mm
+                pa = p0 + wn * d.WN * mn
+                out.append(((ra, min(r0 + Rv, ra + m_t * mm)),
+                            (pa, min(p0 + PBv, pa + n_t * mn)), m_t * n_t))
+    return out
+
+
+@pytest.mark.parametrize("KC,R,warps", [(None, None, None), (8, None, None), (16, 13, 4),
+                                        (64, 40, 8), (None, None, 16)])
+@pytest.mark.parametrize("C", [1, 2, 8, 16])
+@pytest.mark.parametrize("dim,H,m", [(3, 13, 2), (3, 25, 4), (3, 21, 2), (1, 69, 2),
+                                     (2, 14, 3)])
+def test_tensor_bands_cover_the_tile(dim, H, m, C, KC, R, warps):
+    """The tensor design's warps cover OUT exactly once in m16 x n8 tiles:
+    rows padded to 16 and columns to 8 inside each band, chunks a multiple
+    of the mma's k, shared memory and threads within the limits, and the
+    launch carries the layout whole."""
+    rows, P = C * H, H ** (dim - 1)
+    R = R and min(R, rows)
+    d = pcontract.spread_design(dim, H, m, C, name="tensor", KC=KC, R=R, warps=warps)
+    mm, mn, mk = pcontract.MMA
+    assert d.name == "tensor" and d.R == (R or d.R) and d.KC == (KC or d.KC)
+    assert (d.row_bands, d.col_bands) == (-(-rows // d.R), -(-P // d.PB))
+    covered = np.zeros((rows, P), np.int32)
+    issued = 0
+    for (r0, r1), (p0, p1), tiles in _tensor_bands(d):
+        covered[r0:r1, p0:p1] += 1
+        issued += tiles * mm * mn
+    assert (covered == 1).all()  # every output in exactly one warp's tiles
+    assert d.issued_macs == issued >= rows * P
+    # a band's rows padded to 16, columns to 8
+    assert d.issued_macs == sum(-(-min(d.R, rows - r0) // mm) * mm for r0 in range(0, rows, d.R)) \
+        * sum(-(-min(d.PB, P - p0) // mn) * mn for p0 in range(0, P, d.PB))
+    assert d.KC % mk == 0 and d.KC >= mk
+    assert d.MT == (1 if min(rows, d.R) <= mm else 2) and 1 <= d.WN <= pcontract.MT_WN[d.MT]
+    assert d.RG * d.MT * mm >= d.R and d.CG * d.WN * mn >= d.PB
+    assert d.threads == 32 * d.RG * d.CG <= pcontract.MAX_THREADS
+    if R is None:  # the rows a band holds follow the warps a block
+        assert d.threads <= 32 * max(warps or pcontract.TENSOR_WARPS, d.CG)
+    # the strides: X rows of the band's m16 tiles, windows of dim H + 2, both
+    # 8 or 24 mod 32; the column tables the band's n8 tiles
+    assert d.RS >= -(-d.R // mm) * mm and d.RS % 32 in (8, 24)
+    assert d.ADS >= dim * H + 2 and d.ADS % 32 in (8, 24)
+    assert d.PS == -(-d.PB // mn) * mn
+    assert d.buf % 4 == 0 and d.buf >= d.KC * (d.RS + d.ADS + dim + d.NCH)
+    assert d.smem >= 4 * max(2 * (d.RS + d.PS) + 2 * d.buf, d.R * d.PB + 4)
+    assert d.smem <= pcontract.SMEM_MAX
+    assert d.layout() == (*pcontract.MMA, d.R, d.PB, d.KC, d.MT, d.WN, d.RG, d.CG,
+                          d.row_bands, d.col_bands, d.NCH, d.RS, d.PS, d.ADS, d.buf,
+                          d.threads, d.smem)
+
+
+@pytest.mark.parametrize("H,m,C,layout", [
+    # the Gram geometry at C = 1: 25 rows (two m16 tiles) by 625 columns (79
+    # n8 tiles) in 16 warps of 5, one block a tile: 32 x 632 a point
+    (25, 4, 1, dict(R=25, PB=625, MT=2, WN=5, RG=1, CG=16, row_bands=1, col_bands=1,
+                    threads=512, KC=128, issued_macs=32 * 632)),
+    # and at C = 8: 200 rows in bands of 32, the last of 8
+    (25, 4, 8, dict(R=32, PB=625, MT=2, WN=5, RG=1, CG=16, row_bands=7, col_bands=1,
+                    threads=512, KC=128, issued_macs=(6 * 32 + 16) * 632)),
+    # the headline at C = 1: 13 rows (one m16 tile) by 169 columns (22 n8 tiles)
+    (13, 2, 1, dict(R=13, PB=169, MT=1, WN=8, RG=1, CG=3, row_bands=1, col_bands=1,
+                    threads=96, KC=64, issued_macs=16 * 176)),
+])
+def test_tensor_design_at_the_benchmark_geometries(H, m, C, layout):
+    d = pcontract.spread_design(3, H, m, C)
+    assert d.name == "tensor"
+    assert {k: getattr(d, k) for k in layout} == layout
+
+
+@pytest.mark.parametrize("dim,H,m,C,kw,match", [
+    (3, 13, 2, 1, dict(KC=12), "multiple of 8"),
+    (3, 13, 2, 1, dict(KC=4), "multiple of 8"),
+    (3, 13, 2, 1, dict(R=14), "R must be"),
+    (3, 25, 4, 8, dict(R=0), "R must be"),
+    (3, 25, 4, 1, dict(warps=17), "warps must be"),
+    (3, 25, 4, 1, dict(warps=0), "warps must be"),
+    (3, 25, 4, 16, dict(R=96, warps=16), "threads a block"),
+    (3, 25, 4, 1, dict(KC=512), "shared memory"),
+])
+def test_tensor_design_rejects_what_the_kernel_cannot_launch(dim, H, m, C, kw, match):
+    with pytest.raises(ValueError, match=match):
+        pcontract.spread_design(dim, H, m, C, name="tensor", **kw)
 
 
 @pytest.mark.parametrize("dim,H,m,C,KC,R,match", [
@@ -448,12 +563,13 @@ def test_spread_rejects_a_design_for_another_geometry(rng):
 
 
 def test_cpu_route_counts_no_design(rng, monkeypatch):
-    """The CPU route runs the plain versions: no launch, under either design."""
+    """The CPU route runs the plain versions: no launch, under any design."""
     pos, x, jplan, plan = _setup(rng, 3, 8, 2, 2, "es")
     vals = pbinned.slot_values(plan, torch.from_numpy(x))
     tid = pbinned.dense_tile_ids(plan)
-    for ratio in (float("inf"), 0.0):
+    for ratio, dims in ((float("inf"), ()), (float("inf"), (3,)), (0.0, (3,))):
         monkeypatch.setattr(pcontract, "DENSE_RATIO_MAX", {1: ratio})
+        monkeypatch.setattr(pcontract, "TENSOR_DIMS", frozenset(dims))
         before = [dict(f.launches_by_design) for f in (pcontract.spread_tiles_dense,
                                                        pcontract.spread_tiles)]
         a = pcontract.spread_tiles_dense(plan, vals, tid, plan.NT)

@@ -9,9 +9,10 @@ also runs on a machine with the card and without JAX:
 
 Kernel and plain version agree to rel-L2 1e-5: they sum the same float32
 products in another order (the spread's wide-tile design in the order of its
-atomics). The spread's contraction design sums each output over the points
+atomics). The spread's contraction designs sum each output over the points
 in slot order, so two launches, and launches with other chunk and band
-sizes, give the same bits.
+sizes, give the same bits (the tensor design, in double, to a float32
+ulp).
 The permutation kernels (ragged rows, Benes network) and the bitonic sort
 move words and agree with their plain versions bit for bit, as does the
 unfold; the fold sums each cell's terms in a fixed order, so two launches
@@ -37,7 +38,7 @@ from torch_nfft_tpu_torch.ops import benes, binned, bitonic, contract, ragged, t
 from torch_nfft_tpu_torch.ops.tilefold import row_tile_ids, unfold_grid_to_tiles
 
 KERNELS = ("spread_tiles_dense", "gather_points", "pos_grad")
-DESIGNS = ("contraction", "wide")
+DESIGNS = ("contraction", "tensor", "wide")
 
 pytestmark = pytest.mark.cuda
 
@@ -59,10 +60,13 @@ def _rel(a, b):
 
 
 def _force_design(monkeypatch, design):
-    """Make every spread take ``design`` (None: the threshold decides)."""
+    """Make every spread take ``design`` (None: the geometry decides)."""
     if design is not None:
-        ratio = float("inf") if design == "contraction" else 0.0
+        ratio = 0.0 if design == "wide" else float("inf")
         monkeypatch.setattr(contract, "DENSE_RATIO_MAX", {1: ratio})
+        monkeypatch.setattr(contract, "TENSOR_DIMS",
+                            frozenset({1, 2, 3} if design == "tensor" else ()))
+        monkeypatch.setattr(contract, "TENSOR_ROWS", 1 << 30)
 
 
 class _Designs:
@@ -153,23 +157,27 @@ def _headline_like(rng, dev, C, n=40000, K=None):
 
 @pytest.mark.parametrize("C", [1, 8])
 def test_headline_like_spreads_take_the_contraction(card, rng, C):
-    """3D, T=8, m=2 (the headline's tiles): both spreads run the contraction
-    design and agree with their plain versions."""
+    """3D, T=8, m=2 (the headline's tiles): both spreads run a contraction,
+    on the tensor cores (the "tensor" design) at C = 1, in FP32 register
+    tiles at C = 8 (104 rows on 169 columns), and agree with their plain
+    versions."""
     plan, vals = _headline_like(rng, card, C)
     assert plan.H == 13
     tid = binned.dense_tile_ids(plan)
     with _Designs(contract.spread_tiles_dense) as dense, _Designs(contract.spread_tiles) as rows:
         got_d = contract.spread_tiles_dense(plan, vals, tid, plan.NT)
         got_r = contract.spread_tiles(plan, vals)
-    assert dense.ran == rows.ran == {"contraction": 1, "wide": 0}
+    want = "tensor" if C == 1 else "contraction"
+    assert dense.ran == rows.ran == {"contraction": 0, "tensor": 0, "wide": 0, want: 1}
     assert _rel(got_d, contract.spread_tiles_dense_plain(plan, vals, tid, plan.NT)) <= 1e-5
     assert _rel(got_r, contract.spread_tiles_plain(plan, vals)) <= 1e-5
 
 
 @pytest.mark.parametrize("C", [1, 8])
-def test_contraction_spreads_repeat_bit_for_bit(card, rng, C):
+def test_contraction_spreads_repeat_bit_for_bit(card, rng, monkeypatch, C):
     """Two launches on the same input give the same bits, and so do
     launches with other chunk and band sizes."""
+    _force_design(monkeypatch, "contraction")
     plan, vals = _headline_like(rng, card, C, K=128)
     tid = binned.dense_tile_ids(plan)
     runs = {
@@ -185,6 +193,147 @@ def test_contraction_spreads_repeat_bit_for_bit(card, rng, C):
         assert torch.equal(contract.spread_tiles_dense(plan, vals, tid, plan.NT, design=d),
                            want["dense"]), (KC, R)
         assert torch.equal(contract.spread_tiles(plan, vals, design=d), want["rows"]), (KC, R)
+
+
+def _within_an_ulp(a, b):
+    """Every float32 of ``a`` within one ulp of ``b``'s."""
+    big = torch.maximum(a.abs(), b.abs())
+    return bool(((a - b).abs() <= torch.nextafter(big, big + 1) - big).all())
+
+
+@pytest.mark.parametrize("C", [1, 8])
+def test_tensor_spreads_repeat_bit_for_bit(card, rng, C):
+    """The tensor design: two launches on the same input give the same bits;
+    launches with other chunk sizes, band sizes and warps a block agree to
+    a float32 ulp."""
+    plan, vals = _headline_like(rng, card, C, K=128)
+    tid = binned.dense_tile_ids(plan)
+    tensor = contract.spread_design(3, plan.H, plan.m, C, name="tensor")
+    runs = {
+        "dense": lambda d=tensor: contract.spread_tiles_dense(plan, vals, tid, plan.NT, design=d),
+        "rows": lambda d=tensor: contract.spread_tiles(plan, vals, design=d),
+    }
+    want = {k: f() for k, f in runs.items()}
+    for k, f in runs.items():
+        assert torch.equal(f(), want[k])
+    for KC, R, warps in ((8, 8, None), (64, None, None), (16, 13, 4), (None, None, 16)):
+        d = contract.spread_design(3, plan.H, plan.m, C, name="tensor", KC=KC, R=R,
+                                   warps=warps)
+        for k, f in runs.items():
+            assert _within_an_ulp(f(d), want[k]), (k, KC, R, warps)
+
+
+def _f64_spread(plan, vals, tid=None, NT=None):
+    """The plain spread of the same plan in float64, windows and sums: the
+    per-row tiles, or with ``tid`` the NT dense tiles."""
+    p64 = dataclasses.replace(plan, slot_pos=plan.slot_pos.double())
+    v64 = vals.double()
+    C, H, dim = vals.shape[0], plan.H, plan.dim
+    rows = plan.S if tid is None else NT
+    out = torch.zeros((rows, C * H**dim), dtype=torch.float64, device=vals.device)
+    for r0, r1 in contract._row_chunks(plan.S, plan.K, H, dim, 2 * C):
+        t = contract._spread_rows(p64, v64, r0, r1)
+        if tid is None:
+            out[r0:r1] = t
+        else:
+            out.index_add_(0, tid[r0:r1].long(), t)
+    return out.reshape(rows, C, H, H ** (dim - 1))
+
+
+def _cell_plan(rng, dev, cell, n):
+    """A plan at a benchmark cell's geometry on n of its points: the Gram
+    operator's (GaussianKernel(0.4, dim=3, bandwidth=256, cutoff=4) on
+    [-1, 1)^3: gaussian, m = 4, T = 16, H = 25) or the headline pair's (es,
+    m = 2, sigma = 1.625, N = 256 on [-1/4, 1/4)^3: T = 8 as the cell's 2^24
+    points bin, H = 13)."""
+    if cell == "gram":
+        pts = (rng.random((n, 3)) * 2 - 1).astype(np.float32)
+        plan = tp.GaussianKernel(0.4, dim=3, bandwidth=256, cutoff=4, device=dev)(pts)._plans()[0]
+        assert (plan.H, plan.m) == (25, 4)
+        # the device arrays alone (the host builder's sorted layout dropped)
+        return dataclasses.replace(plan, pos_fp=None, order=None, row_start=None, S_occ=None)
+    pos = ((rng.random((n, 3)) - 0.5) / 2).astype(np.float32)
+    plan = tp.build_plan_device(pos, None, N=256, m=2, sigma=1.625, batch_size=1, window="es",
+                                T=8, device=dev)
+    assert (plan.H, plan.m) == (13, 2)
+    return plan
+
+
+@pytest.mark.parametrize("cell,C,kernel", [("gram", 1, "B1"), ("pair", 1, "B1"),
+                                           ("gram", 8, "B7")])
+def test_tensor_spread_at_the_cells_geometries(card, rng, cell, C, kernel):
+    """B1 at both benchmark geometries and B7 at the Gram C = 8, on 2^20
+    of a cell's points: the cell's design is the tensor one, launched once
+    a spread; against a float64 plain spread of the same plan its tiles are
+    no further off than the FP32 contraction's; a second launch gives the
+    same bits; tiles no row visits, and an empty row, are exact zeros."""
+    plan = _with_empty_row(_cell_plan(rng, card, cell, 1 << 20), card)
+    x = torch.from_numpy(rng.standard_normal((plan.n, C)).astype(np.float32)).to(card)
+    vals = binned.slot_values(plan, x)
+    d = contract.spread_design(3, plan.H, plan.m, C)
+    assert d.name == "tensor"
+    fp32 = contract.spread_design(3, plan.H, plan.m, C, name="contraction")
+    if kernel == "B1":
+        tid = binned.dense_tile_ids(plan)
+        wrapper = contract.spread_tiles_dense
+
+        def run(design=None):
+            return wrapper(plan, vals, tid, plan.NT, design=design)
+
+        ref = _f64_spread(plan, vals, tid, plan.NT)
+    else:
+        wrapper = contract.spread_tiles
+
+        def run(design=None):
+            return wrapper(plan, vals, design=design)
+
+        ref = _f64_spread(plan, vals)
+    with _Designs(wrapper) as ran:
+        got = run()
+    assert ran.ran == {"contraction": 0, "tensor": 1, "wide": 0}
+    rel_tensor, rel_fp32 = _rel(got, ref), _rel(run(fp32), ref)
+    print(f"{cell} C={C} {kernel}: rel-L2 to float64 tensor {rel_tensor:.3e} "
+          f"contraction {rel_fp32:.3e}")
+    assert rel_tensor <= rel_fp32
+    assert torch.equal(run(), got)
+    if kernel == "B1":
+        visited = torch.zeros(plan.NT, dtype=torch.bool, device=card)
+        visited[tid.long()] = True
+        assert bool((got[~visited] == 0).all())
+    else:
+        assert bool((got[-1] == 0).all())
+
+
+def test_tensor_entry_points_match_the_contraction(card, rng, monkeypatch):
+    """The pair, a training step's gradients and ``G @ x`` with every spread
+    on the tensor design (two a step) agree with the same calls on the FP32
+    contraction to rel-L2 1e-6."""
+    from torch_nfft_tpu_torch import trace
+
+    n = 1 << 16
+    pos = ((rng.random((n, 3)) - 0.5) / 2).astype(np.float32)
+    x0 = torch.from_numpy(rng.standard_normal((n, 1)).astype(np.float32)).to(card)
+    w = torch.from_numpy(rng.standard_normal((n, 1)).astype(np.float32)).to(card)
+    pts = (rng.random((n, 3)) * 2 - 1).astype(np.float32)
+    G = tp.GaussianKernel(0.4, dim=3, bandwidth=64, cutoff=4)(pts)
+    kw = dict(batch_size=1, N=64, m=2, sigma=1.625, window="es", strategy="binned")
+    out = {}
+    for design in ("tensor", "contraction"):
+        if design == "contraction":
+            _force_design(monkeypatch, design)
+        before = trace.counters()
+        x = x0.clone().requires_grad_()
+        p = torch.from_numpy(pos).to(card).requires_grad_()
+        z = tp.nfft_pair_planar(x, p, None, **kw)
+        (z * w).sum().backward()
+        y = G @ x0
+        after = trace.counters()
+        ran = {k: after[f"spread_tiles_dense.{k}"] - before[f"spread_tiles_dense.{k}"]
+               for k in DESIGNS}
+        assert ran == {"contraction": 0, "tensor": 0, "wide": 0, design: 3}, ran
+        out[design] = (z.detach(), x.grad, p.grad, y)
+    for name, a, b in zip(("pair", "x.grad", "pos.grad", "G @ x"), *out.values()):
+        assert _rel(a, b) <= 1e-6, name
 
 
 def test_entry_points_run_on_the_card_by_default(card, rng):

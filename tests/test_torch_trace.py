@@ -299,7 +299,8 @@ def test_counters_equal_the_wrappers_attributes(monkeypatch):
         fn = getattr(mod, name)
         monkeypatch.setattr(fn, "launches", 10 + k)
         if hasattr(fn, "launches_by_design"):
-            monkeypatch.setattr(fn, "launches_by_design", {"contraction": k, "wide": 2 * k})
+            monkeypatch.setattr(fn, "launches_by_design",
+                                {"contraction": k, "tensor": 3 * k, "wide": 2 * k})
     monkeypatch.setattr(_comm, "sent_bytes", {"all_reduce": 7, "all_gather": 8,
                                               "ring_shift": 9})
     monkeypatch.setattr(nfft, "fastsum_routes", {"half": 5, "c2c": 6})
@@ -313,6 +314,14 @@ def test_counters_equal_the_wrappers_attributes(monkeypatch):
         for design, n in getattr(fn, "launches_by_design", {}).items():
             want[f"{name}.{design}"] = n
     assert got == want
+
+
+def test_counters_report_each_spread_design():
+    """Every spread design has its counter, the tensor design's included."""
+    got = trace.counters()
+    for name in ("spread_tiles_dense", "spread_tiles"):
+        for design in ("contraction", "tensor", "wide"):
+            assert f"{name}.{design}" in got
 
 
 def test_kernel_builds_counts_a_compile(monkeypatch, tmp_path, recorder):

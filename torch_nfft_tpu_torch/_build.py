@@ -46,6 +46,8 @@ _FUNCTIONS = {
     # ... window floats, layout (int array, ops/contract.py:SpreadDesign), device, stream
     "tnt_spread_tiles_dense_contract": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_P, _I, _P],
     "tnt_spread_tiles_contract": [_P] * 5 + [_I] * 8 + [_F] * 3 + [_P, _I, _P],
+    "tnt_spread_tiles_dense_tensor": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_P, _I, _P],
+    "tnt_spread_tiles_tensor": [_P] * 5 + [_I] * 8 + [_F] * 3 + [_P, _I, _P],
     # ... window floats, layout (int array, ops/contract.py:PointsLayout), device, stream
     "tnt_gather_points": [_P] * 6 + [_I] * 9 + [_F] * 3 + [_P, _I, _P],
     # p0, p1, p2 and the derivative factor, layout, device, stream

@@ -28,12 +28,13 @@ gradient in ``csrc/points.cuh`` (built by ``gather.cu`` and
 ``pos_grad.cu``); the design and the bound on the H100 are in the notes
 there.
 
-The two spreads have two designs, chosen per call by :func:`spread_design`
-from the tile's geometry and the columns: the register-tiled contraction
-(``"contraction"``, no atomics, bitwise reproducible), which does
-H^dim / L^dim times the sparse work, and, where that ratio exceeds
-``DENSE_RATIO_MAX``'s limit for C, the sparse kernel with shared-memory
-atomics (``"wide"``). The gather and the position gradient launch as
+The two spreads have three designs, chosen per call by :func:`spread_design`
+from the tile's geometry and the columns: the contraction, which does
+H^dim / L^dim times the sparse work with no atomics, bitwise reproducible,
+its products on the FP64 tensor cores for 3D tiles (``"tensor"``) and in
+FP32 register tiles for 1D and 2D tiles (``"contraction"``), and, where
+that ratio exceeds ``DENSE_RATIO_MAX``'s limit for C, the sparse kernel
+with shared-memory atomics (``"wide"``). The gather and the position gradient launch as
 :func:`points_layout` lays them out: a block a plan row, a thread a point,
 the row's tile staged in shared memory (cell-major at C > 1) where it fits,
 the row's points given to the lanes in the order of their banks; the launch
@@ -84,16 +85,28 @@ __all__ = [
 # every even L from 2 to MAX_L; csrc/contract.cu's wide spread holds MAX_L).
 MAX_L = 20
 
-# The spread's contraction design runs while a tile's cells over a point's
+# The spread's contraction designs run while a tile's cells over a point's
 # window cells, (H / L)^dim, stay at or under DENSE_RATIO_MAX[c], c the
 # largest key at or under the columns C; wider tiles take the wide-tile
 # design. The wide design slows per column as C grows (its tile, C H^dim
 # floats, fills shared memory, then spills to global atomics) and the
 # contraction does not, so the limit grows with C. chip_smoke.py phase 6b
-# times both designs on the headline points binned at T = 8-24 (ratios
-# 10.2-112.9) at C = 1, 2, 4, 8: at C <= 2 the contraction is faster up to
-# 15.6 and not from 22.7; at C = 4 and 8 at every ratio measured.
+# times the designs on the headline points binned at T = 8-24 (ratios
+# 10.2-112.9) at C = 1, 2, 4, 8: at C <= 2 the FP32 contraction is faster up
+# to 15.6 and not from 22.7; at C = 4 and 8 at every ratio measured.
 DENSE_RATIO_MAX = {1: 16.0, 4: 113.0}
+# Under that limit, tiles of these dims run the contraction's products on the
+# FP64 tensor cores ("tensor") where the tile matrix has at most
+# TENSOR_ROWS rows (C H: one warp row of m16 tiles, 1 or 2) or at least
+# TENSOR_COLUMNS columns (H^2); the others keep the FP32 register tiles
+# ("contraction"). 1D and 2D tiles have P = 1 or H columns, too few for n8
+# fragments to pay. chip_smoke.py phase 6b times the three designs on the
+# headline points binned at T = 8-24 (H = 13-29) and phase 8 at the Gram
+# geometry (H = 25): the tensor design is faster than the contraction at
+# every H and C measured but H = 13 (169 columns) at C = 4 and 8 (52 and
+# 104 rows); at H = 15 (225 columns) it is faster at every C.
+TENSOR_DIMS = frozenset({3})
+TENSOR_ROWS, TENSOR_COLUMNS = 32, 225
 # Default bands of the contraction: at most BAND_THREADS threads, and 16
 # points a chunk for a band of at most 16 rows (C = 1 at the headline),
 # else 32, halved while a block needs more than SMEM_TARGET bytes.
@@ -104,19 +117,35 @@ BAND_THREADS, SMEM_TARGET = 256, 100 * 1024
 # memory (the H100's opt-in limit per block). The rest of its launch is
 # laid out here, in SpreadDesign, and passed to it whole.
 TM, TN, MAX_THREADS, SMEM_MAX = 8, 8, 512, 232448
+# The tensor design: mma.sync m16n8k8 f64 (the kernel's kMma*), a warp
+# holding MT (1 or 2, as a band's rows need) m16 tiles by at most MT_WN[MT]
+# n8 tiles (32 and 40 doubles a lane, its kWarpN; the launch refuses
+# more), at most TENSOR_WARPS warps a block by default, and TENSOR_KC points
+# a chunk, halved while shared memory would hold an SM to fewer blocks than
+# its registers do (SMEM_SM bytes an SM, SMEM_BLOCK of them kept for each
+# block). Fewer n8 tiles a warp, fewer warps or smaller chunks were slower
+# at both benchmark geometries (phase 6b times chunks, bands and warps).
+MMA = (16, 8, 8)
+MT_WN = {1: 8, 2: 5}
+TENSOR_WARPS, TENSOR_KC = 16, 128
+SMEM_SM, SMEM_BLOCK = 233472, 1024
 
 
 @dataclass(frozen=True)
 class SpreadDesign:
     """How a spread of ``C`` columns into tiles of edge ``H`` runs: ``name``
-    is ``"contraction"`` or ``"wide"``, ``ratio`` is (H / L)^dim. For the
-    contraction, the launch of csrc/contract.cu:spread_contract_kernel:
-    bands of ``R`` rows and ``PB`` columns of the tile matrix OUT (C*H rows,
-    H^{dim-1} columns), ``row_bands`` x ``col_bands`` blocks per plan row of
-    ``threads`` threads, each holding TM x TN outputs of a grid of ``RG`` x
-    ``CG`` thread tiles; ``KC`` points a chunk, the rows of a band touching
-    at most ``NCH`` columns C; two chunk buffers of ``buf`` floats and
-    ``smem`` bytes of shared memory a block."""
+    is ``"contraction"``, ``"tensor"`` or ``"wide"``, ``ratio`` is
+    (H / L)^dim. For the two contractions, the launch of
+    csrc/contract.cu:spread_contract_kernel: bands of ``R`` rows and ``PB``
+    columns of the tile matrix OUT (C*H rows, H^{dim-1} columns),
+    ``row_bands`` x ``col_bands`` blocks per plan row of ``threads``
+    threads; ``KC`` points a chunk, the rows of a band touching at most
+    ``NCH`` columns C; two chunk buffers of ``buf`` floats (a point's row of
+    X ``RS`` of them, its windows ``ADS``, its row of KR, the
+    contraction's, ``PS``), column tables of ``PS`` entries, and ``smem``
+    bytes of shared memory a block. The contraction: a grid of ``RG`` x
+    ``CG`` threads, each holding TM x TN outputs. The tensor design: a grid
+    of ``RG`` x ``CG`` warps, each holding ``MT`` m16 by ``WN`` n8 tiles."""
 
     name: str
     dim: int
@@ -134,53 +163,104 @@ class SpreadDesign:
     buf: int = 0
     threads: int = 0
     smem: int = 0
+    RS: int = 0
+    PS: int = 0
+    ADS: int = 0
+    MT: int = 0
+    WN: int = 0
 
     @property
     def issued_macs(self) -> int:
-        """Multiply-adds the contraction issues per point: every row and
-        column of its bands' thread tiles, zero padding included."""
+        """Multiply-adds the design issues per point: the contraction every
+        row and column of its bands' thread tiles, the tensor design every
+        m16 x n8 tile of a band's rows and columns padded to 16 and 8; zero
+        padding included."""
+        if self.name == "tensor":
+            rows, P = self.C * self.H, self.H ** (self.dim - 1)
+            mm, mn, _ = MMA
+            r = sum(-(-min(self.R, rows - r0) // mm) * mm for r0 in range(0, rows, self.R))
+            p = sum(-(-min(self.PB, P - p0) // mn) * mn for p0 in range(0, P, self.PB))
+            return r * p
         return self.row_bands * self.RG * TM * self.col_bands * self.CG * TN
 
     def layout(self) -> tuple:
-        """The contraction's launch as csrc/contract.cu:launch_spread_contract
-        reads it."""
+        """The launch as csrc/contract.cu:launch_spread_contract or
+        launch_spread_tensor reads it."""
+        if self.name == "tensor":
+            return (*MMA, self.R, self.PB, self.KC, self.MT, self.WN, self.RG, self.CG,
+                    self.row_bands, self.col_bands, self.NCH, self.RS, self.PS, self.ADS,
+                    self.buf, self.threads, self.smem)
         return (TM, TN, self.R, self.PB, self.KC, self.RG, self.CG, self.row_bands,
                 self.col_bands, self.NCH, self.buf, self.threads, self.smem)
 
 
-def _contract_band(dim: int, H: int, C: int, R: int, PB: int, KC: int) -> dict:
-    """Thread grid and shared memory of a contraction block. The kernel's
-    shared memory: the band's row and column tables (2 (Rpad + Ppad) ints),
-    then two chunk buffers of KC points, each [KC][Rpad] X, [KC][Ppad] KR,
-    [KC][dim H + 2] windows, [dim][KC] coordinates and [NCH][KC] values,
-    rounded up to 16 bytes; the band on its way out (R PB floats, shifted
-    by up to 3 for 16-byte stores) reuses it."""
+def _band_memory(dim: int, H: int, C: int, R: int, PB: int, RS: int, PS: int, KC: int,
+                 tensor: bool = False) -> dict:
+    """Shared memory of a contraction block. The kernel's shared memory: the
+    band's row and column tables (2 (RS + PS) ints), then two chunk buffers
+    of KC points, each [KC][RS] X, [KC][PS] KR (the contraction's; the
+    tensor design forms KR in registers), [KC][ADS] windows (ADS >=
+    dim H + 2, the tensor design's padded as RS and PS are), [dim][KC]
+    coordinates and [NCH][KC] values, rounded up to 16 bytes; the band on
+    its way out (R PB floats, shifted by up to 3 for 16-byte stores) reuses
+    it."""
     rows = C * H
-    RG, CG = -(-R // TM), -(-PB // TN)
-    Rpad, Ppad = RG * TM, CG * TN
     NCH = max((min(r0 + R, rows) - 1) // H - r0 // H + 1 for r0 in range(0, rows, R))
-    buf = -(-KC * (Rpad + Ppad + dim * H + 2 + dim + NCH) // 4) * 4
-    return {"RG": RG, "CG": CG, "NCH": NCH, "buf": buf,
-            "threads": -(-RG * CG // 32) * 32,
-            "smem": 4 * max(2 * (Rpad + Ppad) + 2 * buf, R * PB + 4)}
+    ADS = _bank_stride(dim * H + 2) if tensor else dim * H + 2
+    KRS = 0 if tensor else PS
+    buf = -(-KC * (RS + KRS + ADS + dim + NCH) // 4) * 4
+    return {"NCH": NCH, "buf": buf, "RS": RS, "PS": PS, "ADS": ADS,
+            "smem": 4 * max(2 * (RS + PS) + 2 * buf, R * PB + 4)}
+
+
+def _contract_band(dim: int, H: int, C: int, R: int, PB: int, KC: int) -> dict:
+    """Thread grid and shared memory of a contraction block."""
+    RG, CG = -(-R // TM), -(-PB // TN)
+    return {"RG": RG, "CG": CG, "threads": -(-RG * CG // 32) * 32,
+            **_band_memory(dim, H, C, R, PB, RG * TM, CG * TN, KC)}
+
+
+def _bank_stride(n: int) -> int:
+    """The least stride of at least ``n`` floats, a multiple of 8, that is 8
+    or 24 mod 32: a fragment's lanes (t, g) read rows t of 4 and columns g
+    of 8, which then fall on 32 banks."""
+    s = -(-n // 8) * 8
+    while s % 32 not in (8, 24):
+        s += 8
+    return s
+
+
+def _default_kc(R: int, band) -> int:
+    KC = 16 if R <= 16 else 32
+    while KC > 1 and band(KC)["smem"] > SMEM_TARGET:
+        KC //= 2
+    return KC
 
 
 def spread_design(dim: int, H: int, m: int, C: int, *, name: str | None = None,
-                  KC: int | None = None, R: int | None = None) -> SpreadDesign:
+                  KC: int | None = None, R: int | None = None,
+                  warps: int | None = None) -> SpreadDesign:
     """The spread design for tiles of edge ``H`` and windows of 2m+2 cells
-    per axis at ``C`` columns: the contraction while (H / L)^dim is at most
-    the ``DENSE_RATIO_MAX`` entry for C, else the wide-tile design; ``name``
-    forces one. ``KC`` and ``R`` fix the contraction's points per chunk and
-    rows per band (None: the defaults above); results do not depend on
-    them."""
+    per axis at ``C`` columns: while (H / L)^dim is at most the
+    ``DENSE_RATIO_MAX`` entry for C, the tensor design for dims in
+    ``TENSOR_DIMS`` with at most ``TENSOR_ROWS`` rows C H or at least
+    ``TENSOR_COLUMNS`` columns H^{dim-1}, the contraction for the others,
+    else the wide-tile design; ``name`` forces one. ``KC`` and ``R`` fix
+    the contractions' points per chunk and rows per band, ``warps`` the
+    tensor design's most warps a block (None: the defaults above); results
+    do not depend on them (the tensor design's to a float32 ulp)."""
     L = 2 * m + 2
     ratio = (H / L) ** dim
     if name is None:
         limit = DENSE_RATIO_MAX[max(c for c in DENSE_RATIO_MAX if c <= C)]
-        name = "contraction" if ratio <= limit else "wide"
-    _require(name in ("contraction", "wide"), f"unknown spread design {name!r}")
+        tensor = dim in TENSOR_DIMS and (C * H <= TENSOR_ROWS
+                                         or H ** (dim - 1) >= TENSOR_COLUMNS)
+        name = "wide" if ratio > limit else "tensor" if tensor else "contraction"
+    _require(name in ("contraction", "tensor", "wide"), f"unknown spread design {name!r}")
     if name == "wide":
         return SpreadDesign("wide", dim, H, C, ratio)
+    if name == "tensor":
+        return _tensor_design(dim, H, C, ratio, KC, R, warps)
     P, rows = H ** (dim - 1), C * H
     col_bands = -(-P // (TN * MAX_THREADS))
     CG = -(-P // (TN * col_bands))
@@ -194,15 +274,61 @@ def spread_design(dim: int, H: int, m: int, C: int, *, name: str | None = None,
     band = _contract_band(dim, H, C, R, PB, 1)
     _require(band["threads"] <= MAX_THREADS, f"R={R} needs {band['threads']} threads a block")
     if KC is None:
-        KC = 16 if R <= 16 else 32
-        while KC > 1 and _contract_band(dim, H, C, R, PB, KC)["smem"] > SMEM_TARGET:
-            KC //= 2
+        KC = _default_kc(R, lambda kc: _contract_band(dim, H, C, R, PB, kc))
     _require(KC >= 1, "KC must be at least 1")
     band = _contract_band(dim, H, C, R, PB, KC)
     _require(band["smem"] <= SMEM_MAX,
              f"KC={KC}, R={R} need {band['smem']} bytes of shared memory")
     return SpreadDesign("contraction", dim, H, C, ratio, R, PB, KC,
                         row_bands=-(-rows // R), col_bands=col_bands, **band)
+
+
+def _tensor_design(dim: int, H: int, C: int, ratio: float, KC: int | None,
+                   R: int | None, warps: int | None) -> SpreadDesign:
+    """The tensor design's launch: as many n8 tiles across a band as
+    ``warps`` warp columns hold (fewer column bands), shared evenly among
+    them, then as many warp rows as the rest of the warps allow, the row
+    bands balanced."""
+    P, rows = H ** (dim - 1), C * H
+    mm, mn, mk = MMA
+    warps = TENSOR_WARPS if warps is None else warps
+    _require(1 <= warps <= MAX_THREADS // 32, f"warps must be in [1, {MAX_THREADS // 32}]")
+    _require(R is None or 1 <= R <= rows, f"R must be in [1, {rows}]")
+    MT = 1 if min(rows, R or rows) <= mm else 2
+    wn_max = MT_WN[MT]
+    n_tiles = -(-P // mn)
+    col_bands = -(-n_tiles // (wn_max * warps))
+    per_band = -(-n_tiles // col_bands)
+    CG = -(-per_band // wn_max)
+    WN = -(-per_band // CG)
+    PB = min(P, per_band * mn)
+    col_bands = -(-P // PB)
+    if R is None:
+        units = -(-rows // (MT * mm))
+        row_bands = -(-units // max(1, warps // CG))
+        R = min(rows, -(-units // row_bands) * MT * mm)
+    RG = -(-R // (MT * mm))
+    threads = 32 * RG * CG
+    _require(threads <= MAX_THREADS, f"R={R} needs {threads} threads a block")
+    RS, PS = _bank_stride(-(-R // mm) * mm), -(-PB // mn) * mn
+
+    def band(kc):
+        return _band_memory(dim, H, C, R, PB, RS, PS, kc, tensor=True)
+
+    if KC is None:
+        # the most points a chunk at which shared memory leaves an SM as
+        # many blocks as its registers do (MAX_THREADS threads at 128
+        # registers fill them)
+        blocks = max(1, MAX_THREADS // threads)
+        KC = TENSOR_KC
+        while KC > mk and band(KC)["smem"] + SMEM_BLOCK > SMEM_SM // blocks:
+            KC //= 2
+    _require(KC >= mk and KC % mk == 0, f"KC must be a multiple of {mk}")
+    _require(band(KC)["smem"] <= SMEM_MAX,
+             f"KC={KC}, R={R} need {band(KC)['smem']} bytes of shared memory")
+    return SpreadDesign("tensor", dim, H, C, ratio, R, PB, KC, RG, CG,
+                        row_bands=-(-rows // R), col_bands=col_bands, threads=threads,
+                        MT=MT, WN=WN, **band(KC))
 
 
 # The launch of the gather and the position gradient
@@ -484,8 +610,12 @@ def _design_for(plan, C: int, design: SpreadDesign | None) -> SpreadDesign:
     return design
 
 
+# the C entry points' suffix of each contraction design (csrc/contract.cu)
+_ENTRY = {"contraction": "contract", "tensor": "tensor"}
+
+
 def _layout(d: SpreadDesign):
-    """The contraction's launch as a C int array (keep it alive for the call)."""
+    """A contraction's launch as a C int array (keep it alive for the call)."""
     return (ctypes.c_int * len(d.layout()))(*d.layout())
 
 
@@ -506,19 +636,19 @@ def spread_tiles(plan, vals: torch.Tensor, design: SpreadDesign | None = None) -
     args = (vals.data_ptr(), plan.slot_pos.data_ptr(), plan.row_count.data_ptr(),
             plan.origin.data_ptr(), out.data_ptr(), S, K, C, dim, H, M, m, kind,
             p0, p1, p2)
-    if d.name == "contraction":
-        layout = _layout(d)
-        check(library().tnt_spread_tiles_contract(*args, ctypes.addressof(layout), device,
-                                                  stream))
-    else:
+    if d.name == "wide":
         check(library().tnt_spread_tiles(*args, device, stream))
+    else:
+        layout = _layout(d)
+        launch = getattr(library(), f"tnt_spread_tiles_{_ENTRY[d.name]}")
+        check(launch(*args, ctypes.addressof(layout), device, stream))
     spread_tiles.launches += 1
     spread_tiles.launches_by_design[d.name] += 1
     return out
 
 
 spread_tiles.launches = 0
-spread_tiles.launches_by_design = {"contraction": 0, "wide": 0}
+spread_tiles.launches_by_design = {"contraction": 0, "tensor": 0, "wide": 0}
 
 
 def spread_tiles_dense(plan, vals: torch.Tensor, tile_index: torch.Tensor,
@@ -542,19 +672,19 @@ def spread_tiles_dense(plan, vals: torch.Tensor, tile_index: torch.Tensor,
     args = (vals.data_ptr(), plan.slot_pos.data_ptr(), plan.row_count.data_ptr(),
             plan.origin.data_ptr(), tile_index.data_ptr(), out.data_ptr(),
             S, K, C, NT, *window)
-    if d.name == "contraction":
-        layout = _layout(d)
-        check(library().tnt_spread_tiles_dense_contract(*args, ctypes.addressof(layout),
-                                                         device, stream))
-    else:
+    if d.name == "wide":
         check(library().tnt_spread_tiles_dense(*args, device, stream))
+    else:
+        layout = _layout(d)
+        launch = getattr(library(), f"tnt_spread_tiles_dense_{_ENTRY[d.name]}")
+        check(launch(*args, ctypes.addressof(layout), device, stream))
     spread_tiles_dense.launches += 1
     spread_tiles_dense.launches_by_design[d.name] += 1
     return out
 
 
 spread_tiles_dense.launches = 0
-spread_tiles_dense.launches_by_design = {"contraction": 0, "wide": 0}
+spread_tiles_dense.launches_by_design = {"contraction": 0, "tensor": 0, "wide": 0}
 
 
 def gather_points(plan, tiles: torch.Tensor, tile_index: torch.Tensor,
