@@ -82,13 +82,18 @@ Gaussian. Phases 10-10e run the batched configuration of BASELINE.json
 3D, 16 members, N = 256, two columns, gaussian window, m = 4, sigma = 2,
 n = 2^21 points in [-1/4, 1/4)^3 with a sorted batch vector, seed 7)
 through the streamed transforms: ``split_by_batch``, the 16 member plans
-and their stack, ``make_streamed_layout``; B1 and B2 at member 0's shapes
-against their plain versions; the streamed pair (adjoint, then forward of
-its spectrum) whole and by single columns, with its seconds, points/s,
-peak memory and launches (B1 and B2 once per member and column chunk);
-member 0 at 96 sampled frequencies against the direct sum; the streamed
-adjoint and pair against the all-at-once batched transforms (groups of 8
-members if 16 do not fit) per member; the streamed fastsum, symmetric and
+and their stack, ``make_streamed_layout``; B1, B2 and the unfold at member
+0's shapes and the C columns of ``nfft_pair_streamed`` (B2 and the unfold
+also at the composition's 2C) against their plain versions; member 0's
+pass by stage, in ``nfft_pair_streamed`` (``pair_stages``: half spectra)
+and in the composition; ``nfft_pair_streamed`` beside the composition
+(streamed adjoint, then forward of its spectrum, whole and by single
+columns), each with its seconds, points/s, peak memory, member passes
+and launches (B1, B2, fold and unfold once per member and column chunk),
+held to each other at 1e-5; member 0 at 96 sampled frequencies against
+the direct sum; the streamed adjoint and ``nfft_pair_streamed`` against
+the all-at-once batched transforms (groups of 8 members if 16 do not fit)
+per member; the streamed fastsum, symmetric and
 on 2^20 other targets, against the exact Gaussian sum; ``save_plan`` and
 ``load_plan`` of the Gram host plan with its Benes tables (the headline
 plan's save takes over 30 s), the loaded plan's pairs bit for bit on both
@@ -1385,17 +1390,20 @@ def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
 
     with Phase("10a streamed pair"):
         # B1 and B2 at member 0's shapes against their plain versions: the
-        # adjoint's C columns, the forward's 2C (its two planes)
+        # C columns of nfft_pair_streamed (the cell's path), and B2 at the
+        # 2C columns of the composition's forward (its two planes)
         vals = slot_values(plan0, layout.pack(x)[0])
         tid_s, tid = dense_tile_ids(plan0), row_tile_ids(plan0)
-        tiles = unfold_grid_to_tiles(torch.randn((1, 2 * BATCH_C) + (plan0.M,) * DIM,
-                                                 device=dev, generator=gen), plan0)
-        for name, C, kern, plain in (
-                ("spread_tiles_dense", BATCH_C,
-                 lambda: contract.spread_tiles_dense(plan0, vals, tid_s, plan0.NT),
-                 lambda: contract.spread_tiles_dense_plain(plan0, vals, tid_s, plan0.NT)),
-                ("gather_points", 2 * BATCH_C, lambda: contract.gather_points(plan0, tiles, tid),
-                 lambda: contract.gather_points_plain(plan0, tiles, tid))):
+        tiles = {C: unfold_grid_to_tiles(torch.randn((1, C) + (plan0.M,) * DIM, device=dev,
+                                                     generator=gen), plan0)
+                 for C in (BATCH_C, 2 * BATCH_C)}
+        checks = [("spread_tiles_dense", BATCH_C,
+                   lambda: contract.spread_tiles_dense(plan0, vals, tid_s, plan0.NT),
+                   lambda: contract.spread_tiles_dense_plain(plan0, vals, tid_s, plan0.NT))]
+        checks += [("gather_points", C, lambda t=tiles[C]: contract.gather_points(plan0, t, tid),
+                    lambda t=tiles[C]: contract.gather_points_plain(plan0, t, tid))
+                   for C in (BATCH_C, 2 * BATCH_C)]
+        for name, C, kern, plain in checks:
             reset_launches()
             got = kern()
             design = read_designs().get(name)
@@ -1411,56 +1419,85 @@ def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
             # the wide spread design sums by float atomics: no bitwise repeat
             must_repeat = design is None or design.get("wide", 0) == 0
             assert rl <= 1e-5 and (same or not must_repeat), \
-                f"{name} at member 0: {rl:.3e}, repeat {same}"
+                f"{name} C={C} at member 0: {rl:.3e}, repeat {same}"
             entry[name]["max_abs_err"] = max(entry[name]["max_abs_err"], mx)
-            entry[name]["batched_member"] = {"C": C, "ms": ms, "max_abs_err": mx}
+            key = "batched_member" if C == BATCH_C else "batched_member_2c"
+            entry[name][key] = {"C": C, "ms": ms, "max_abs_err": mx}
         del vals, tiles
-        # the fold at the adjoint's C columns, the unfold at the forward's 2C
-        for name, C in zip(TILE_MOVES, (BATCH_C, 2 * BATCH_C)):
+        # the fold at C columns; the unfold at the pair's C and at the
+        # composition forward's 2C
+        for name, C in ((TILE_MOVES[0], BATCH_C), (TILE_MOVES[1], BATCH_C),
+                        (TILE_MOVES[1], 2 * BATCH_C)):
             print("at member 0: ", end="")
-            entry[name]["batched_member"] = tile_move_check(name, plan0, C, dev, gen)
-        # one member's pass by stage: what nfft_adjoint_planar and
+            key = "batched_member" if C == BATCH_C else "batched_member_2c"
+            entry[name][key] = tile_move_check(name, plan0, C, dev, gen)
+        # one member's pass by stage: what nfft_pair_streamed runs for it
+        # (nfft_pair_planar's stages: half spectra, the band filter inside
+        # irfftn), and what the composition's nfft_adjoint_planar and
         # nfft_forward_planar run for it
         sk = dict(m=BATCH_M, sigma=2.0, window="gaussian")
+        assert binned.use_fold(plan0, BATCH_C, 4, 1), "the pair's member must take the dense route"
         route0 = binned.TileRoute(plan0, "dense")
-        stages = (route0.spreading
-                  + (("rfftn + mirror", lambda g: pfft.half_spectrum_to_full(
-                      pfft.spectral_adjoint_half(g, DIM, BATCH_N, **sk), DIM, BATCH_N)),
-                     ("fftn (C2C)", lambda y: pfft.spectral_forward(y, DIM, plan0.M, **sk)),
-                     ("two planes", lambda g: torch.cat([g.real, g.imag], dim=1)))
-                  + route0.gathering)
-        med = stage_ms(stages, layout.pack(x)[0])
-        print(f"member 0's streamed pass by stage, C={BATCH_C}, ms (CUDA events, median of 5):")
-        for (name, _), ms in zip(stages, med):
-            print(f"  {name:16s} {ms:9.3f} ms  {ms / med.sum():6.1%}")
-        print(f"  {'sum':16s} {med.sum():9.3f} ms; x {BATCH_B} members = "
-              f"{BATCH_B * med.sum() / 1e3:.4f} s")
+        tables = (
+            ("nfft_pair_streamed", pair_stages(plan0, N=BATCH_N, C=BATCH_C, **sk)),
+            ("the composition", route0.spreading
+             + (("rfftn + mirror", lambda g: pfft.half_spectrum_to_full(
+                 pfft.spectral_adjoint_half(g, DIM, BATCH_N, **sk), DIM, BATCH_N)),
+                ("fftn (C2C)", lambda y: pfft.spectral_forward(y, DIM, plan0.M, **sk)),
+                ("two planes", lambda g: torch.cat([g.real, g.imag], dim=1)))
+             + route0.gathering))
+        for label, stages in tables:
+            med = stage_ms(stages, layout.pack(x)[0])
+            print(f"member 0's pass in {label} by stage, C={BATCH_C}, ms (CUDA events, "
+                  f"median of 5):")
+            for (name, _), ms in zip(stages, med):
+                print(f"  {name:16s} {ms:9.3f} ms  {ms / med.sum():6.1%}")
+            print(f"  {'sum':16s} {med.sum():9.3f} ms; x {BATCH_B} members = "
+                  f"{BATCH_B * med.sum() / 1e3:.4f} s")
+        # the pair and the composition on the same layout: time, peak and
+        # launches of one call each (counters set to 0 just before it)
+        calls = (("nfft_pair_streamed", None, lambda: tp.nfft_pair_streamed(x, layout)),
+                 ("composition", None, lambda: streamed_pair(layout, x)),
+                 ("composition", 1, lambda: streamed_pair(layout, x, 1)))
         launches, peaks, zr = {}, {}, {}
-        for chunk in (None, 1):
-            _, t_pair = host_median(lambda: streamed_pair(layout, x, chunk), 3)
+        for label, chunk, fn in calls:
+            _, t_pair = host_median(fn, 3)
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
-            zr[chunk] = streamed_pair(layout, x, chunk)
+            before = tp.trace.counters()["streamed_members"]
+            zr[label, chunk] = fn()
             torch.cuda.synchronize()
-            launches[chunk] = read_launches()
-            peaks[chunk] = torch.cuda.max_memory_allocated() - base
-            ran = {k: v for k, v in launches[chunk].items() if v}
-            print(f"streamed pair (adjoint then forward), column_chunk={chunk}: {t_pair:.4f} s "
-                  f"(median of 3 after a warm-up, host clock to synchronize) = "
-                  f"{n / t_pair / 1e6:.3f} M points/s; peak {peaks[chunk] / 2**30:.3f} GiB above "
-                  f"the {base / 2**30:.3f} GiB held; launches {ran}")
+            members = tp.trace.counters()["streamed_members"] - before
+            launches[label, chunk] = read_launches()
+            peaks[label, chunk] = torch.cuda.max_memory_allocated() - base
+            ran = {k: v for k, v in launches[label, chunk].items() if v}
+            print(f"{label}, column_chunk={chunk}: {t_pair:.4f} s (median of 3 after a warm-up, "
+                  f"host clock to synchronize) = {n / t_pair / 1e6:.3f} M points/s; peak "
+                  f"{peaks[label, chunk] / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held; "
+                  f"{members} member passes; launches {ran}")
+            # the pair runs each member once at C columns; the composition
+            # runs two passes a member (adjoint, forward) per column chunk
             per = BATCH_B * (1 if chunk is None else BATCH_C)
-            assert ran == {k: per for k in ("spread_tiles_dense", "gather_points", *TILE_MOVES)}, \
-                f"the streamed pair launched {ran}, not B1, B2, fold and unfold {per} times each"
-        rel_c = rel_l2(zr[1], zr[None])
-        print(f"column_chunk=1 vs whole: rel_l2={rel_c:.3e}")
-        assert rel_c <= 1e-5, f"column chunks disagree: {rel_c:.3e}"
-        zr = zr[None]
+            passes = per * (1 if label == "nfft_pair_streamed" else 2)
+            assert ran == {k: per for k in ("spread_tiles_dense", "gather_points", *TILE_MOVES)} \
+                and members == passes, \
+                f"{label} launched {ran} in {members} passes, not B1, B2, fold and unfold " \
+                f"{per} times each in {passes}"
+        zp = zr["nfft_pair_streamed", None]
+        rel_c = rel_l2(zr["composition", 1], zr["composition", None])
+        rel_p = rel_l2(zp, zr["composition", None])
+        print(f"composition column_chunk=1 vs whole: rel_l2={rel_c:.3e}; nfft_pair_streamed vs "
+              f"the composition: rel_l2={rel_p:.3e}")
+        assert rel_c <= 1e-5 and rel_p <= 1e-5, \
+            f"column chunks disagree: {rel_c:.3e}; pair vs composition: {rel_p:.3e}"
+        zr, pair_peak = zp, peaks["nfft_pair_streamed", None]
         for name in KERNELS:
-            entry[name]["launches_streamed_pair"] = launches[None][name]
-            entry[name]["launches_streamed_pair_chunk1"] = launches[1][name]
+            entry[name]["launches_streamed_pair"] = launches["nfft_pair_streamed", None][name]
+            entry[name]["launches_streamed_composition"] = launches["composition", None][name]
+            entry[name]["launches_streamed_composition_chunk1"] = launches["composition", 1][name]
+        del zp
 
     with Phase("10b streamed vs direct sum and all-at-once"):
         yr, yi = tp.nfft_adjoint_streamed(x, layout)
@@ -1498,9 +1535,9 @@ def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
               f"adjoint peak {peaks_r[0] / 2**30:.3f} GiB, launches "
               f"{ {k: v for k, v in launches_r[0].items() if v} }; pair peak "
               f"{peaks_r[1] / 2**30:.3f} GiB, launches "
-              f"{ {k: v for k, v in launches_r[1].items() if v} } (the streamed pair's peak "
-              f"{peaks[None] / 2**30:.3f} GiB); worst member rel_l2: streamed adjoint "
-              f"{rel_a:.3e}, streamed pair {rel_p:.3e}")
+              f"{ {k: v for k, v in launches_r[1].items() if v} } (nfft_pair_streamed's peak "
+              f"{pair_peak / 2**30:.3f} GiB); worst member rel_l2: streamed adjoint "
+              f"{rel_a:.3e}, nfft_pair_streamed {rel_p:.3e}")
         assert rel_a <= 1e-5 and rel_p <= 1e-5, \
             f"streamed vs batched: adjoint {rel_a:.3e}, pair {rel_p:.3e}"
         for name in KERNELS:

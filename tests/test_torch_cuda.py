@@ -1390,6 +1390,62 @@ def test_streamed_pair_launches_b1_and_b2_per_member(card, rng):
                        "pos_grad": 0}
 
 
+@pytest.mark.parametrize("chunk", [None, 1])
+def test_streamed_half_spectrum_pair_on_the_card_matches_the_cpu(card, rng, chunk):
+    pos, batch, x = _streamed_case(rng)
+    kw = dict(batch_size=4, N=16, m=4, window="gaussian")
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        layout = tp.make_streamed_layout(pos, batch, device=dev, **kw)
+        out[dev.type] = tp.nfft_pair_streamed(x, layout, column_chunk=chunk)
+    assert out["cuda"].device.type == "cuda" and out["cuda"].shape == x.shape
+    assert _rel(out["cuda"].cpu(), out["cpu"]) <= 1e-5
+
+
+def test_streamed_half_spectrum_pair_at_the_member_geometry(card):
+    """16 members of 2^14 points in [-1/4, 1/4)^3 at N = 256, gaussian
+    m = 4, sigma = 2: each member bins at T = 32 (H = 41) on M = 512, as
+    the benchmark's batch3d-16x21 members do. A call launches B1, B2, the
+    fold and the unfold once a member, takes the dense route and the half
+    spectra, and gives the real plane of the streamed adjoint and forward."""
+    B, per = 16, 1 << 14
+    gen = np.random.default_rng(25)
+    pos = ((gen.random((B * per, 3), dtype=np.float32) - 0.5) / 2.0).astype(np.float32)
+    batch = np.repeat(np.arange(B, dtype=np.int32), per)
+    x = torch.randn((B * per, 2), device=card)
+    layout = tp.make_streamed_layout(pos, batch, batch_size=B, N=256, m=4, sigma=2.0,
+                                     window="gaussian")
+    plan = layout.member_plan(0)
+    assert (plan.M, plan.T, plan.H) == (512, 32, 41)
+    z = tp.nfft_pair_streamed(x, layout)  # builds the kernels
+    torch.cuda.synchronize()
+    def launches():
+        return {**_launches(), **{k: getattr(tilefold, k).launches
+                                  for k in ("fold_tiles_to_grid", "unfold_grid_to_tiles")}}
+
+    before = launches()
+    tp.trace.drain()
+    tp.trace.enable()
+    try:
+        z = tp.nfft_pair_streamed(x, layout)
+        torch.cuda.synchronize()
+    finally:
+        tp.trace.disable()
+    spans = tp.trace.drain()
+    ran = {k: v - before[k] for k, v in launches().items()}
+    assert ran == {"spread_tiles_dense": B, "gather_points": B, "pos_grad": 0,
+                   "spread_tiles": 0, "fold_tiles_to_grid": B, "unfold_grid_to_tiles": B}
+    pairs = [s for s in spans if s.name == "nfft_pair_planar"]
+    assert len(pairs) == B
+    for pair in pairs:
+        stages = [s.name for s in sorted(spans, key=lambda s: s.start_ns)
+                  if s.parent == pair.id]
+        assert stages == ["slot_values", "spread kernel", "fold", "rfftn", "irfftn", "unfold",
+                          "gather kernel", "unslot_values"], stages
+    zr, _ = tp.nfft_forward_streamed(*tp.nfft_adjoint_streamed(x, layout), layout)
+    assert _rel(z, zr) <= 1e-5
+
+
 def test_padded_member_plan_matches_the_unpadded_plan(card, rng):
     """A member plan padded by hundreds of empty rows (row_count 0, origin
     0, batch 0) at its end, as a plan stack pads it, against the same plan

@@ -212,3 +212,52 @@ def test_layout_needs_a_card_unless_asked(rng, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tp.make_streamed_layout(pos, batch, batch_size=2, N=8, m=2)
+
+
+@pytest.mark.parametrize("chunk", [None, 1])
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("counts", [(250, 400, 175), (300, 0, 450)])
+def test_pair_streamed(rng, monkeypatch, counts, C, chunk):
+    """The streamed pair on half spectra against the streamed adjoint and
+    forward (the real plane), JAX's streamed composition and the
+    all-at-once batched pair; an empty member's pass gives zeros."""
+    dim, N, m = 2, 16, 4
+    B = len(counts)
+    pos, batch = _batched_points(rng, counts, dim)
+    x = rng.standard_normal((pos.shape[0], C)).astype(np.float32)
+    jl, pl, carried = _layouts(pos, batch, B, N, m)
+    stacked = []
+    unpack = pl.unpack
+    monkeypatch.setattr(pl, "unpack", lambda y: stacked.append(y.clone()) or unpack(y))
+    got = tp.nfft_pair_streamed(x, pl, column_chunk=chunk)
+    assert got.shape == (pos.shape[0], C) and got.dtype == torch.float32
+    zr, _ = tp.nfft_forward_streamed(*tp.nfft_adjoint_streamed(x, carried), carried,
+                                     column_chunk=chunk)
+    assert rel_l2(got.numpy(), zr.numpy()) <= BATCHED_TOL
+    jzr, _ = tn.nfft_forward_streamed(*tn.nfft_adjoint_streamed(x, jl, column_chunk=chunk),
+                                      jl, column_chunk=chunk)
+    assert rel_l2(got.numpy(), np.asarray(jzr)) <= JAX_TOL
+    ref = tp.nfft_pair_planar(x, pos, batch, batch_size=B, N=N, m=m, strategy="binned",
+                              device="cpu")
+    assert rel_l2(got.numpy(), ref.numpy()) <= BATCHED_TOL
+    assert stacked[0].shape == (B, max(counts), C)
+    for i, count in enumerate(counts):
+        if count == 0:
+            assert float(stacked[0][i].abs().max()) == 0.0
+
+
+def test_pair_streamed_3d_trailing_columns(rng):
+    """The batched configuration in miniature through the streamed pair:
+    3D, trailing columns (2, 2) kept in the result's shape."""
+    counts, dim, N, m = (128, 96), 3, 8, 3
+    B = len(counts)
+    pos, batch = _batched_points(rng, counts, dim)
+    x = rng.standard_normal((pos.shape[0], 2, 2)).astype(np.float32)
+    jl, pl, _ = _layouts(pos, batch, B, N, m)
+    got = tp.nfft_pair_streamed(torch.from_numpy(x), pl)
+    assert got.shape == x.shape
+    jzr, _ = tn.nfft_forward_streamed(*tn.nfft_adjoint_streamed(x, jl), jl)
+    assert rel_l2(got.numpy(), np.asarray(jzr)) <= JAX_TOL
+    ref = tp.nfft_pair_planar(x.reshape(-1, 4), pos, batch, batch_size=B, N=N, m=m,
+                              strategy="binned", device="cpu")
+    assert rel_l2(got.reshape(-1, 4).numpy(), ref.numpy()) <= BATCHED_TOL

@@ -1,8 +1,10 @@
 """The port's span recorder (``torch_nfft_tpu_torch/trace.py``) and its span
 sites, on the CPU: nothing recorded and no clock read while it is off;
 names, parents and roots while it is on, through the autograd backward;
-one span per stage of every route and none inside a chunk loop; two or
-more threads recording at once; one snapshot of the launch counters."""
+one span per stage of every route and none inside a chunk loop; the
+streamed transforms' pack, member and unpack spans and their counters;
+two or more threads recording at once; one snapshot of the launch
+counters."""
 
 import sys
 import threading
@@ -15,7 +17,8 @@ from _torch_port import points
 
 import torch_nfft_tpu_torch as tp
 from torch_nfft_tpu_torch import _native, trace
-from torch_nfft_tpu_torch.ops import benes, binned, bitonic, contract, nfft, ragged, tilefold
+from torch_nfft_tpu_torch.ops import (benes, binned, bitonic, contract, nfft, ragged,
+                                      streaming, tilefold)
 from torch_nfft_tpu_torch.parallel import _comm
 
 N, M_CUT, SIGMA = 16, 2, 2.0
@@ -167,6 +170,85 @@ def test_names_parents_and_roots_through_the_backward(setup, recorder):
     assert x.grad is not None and p.grad is not None
 
 
+STREAMED_COUNTS = (300, 0, 450)  # uneven, one member empty
+# streamed entry point: (the planar entry point of its member passes, its
+# spans before and after the members, a call of it on a layout); the
+# forward unpacks its real and its imaginary plane
+STREAMED = {
+    "nfft_pair_streamed": ("nfft_pair_planar", ["pack"], ["unpack"],
+                           lambda x, lay: tp.nfft_pair_streamed(x, lay)),
+    "nfft_adjoint_streamed": ("nfft_adjoint_planar", ["pack"], [],
+                              lambda x, lay: tp.nfft_adjoint_streamed(x, lay)),
+    "nfft_forward_streamed": ("nfft_forward_planar", [], ["unpack", "unpack"],
+                              lambda x, lay: tp.nfft_forward_streamed(
+                                  torch.ones((len(STREAMED_COUNTS), N, N, N, 2)), None, lay)),
+    "nfft_fastsum_streamed": ("nfft_fastsum_real", ["pack"], ["unpack"],
+                              lambda x, lay: tp.nfft_fastsum_streamed(x, _coeffs(), lay)),
+}
+
+
+@pytest.fixture
+def streamed():
+    """(x, layout) of a batched set of three members, built with the
+    recorder off."""
+    rng = np.random.default_rng(11)
+    n = sum(STREAMED_COUNTS)
+    pos, _ = points(rng, n, 3)
+    batch = np.repeat(np.arange(len(STREAMED_COUNTS)), STREAMED_COUNTS)
+    layout = tp.make_streamed_layout(pos, batch, batch_size=len(STREAMED_COUNTS), N=N,
+                                     m=M_CUT, sigma=SIGMA, window="gaussian", device="cpu")
+    x = torch.from_numpy(rng.standard_normal((n, 2)).astype(np.float32))
+    return x, layout
+
+
+@pytest.mark.parametrize("entry", list(STREAMED))
+def test_streamed_spans_nest_member_by_member(streamed, recorder, entry):
+    """entry > pack, member x B > the planar entry point, unpack; each
+    member's planar call records its own stages under it."""
+    planar, before, after, call = STREAMED[entry]
+    call(*streamed)
+    spans = recorder.drain()
+    roots = [s for s in spans if s.parent is None]
+    assert [s.name for s in roots] == [entry]
+    by_start = sorted(spans, key=lambda s: (s.start_ns, s.id))
+    children = [s for s in by_start if s.parent == roots[0].id]
+    B = len(STREAMED_COUNTS)
+    assert [s.name for s in children] == before + ["member"] * B + after
+    for member in (s for s in children if s.name == "member"):
+        inner = [s for s in by_start if s.parent == member.id]
+        assert [s.name for s in inner] == [planar]
+        assert any(s.parent == inner[0].id for s in spans), "no stage under the member"
+        assert member.start_ns <= inner[0].start_ns <= inner[0].end_ns <= member.end_ns
+    assert all(s.root == roots[0].id for s in spans)
+
+
+@pytest.mark.parametrize("chunk", [None, 1])
+@pytest.mark.parametrize("on", [False, True])
+def test_streamed_counters_count_with_the_recorder_on_and_off(monkeypatch, streamed, on,
+                                                              chunk):
+    x, layout = streamed
+    trace.disable()
+    trace.drain()
+    if on:
+        trace.enable()
+    else:
+        def no_clock():
+            raise AssertionError("the recorder read the clock while off")
+
+        monkeypatch.setattr(trace, "time", types.SimpleNamespace(time_ns=no_clock))
+    try:
+        before = trace.counters()
+        tp.nfft_pair_streamed(x, layout, column_chunk=chunk)
+        after = trace.counters()
+    finally:
+        trace.disable()
+    assert bool(trace.drain()) == on
+    B, n = len(STREAMED_COUNTS), sum(STREAMED_COUNTS)
+    assert after["streamed_members"] - before["streamed_members"] == B * (2 if chunk else 1)
+    assert after["streamed_pad_points"] - before["streamed_pad_points"] == \
+        B * max(STREAMED_COUNTS) - n == layout.pad_points
+
+
 def _stage_cases():
     return [("spread", "dense"), ("gather", "dense"), ("spread", "flat"), ("gather", "flat")]
 
@@ -304,10 +386,13 @@ def test_counters_equal_the_wrappers_attributes(monkeypatch):
     monkeypatch.setattr(_comm, "sent_bytes", {"all_reduce": 7, "all_gather": 8,
                                               "ring_shift": 9})
     monkeypatch.setattr(nfft, "fastsum_routes", {"half": 5, "c2c": 6})
+    monkeypatch.setattr(streaming, "streamed_counters",
+                        {"streamed_members": 3, "streamed_pad_points": 4})
     got = trace.counters()
     want = {"kernel_builds": trace._REC.builds, "sent_bytes.all_reduce": 7,
             "sent_bytes.all_gather": 8, "sent_bytes.ring_shift": 9,
-            "fastsum_route.half": 5, "fastsum_route.c2c": 6}
+            "fastsum_route.half": 5, "fastsum_route.c2c": 6,
+            "streamed_members": 3, "streamed_pad_points": 4}
     for mod, name in WRAPPERS:
         fn = getattr(mod, name)
         want[name] = fn.launches

@@ -37,8 +37,9 @@ Plans are saved and loaded in the JAX package's ``.npz`` format
 (``split_by_batch``) with one plan each, stacked (``build_plan_stack``,
 ``index_plan``), run the streamed transforms
 (``make_streamed_layout``, ``nfft_adjoint_streamed``,
-``nfft_forward_streamed``, ``nfft_fastsum_streamed``): one member's grid at
-a time. ``suggest_window_parameters`` picks a window for a tolerance;
+``nfft_forward_streamed``, ``nfft_fastsum_streamed``, and the pair of real
+values on half spectra, ``nfft_pair_streamed``): one member's grid at a
+time. ``suggest_window_parameters`` picks a window for a tolerance;
 ``set_complex_override`` switches the complex pipelines off, and
 ``TORCH_NFFT_TPU_DEBUG=1`` checks the inputs of the entry points.
 
@@ -125,6 +126,7 @@ from .ops.streaming import (
     nfft_adjoint_streamed,
     nfft_fastsum_streamed,
     nfft_forward_streamed,
+    nfft_pair_streamed,
 )
 from .ops.window import suggest_window_parameters
 from .utils.diagnostics import accuracy_check
@@ -182,6 +184,7 @@ __all__ = [
     "nfft_forward_planar",
     "nfft_forward_streamed",
     "nfft_pair_planar",
+    "nfft_pair_streamed",
     "operator_from_numpy",
     "pad_plan_rows",
     "parallel",

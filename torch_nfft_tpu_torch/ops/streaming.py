@@ -20,7 +20,19 @@ the member layout (B, n_max, C) on the device, through one index
 computed with the layout (``index_copy_`` / ``index_select``); the JAX
 package packs on the host. Inputs may be tensors or NumPy; the results are
 the planar (real, imaginary) pairs and flat layouts of the JAX functions.
-The functions are not differentiable (the JAX ones take host arrays).
+:func:`nfft_pair_streamed` runs the adjoint+forward pair of real values
+(``planar.nfft_pair_planar``, half spectra) member by member, with no
+``(B, N^dim, C)`` spectrum in between; it has no JAX counterpart. The
+functions are not differentiable (the JAX ones take host arrays).
+
+Each function is a root span of the port's recorder (``trace.py``), with
+``pack`` and ``unpack`` spans around the moves between layouts and a
+``member`` span around each member's pass, in which the planar entry
+point's own span nests. :data:`streamed_counters` holds
+``streamed_members`` (member passes run, one per member and column chunk)
+and ``streamed_pad_points`` (B * n_max - n of the call's layout per call:
+the padded rows the members carry), counted whether the recorder is on or
+off; ``trace.counters()`` reads them.
 """
 
 from __future__ import annotations
@@ -30,9 +42,15 @@ import math
 import numpy as np
 import torch
 
+from .. import trace
 from .._device import resolve_device
 from .plan_stack import build_plan_stack, index_plan, member_slots, split_by_batch
-from .planar import nfft_adjoint_planar, nfft_fastsum_real, nfft_forward_planar
+from .planar import (
+    nfft_adjoint_planar,
+    nfft_fastsum_real,
+    nfft_forward_planar,
+    nfft_pair_planar,
+)
 from .window import DEFAULT_SIGMA, DEFAULT_WINDOW
 
 __all__ = [
@@ -41,7 +59,10 @@ __all__ = [
     "nfft_adjoint_streamed",
     "nfft_forward_streamed",
     "nfft_fastsum_streamed",
+    "nfft_pair_streamed",
 ]
+
+streamed_counters = {"streamed_members": 0, "streamed_pad_points": 0}
 
 
 class StreamedLayout:
@@ -75,18 +96,26 @@ class StreamedLayout:
     def device(self) -> torch.device:
         return self.pos_stack.device
 
+    @property
+    def pad_points(self) -> int:
+        """The padded rows of the member layout: B * n_max - n."""
+        return self.batch_size * self.n_max - int(self.counts.sum())
+
     def pack(self, x) -> torch.Tensor:
         """Per-point values (n, C) -> the member layout (B, n_max, C),
         padded points zero, on the layout's device."""
-        x = torch.as_tensor(x, device=self.device)
-        out = x.new_zeros((self.batch_size * self.n_max,) + tuple(x.shape[1:]))
-        out.index_copy_(0, self._slot, x)
-        return out.reshape((self.batch_size, self.n_max) + tuple(x.shape[1:]))
+        with trace.span("pack"):
+            x = torch.as_tensor(x, device=self.device)
+            out = x.new_zeros((self.batch_size * self.n_max,) + tuple(x.shape[1:]))
+            out.index_copy_(0, self._slot, x)
+            return out.reshape((self.batch_size, self.n_max) + tuple(x.shape[1:]))
 
     def unpack(self, y_stack: torch.Tensor) -> torch.Tensor:
         """The inverse of :meth:`pack` for per-point outputs (B, n_max, C)."""
-        flat = y_stack.reshape((self.batch_size * self.n_max,) + tuple(y_stack.shape[2:]))
-        return flat.index_select(0, self._slot)
+        with trace.span("unpack"):
+            flat = y_stack.reshape((self.batch_size * self.n_max,)
+                                   + tuple(y_stack.shape[2:]))
+            return flat.index_select(0, self._slot)
 
     def member_plan(self, i: int):
         return None if self.plans is None else index_plan(self.plans, i)
@@ -115,6 +144,16 @@ def _column_chunks(C: int, column_chunk) -> list:
     return [(lo, min(lo + column_chunk, C)) for lo in range(0, C, column_chunk)]
 
 
+def _passes(layout: StreamedLayout, C: int, column_chunk):
+    """(member, lo, hi) of each member pass of a call, chunk by chunk; counts
+    the call's padded rows once and each pass as it starts."""
+    streamed_counters["streamed_pad_points"] += layout.pad_points
+    for lo, hi in _column_chunks(C, column_chunk):
+        for i in range(layout.batch_size):
+            streamed_counters["streamed_members"] += 1
+            yield i, lo, hi
+
+
 def _flat_values(x, layout: StreamedLayout):
     """(x packed to (B, n_max, C) float32, trailing column shape, C)."""
     x = torch.as_tensor(x, device=layout.device)
@@ -123,6 +162,7 @@ def _flat_values(x, layout: StreamedLayout):
     return layout.pack(x.reshape(x.shape[0], C).to(torch.float32)), trailing, C
 
 
+@trace.spanned("nfft_adjoint_streamed")
 def nfft_adjoint_streamed(x, layout: StreamedLayout, *, strategy: str = "auto",
                           column_chunk: int | None = None):
     """Adjoint NFFT of real samples, one member at a time. ``x`` (n, *cols)
@@ -132,8 +172,8 @@ def nfft_adjoint_streamed(x, layout: StreamedLayout, *, strategy: str = "auto",
     B, dim, N = layout.batch_size, layout.pos_stack.shape[-1], layout.N
     yr = torch.empty((B,) + (N,) * dim + (C,), dtype=torch.float32, device=layout.device)
     yi = torch.empty_like(yr)
-    for lo, hi in _column_chunks(C, column_chunk):
-        for i in range(B):
+    for i, lo, hi in _passes(layout, C, column_chunk):
+        with trace.span("member"):
             r, im = nfft_adjoint_planar(
                 xs[i, :, lo:hi].contiguous(), layout.pos_stack[i], None,
                 layout.member_plan(i), batch_size=1, N=N, m=layout.m, sigma=layout.sigma,
@@ -144,6 +184,7 @@ def nfft_adjoint_streamed(x, layout: StreamedLayout, *, strategy: str = "auto",
     return yr.reshape(shape), yi.reshape(shape)
 
 
+@trace.spanned("nfft_forward_streamed")
 def nfft_forward_streamed(xr, xi, layout: StreamedLayout, *, strategy: str = "auto",
                           column_chunk: int | None = None):
     """Forward NFFT of a planar spectrum xr/xi (batch_size, (N,)*dim,
@@ -158,8 +199,8 @@ def nfft_forward_streamed(xr, xi, layout: StreamedLayout, *, strategy: str = "au
         xi = torch.as_tensor(xi, device=dev).to(torch.float32).reshape(xr.shape)
     out_r = torch.empty((B, layout.n_max, C), dtype=torch.float32, device=dev)
     out_i = torch.empty_like(out_r)
-    for lo, hi in _column_chunks(C, column_chunk):
-        for i in range(B):
+    for i, lo, hi in _passes(layout, C, column_chunk):
+        with trace.span("member"):
             r, im = nfft_forward_planar(
                 xr[i:i + 1, ..., lo:hi], None if xi is None else xi[i:i + 1, ..., lo:hi],
                 layout.pos_stack[i], None, layout.member_plan(i), batch_size=1, dim=dim,
@@ -171,6 +212,7 @@ def nfft_forward_streamed(xr, xi, layout: StreamedLayout, *, strategy: str = "au
     return layout.unpack(out_r).reshape(shape), layout.unpack(out_i).reshape(shape)
 
 
+@trace.spanned("nfft_fastsum_streamed")
 def nfft_fastsum_streamed(x, coeffs, source_layout: StreamedLayout,
                           target_layout: StreamedLayout | None = None, *,
                           strategy: str = "auto", column_chunk: int | None = None):
@@ -187,8 +229,8 @@ def nfft_fastsum_streamed(x, coeffs, source_layout: StreamedLayout,
         raise ValueError(f"coeffs bandwidth {N} != layout bandwidth {source_layout.N}")
     B = source_layout.batch_size
     out = torch.empty((B, target_layout.n_max, C), dtype=torch.float32, device=dev)
-    for lo, hi in _column_chunks(C, column_chunk):
-        for i in range(B):
+    for i, lo, hi in _passes(source_layout, C, column_chunk):
+        with trace.span("member"):
             out[i, :, lo:hi] = nfft_fastsum_real(
                 xs[i, :, lo:hi].contiguous(), coeffs, source_layout.pos_stack[i],
                 target_layout.pos_stack[i], None, None, source_layout.member_plan(i),
@@ -196,3 +238,27 @@ def nfft_fastsum_streamed(x, coeffs, source_layout: StreamedLayout,
                 sigma=source_layout.sigma, strategy=strategy, window=source_layout.window,
                 device=dev)
     return target_layout.unpack(out).reshape((-1,) + trailing)
+
+
+@trace.spanned("nfft_pair_streamed")
+def nfft_pair_streamed(x, layout: StreamedLayout, *, strategy: str = "auto",
+                       column_chunk: int | None = None) -> torch.Tensor:
+    """The adjoint followed by the real-output forward on the same points,
+    one member at a time: ``x`` (n, *cols) real in the flat layout of the
+    layout's (pos, batch) -> z (n, *cols) real, flat. Each member's pass
+    is ``nfft_pair_planar`` on its plan (half spectra, ``column_chunk``
+    columns at a time), equal to the real plane of
+    ``nfft_forward_streamed(*nfft_adjoint_streamed(x, layout), layout)``;
+    no (B, N^dim, C) spectrum is made. The padded points carry zero values
+    and their outputs are dropped."""
+    xs, trailing, C = _flat_values(x, layout)
+    out = torch.empty((layout.batch_size, layout.n_max, C), dtype=torch.float32,
+                      device=layout.device)
+    for i, lo, hi in _passes(layout, C, column_chunk):
+        with trace.span("member"):
+            out[i, :, lo:hi] = nfft_pair_planar(
+                xs[i, :, lo:hi].contiguous(), layout.pos_stack[i], None,
+                layout.member_plan(i), batch_size=1, N=layout.N, m=layout.m,
+                sigma=layout.sigma, strategy=strategy, window=layout.window,
+                device=layout.device)
+    return layout.unpack(out).reshape((-1,) + trailing)

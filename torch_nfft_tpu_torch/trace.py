@@ -28,7 +28,9 @@ its ``backward``. The spans stay in memory until :func:`drain`.
 ``ops/bitonic.py``, ``ops/tilefold.py``), the bytes this rank handed to
 each kind of collective (``parallel/_comm.py``, ``sent_bytes.<kind>``),
 the ``nfft_fastsum`` calls by spectral route (``ops/nfft.py``,
-``fastsum_route.half`` and ``fastsum_route.c2c``) and ``kernel_builds``,
+``fastsum_route.half`` and ``fastsum_route.c2c``), the streamed
+transforms' member passes and padded rows (``ops/streaming.py``,
+``streamed_members`` and ``streamed_pad_points``) and ``kernel_builds``,
 the compiles this process ran (``_build.build``,
 ``_native.build_native``), in one snapshot. The counters count whether
 the recorder is on or off, and read no clock.
@@ -208,8 +210,10 @@ def counters() -> dict:
     """One snapshot of the program's counters: each kernel wrapper's
     ``launches`` under its name, a spread's ``launches_by_design`` as
     ``<name>.<design>``, the collectives' ``sent_bytes.<kind>``, the
-    fastsum's ``fastsum_route.<route>``, and ``kernel_builds``."""
-    from .ops import benes, bitonic, contract, nfft, ragged, tilefold
+    fastsum's ``fastsum_route.<route>``, the streamed transforms'
+    ``streamed_members`` and ``streamed_pad_points``, and
+    ``kernel_builds``."""
+    from .ops import benes, bitonic, contract, nfft, ragged, streaming, tilefold
 
     out = {}
     for mod, names in ((contract, ("spread_tiles_dense", "spread_tiles", "gather_points",
@@ -231,5 +235,6 @@ def counters() -> dict:
         out[f"sent_bytes.{name}"] = n
     for name, n in nfft.fastsum_routes.items():
         out[f"fastsum_route.{name}"] = n
+    out.update(streaming.streamed_counters)
     out["kernel_builds"] = _REC.builds
     return out
