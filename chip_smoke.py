@@ -84,8 +84,10 @@ n = 2^21 points in [-1/4, 1/4)^3 with a sorted batch vector, seed 7)
 through the streamed transforms: ``split_by_batch``, the 16 member plans
 and their stack, ``make_streamed_layout``; B1, B2 and the unfold at member
 0's shapes and the C columns of ``nfft_pair_streamed`` (B2 and the unfold
-also at the composition's 2C) against their plain versions; member 0's
-pass by stage, in ``nfft_pair_streamed`` (``pair_stages``: half spectra)
+also at the composition's 2C) against their plain versions; B1 there
+timed three ways (the wide design, the tensor design unculled and culled,
+the rule's) with the culled bands' kept share of (point, band) pairs;
+member 0's pass by stage, in ``nfft_pair_streamed`` (``pair_stages``: half spectra)
 and in the composition; ``nfft_pair_streamed`` beside the composition
 (streamed adjoint, then forward of its spectrum, whole and by single
 columns), each with its seconds, points/s, peak memory, member passes
@@ -1285,6 +1287,26 @@ def streamed_pair(layout, x, chunk=None) -> torch.Tensor:
     return tp.nfft_forward_streamed(yr, yi, layout, column_chunk=chunk)[0]
 
 
+def culled_kept_share(plan, d) -> float:
+    """Share of (point, band) pairs of the culled tensor design ``d`` on
+    ``plan`` whose window meets the band's cells on axes 0 (rows in (u, c)
+    order) and 1 (columns (v, w)): the pairs its blocks multiply."""
+    S, K, H, M, m, C = plan.S, plan.K, plan.H, plan.M, plan.m, d.C
+    L = 2 * m + 2
+    fl = torch.floor(plan.slot_pos[:2].reshape(2, S, K) * M).to(torch.int64)
+    o = torch.remainder(torch.remainder(fl - m, M) - plan.origin.T[:2, :, None].long(), M)
+    filled = torch.arange(K, device=o.device)[None] < plan.row_count[:, None]
+    o0, o1 = o[0][filled], o[1][filled]
+    kept = 0
+    for r0 in range(0, C * H, d.R):
+        u_lo, u_hi = r0 // C, (min(r0 + d.R, C * H) - 1) // C
+        meets_u = (o0 <= u_hi) & (o0 + L > u_lo)
+        for p0 in range(0, H * H, d.PB):
+            v_lo, v_hi = p0 // H, (min(p0 + d.PB, H * H) - 1) // H
+            kept += int((meets_u & (o1 <= v_hi) & (o1 + L > v_lo)).sum())
+    return kept / (o0.numel() * d.row_bands * d.col_bands)
+
+
 def worst_member(got, ref, bounds) -> float:
     """Largest rel-L2 over the members of the flat layout's ranges."""
     return max(rel_l2(got[lo:hi], ref[lo:hi]) for lo, hi in zip(bounds[:-1], bounds[1:]))
@@ -1362,7 +1384,7 @@ def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
         print(f"held on the card before the batched phases: "
               f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
         t0 = time.perf_counter()
-        pos_stack, _, counts, bounds = tp.split_by_batch(pos_np, None, batch_np, BATCH_B)
+        pos_stack, _, counts, member_bounds = tp.split_by_batch(pos_np, None, batch_np, BATCH_B)
         t_split = time.perf_counter() - t0
         t0 = time.perf_counter()
         plans = tp.build_plan_stack(pos_stack, **kw)
@@ -1416,13 +1438,35 @@ def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
             print(f"{name} C={C} at member 0 (S={plan0.S}, K={plan0.K}, T={plan0.T}, "
                   f"H={plan0.H}): kernel vs plain max_abs={mx:.3e} rel_l2={rl:.3e}; two launches "
                   f"bitwise equal: {same}{ran}; {ms:.4f} ms")
-            # the wide spread design sums by float atomics: no bitwise repeat
+            # the wide spread design sums by float atomics: no bitwise repeat;
+            # every other design (the member's B1: tensor, culled) repeats
             must_repeat = design is None or design.get("wide", 0) == 0
             assert rl <= 1e-5 and (same or not must_repeat), \
                 f"{name} C={C} at member 0: {rl:.3e}, repeat {same}"
             entry[name]["max_abs_err"] = max(entry[name]["max_abs_err"], mx)
             key = "batched_member" if C == BATCH_C else "batched_member_2c"
             entry[name][key] = {"C": C, "ms": ms, "max_abs_err": mx}
+        # B1 at member 0's plan three ways, each with its fill: the wide
+        # design (global atomics: 2 x 41^3 floats exceed shared memory), the
+        # tensor design unculled, and the rule's, culled, beside the bound
+        # and the share of (point, band) pairs the culled bands keep
+        culled = contract.spread_design(DIM, plan0.H, plan0.m, BATCH_C)
+        assert culled.name == "tensor" and culled.cull, \
+            f"a member's B1 must take the culled tensor design, not {culled}"
+        b1_bound = bounds(plan0, BATCH_C, plan0.S)[0][0]
+        three = {"wide": contract.spread_design(DIM, plan0.H, plan0.m, BATCH_C, name="wide"),
+                 "tensor unculled": contract.spread_design(DIM, plan0.H, plan0.m, BATCH_C,
+                                                           name="tensor", cull=False),
+                 "tensor culled": culled}
+        times = {label: time_ms(lambda d=d: contract.spread_tiles_dense(
+            plan0, vals, tid_s, plan0.NT, design=d), 5) for label, d in three.items()}
+        kept = culled_kept_share(plan0, culled)
+        print(f"B1 C={BATCH_C} at member 0, with its fill (bound {b1_bound:.4f} ms): "
+              + "; ".join(f"{k} {ms:.4f} ms ({b1_bound / ms:.1%} of bound)"
+                          for k, ms in times.items())
+              + f"; the culled bands ({culled.row_bands} x {culled.col_bands} of {culled.R} rows "
+              f"by {culled.PB} columns) keep {kept:.2%} of (point, band) pairs")
+        entry["spread_tiles_dense"]["batched_member_designs"] = {**times, "kept_share": kept}
         del vals, tiles
         # the fold at C columns; the unfold at the pair's C and at the
         # composition forward's 2C
@@ -1505,17 +1549,17 @@ def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
         k = rng.integers(-(BATCH_N // 2), BATCH_N // 2, size=(96, DIM))
         idx = (0,) + tuple(torch.as_tensor(k[:, d] + BATCH_N // 2, device=dev)
                            for d in range(DIM))
-        p0 = torch.from_numpy(pos_np[bounds[0]:bounds[1]]).to(dev)
+        p0 = torch.from_numpy(pos_np[member_bounds[0]:member_bounds[1]]).to(dev)
         for col in range(BATCH_C):
             got = torch.complex(yr[idx + (col,)], yi[idx + (col,)]).to(torch.complex128)
-            rel = rel_l2(got, direct_adjoint_sum(p0, x[bounds[0]:bounds[1], col], k))
+            rel = rel_l2(got, direct_adjoint_sum(p0, x[member_bounds[0]:member_bounds[1], col], k))
             print(f"member 0 column {col}, streamed adjoint at 96 sampled frequencies vs the "
                   f"direct sum in float64: rel_l2={rel:.3e}")
             assert rel <= 1e-3, f"member 0 column {col}: {rel:.3e}"
         streamed = dict(yr=yr, yi=yi, zr=zr)
         del yr, yi
         try:
-            res, group = reference_groups(pos_np, batch_np, x, streamed, bounds, BATCH_B,
+            res, group = reference_groups(pos_np, batch_np, x, streamed, member_bounds, BATCH_B,
                                           kw), BATCH_B
         except torch.OutOfMemoryError as exc:
             oom = str(exc).split(". ")[0]
@@ -1527,7 +1571,7 @@ def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
             torch.cuda.empty_cache()
             streamed = dict(zr=zr)
             streamed["yr"], streamed["yi"] = tp.nfft_adjoint_streamed(x, layout)
-            res, group = reference_groups(pos_np, batch_np, x, streamed, bounds, BATCH_GROUP,
+            res, group = reference_groups(pos_np, batch_np, x, streamed, member_bounds, BATCH_GROUP,
                                           kw), BATCH_GROUP
         rel_a, rel_p, peaks_r, launches_r, route, t_ref = res
         what = "all at once" if group == BATCH_B else f"in groups of {group}"
@@ -1554,7 +1598,7 @@ def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
         t_tl = time.perf_counter() - t0
         t_bounds = np.searchsorted(t_batch, np.arange(BATCH_B + 1))
         sample = np.random.default_rng(13)
-        for label, tl, tpos, tb in (("symmetric", None, pos_np, bounds),
+        for label, tl, tpos, tb in (("symmetric", None, pos_np, member_bounds),
                                     (f"asymmetric (2^{FASTSUM_TARGETS_LOG2} targets)", t_layout,
                                      t_pos, t_bounds)):
             y, t_fs = host_median(lambda: tp.nfft_fastsum_streamed(x, coeffs, layout, tl), 3)
@@ -1565,7 +1609,7 @@ def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
             ran = {k: v for k, v in launches_fs.items() if v}
             pick = sample.choice(tb[1] - tb[0], 96, replace=False)
             tgt = torch.from_numpy(tpos[tb[0] + pick]).to(dev)
-            ref = exact_gauss_sum(p0, tgt, x[bounds[0]:bounds[1]], FASTSUM_WIDTH)
+            ref = exact_gauss_sum(p0, tgt, x[member_bounds[0]:member_bounds[1]], FASTSUM_WIDTH)
             rel = rel_l2(y[torch.as_tensor(tb[0] + pick, device=dev)], ref)
             print(f"streamed fastsum {label}, exp(-r^2/{FASTSUM_WIDTH}^2) by "
                   f"gaussian_analytic_coeffs at N={BATCH_N}, C={BATCH_C}: {t_fs:.4f} s (median "
@@ -2501,10 +2545,11 @@ def single_device_phases(dev) -> tuple:
             for name, regs, stack, spill in rep_ptx:
                 print(f"spread_contract_kernel {name[-60:]}: {regs} registers, "
                       f"{stack} bytes stack, {spill} bytes spilled")
-            # <kPerRow, kMT = 0, 1>: the contraction; the tensor design's
-            # 32 and 40 doubles a lane spill a few words at 128 registers
-            fp32 = [r for r in rep_ptx if "ELi0ELi1EE" in r[0]]
-            assert len(fp32) == 2 and len(rep_ptx) == 6, rep_ptx
+            # <kPerRow, kMT = 0, 1, false>: the contraction; the tensor
+            # design's 32 and 40 doubles a lane, culled or not, spill a few
+            # words at 128 registers
+            fp32 = [r for r in rep_ptx if "ELi0ELi1ELb0EE" in r[0]]
+            assert len(fp32) == 2 and len(rep_ptx) == 10, rep_ptx
             assert all(st == 0 and sp == 0 for _, _, st, sp in fp32), \
                 "the contraction spread uses stack or spills"
             # nor does any instantiation of the gather and the position

@@ -349,12 +349,13 @@ def test_binned_checks_shapes(rng):
     (3, 8, 2, 8, "contraction"),
     (3, 16, 4, 1, "tensor"),  # the Gram geometry: (25 / 10)^3 = 15.6
     (3, 16, 4, 8, "tensor"),  # 200 rows on 625 columns
-    (3, 16, 2, 1, "wide"),  # (21 / 6)^3 = 43
+    (3, 16, 2, 1, "wide"),  # (21 / 6)^3 = 43; 21^3 floats fit shared memory
     (3, 16, 2, 8, "tensor"),  # 441 columns
     (2, 32, 2, 1, "wide"),  # (37 / 6)^2 = 38
     (2, 32, 2, 8, "contraction"),
-    (3, 32, 3, 1, "wide"),  # (39 / 8)^3 = 116
-    (3, 32, 3, 8, "wide"),
+    (3, 32, 3, 1, "tensor"),  # (39 / 8)^3 = 116; 39^3 floats exceed shared memory
+    (3, 32, 3, 8, "tensor"),
+    (3, 32, 4, 2, "tensor"),  # a streamed member: (41 / 10)^3 = 68.9, 2 x 41^3 floats
     (1, 64, 2, 1, "contraction"),  # 69 / 6 = 11.5
     (1, 64, 2, 8, "contraction"),
 ])
@@ -368,7 +369,9 @@ def test_spread_design_by_geometry(dim, T, m, C, design):
 
 def test_spread_design_limit_grows_with_the_columns():
     """The limit for C is the entry of the largest key at or under C, and
-    never falls as C grows; the forced names override it."""
+    never falls as C grows; above it a 3D tile takes the wide design while
+    its accumulator fits shared memory, else the tensor design; the forced
+    names override it."""
     keys = sorted(pcontract.DENSE_RATIO_MAX)
     assert keys[0] == 1
     limits = [pcontract.DENSE_RATIO_MAX[k] for k in keys]
@@ -378,15 +381,72 @@ def test_spread_design_limit_grows_with_the_columns():
         for H in range(7, 60):
             ratio = (H / 6) ** 3
             tensor = C * H <= pcontract.TENSOR_ROWS or H * H >= pcontract.TENSOR_COLUMNS
-            want = "wide" if ratio > limit else "tensor" if tensor else "contraction"
+            fits = 4 * C * H**3 <= pcontract.SMEM_MAX
+            want = ("wide" if fits else "tensor") if ratio > limit \
+                else "tensor" if tensor else "contraction"
             assert pcontract.spread_design(3, H, 2, C).name == want, (C, H)
             if ratio <= limit:  # 1D and 2D tiles keep the FP32 contraction
                 assert pcontract.spread_design(2, H, 2, C).name != "tensor", (C, H)
+            if (H / 6) ** 2 > limit:  # and the wide design, however large
+                assert pcontract.spread_design(2, H, 2, C).name == "wide", (C, H)
     assert pcontract.spread_design(3, 13, 2, 1, name="wide").name == "wide"
     assert pcontract.spread_design(3, 59, 2, 1, name="contraction").name == "contraction"
     assert pcontract.spread_design(1, 59, 2, 1, name="tensor").name == "tensor"
     with pytest.raises(ValueError, match="unknown spread design"):
         pcontract.spread_design(3, 13, 2, 1, name="sparse")
+
+
+# (dim, T, m, C) of the benchmark cells' spreads that existed before the
+# culled design: the headline pair and step (B1), the Gram matvec at C = 1
+# (B1) and 8 (B7), the grid-sharded slab (B1, T = 16 at m = 4)
+OLDER_CELLS = [(3, 8, 2, 1), (3, 16, 4, 1), (3, 16, 4, 8)]
+
+
+@pytest.mark.parametrize("dim", [1, 2, 3])
+@pytest.mark.parametrize("C", [1, 2, 3, 8])
+@pytest.mark.parametrize("m", [2, 4])
+def test_spread_design_culls_exactly_off_the_wide_design(dim, C, m):
+    """The tensor design culls exactly for tiles of a dim in TENSOR_DIMS
+    above the ratio limit whose wide accumulator, 4 C H^dim bytes, exceeds
+    SMEM_MAX, and only there; a forced design culls where the rule would,
+    unless ``cull`` says otherwise."""
+    L = 2 * m + 2
+    limit = pcontract.DENSE_RATIO_MAX[max(c for c in pcontract.DENSE_RATIO_MAX if c <= C)]
+    for T in range(2, 72, 3):
+        H = T + 2 * m + 1
+        d = pcontract.spread_design(dim, H, m, C)
+        want = (dim in pcontract.TENSOR_DIMS and (H / L) ** dim > limit
+                and 4 * C * H**dim > pcontract.SMEM_MAX)
+        assert d.cull == want, (dim, C, m, T)
+        assert d.name == ("tensor" if want else d.name) and (d.name == "tensor" or not d.cull)
+        if dim == 3 and H <= 60:
+            forced = pcontract.spread_design(dim, H, m, C, name="tensor")
+            assert forced.cull == want and forced.layout()[-1] == int(want)
+            assert not pcontract.spread_design(dim, H, m, C, name="tensor", cull=False).cull
+    with pytest.raises(ValueError, match="only the tensor design culls"):
+        pcontract.spread_design(3, 41, 4, 2, name="wide", cull=True)
+
+
+@pytest.mark.parametrize("dim,T,m,C", OLDER_CELLS)
+def test_older_cells_keep_their_unculled_design(dim, T, m, C):
+    """The older cells' geometries take the design they took before culling
+    existed, unculled, with the same launch layout but for the cull flag."""
+    H = T + 2 * m + 1
+    d = pcontract.spread_design(dim, H, m, C)
+    assert d.name == "tensor" and not d.cull and d.layout()[-1] == 0
+    assert d == pcontract.spread_design(dim, H, m, C, name="tensor", cull=False)
+
+
+def test_culled_design_at_the_member_geometry():
+    """A streamed member (H = 41, C = 2): rows (u, c), every channel staged,
+    KC + 34 ints more shared memory than the unculled layout, the launch
+    carrying the flag last."""
+    d = pcontract.spread_design(3, 41, 4, 2)
+    full = pcontract.spread_design(3, 41, 4, 2, name="tensor", cull=False)
+    assert d.name == "tensor" and d.cull and not full.cull
+    assert d.NCH == 2 and d.layout()[-1] == 1 and d.layout()[:-1] != full.layout()[:-1]
+    assert d.smem >= 4 * (2 * (d.RS + d.PS) + 2 * d.buf + d.KC + 34)
+    assert d.smem <= pcontract.SMEM_MAX and d.threads <= pcontract.MAX_THREADS
 
 
 @pytest.mark.parametrize("KC,R", [(None, None), (8, None), (32, 8), (5, 13)])
@@ -469,14 +529,19 @@ def _tensor_bands(d):
 @pytest.mark.parametrize("C", [1, 2, 8, 16])
 @pytest.mark.parametrize("dim,H,m", [(3, 13, 2), (3, 25, 4), (3, 21, 2), (1, 69, 2),
                                      (2, 14, 3)])
-def test_tensor_bands_cover_the_tile(dim, H, m, C, KC, R, warps):
+@pytest.mark.parametrize("cull", [False, True])
+def test_tensor_bands_cover_the_tile(dim, H, m, C, KC, R, warps, cull):
     """The tensor design's warps cover OUT exactly once in m16 x n8 tiles:
     rows padded to 16 and columns to 8 inside each band, chunks a multiple
     of the mma's k, shared memory and threads within the limits, and the
-    launch carries the layout whole."""
+    launch carries the layout whole; culled (OUT's rows in (u, c) order),
+    the same bands, every channel staged and the kept points' slots in
+    shared memory besides."""
     rows, P = C * H, H ** (dim - 1)
     R = R and min(R, rows)
-    d = pcontract.spread_design(dim, H, m, C, name="tensor", KC=KC, R=R, warps=warps)
+    d = pcontract.spread_design(dim, H, m, C, name="tensor", KC=KC, R=R, warps=warps,
+                                cull=cull)
+    assert d.cull == cull and (d.NCH == C or not cull)
     mm, mn, mk = pcontract.MMA
     assert d.name == "tensor" and d.R == (R or d.R) and d.KC == (KC or d.KC)
     assert (d.row_bands, d.col_bands) == (-(-rows // d.R), -(-P // d.PB))
@@ -502,11 +567,12 @@ def test_tensor_bands_cover_the_tile(dim, H, m, C, KC, R, warps):
     assert d.ADS >= dim * H + 2 and d.ADS % 32 in (8, 24)
     assert d.PS == -(-d.PB // mn) * mn
     assert d.buf % 4 == 0 and d.buf >= d.KC * (d.RS + d.ADS + dim + d.NCH)
-    assert d.smem >= 4 * max(2 * (d.RS + d.PS) + 2 * d.buf, d.R * d.PB + 4)
+    kept = d.KC + 34 if cull else 0
+    assert d.smem >= 4 * max(2 * (d.RS + d.PS) + 2 * d.buf + kept, d.R * d.PB + 4)
     assert d.smem <= pcontract.SMEM_MAX
     assert d.layout() == (*pcontract.MMA, d.R, d.PB, d.KC, d.MT, d.WN, d.RG, d.CG,
                           d.row_bands, d.col_bands, d.NCH, d.RS, d.PS, d.ADS, d.buf,
-                          d.threads, d.smem)
+                          d.threads, d.smem, int(cull))
 
 
 @pytest.mark.parametrize("H,m,C,layout", [

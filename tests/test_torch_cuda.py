@@ -137,10 +137,11 @@ def test_kernels_multirow_tiles(card, rng):
     assert int(torch.unique(tid).numel()) < plan.S  # some tile has several rows
 
 
-def test_spread_tile_beyond_shared_memory(card, rng):
+def test_spread_tile_beyond_shared_memory(card, rng, monkeypatch):
     """T=32, m=3: a 39^3-cell tile (237 KB per channel) exceeds a block's
-    shared memory, so the spread accumulates straight in global memory; its
-    window ratio (39/8)^3 = 116 takes the wide-tile design."""
+    shared memory, so the wide-tile design, forced here (the rule takes the
+    culled tensor design there), accumulates straight in global memory."""
+    _force_design(monkeypatch, "wide")
     plan = _kernels_vs_plain(rng, card, 3, 32, 3, 2.0, "es", 4000, 1, 1, T=32, design="wide")
     assert plan.H**3 * 4 > 232448
 
@@ -168,7 +169,8 @@ def test_headline_like_spreads_take_the_contraction(card, rng, C):
         got_d = contract.spread_tiles_dense(plan, vals, tid, plan.NT)
         got_r = contract.spread_tiles(plan, vals)
     want = "tensor" if C == 1 else "contraction"
-    assert dense.ran == rows.ran == {"contraction": 0, "tensor": 0, "wide": 0, want: 1}
+    assert dense.ran == rows.ran == {"contraction": 0, "tensor": 0, "wide": 0,
+                                     "tensor_culled": 0, want: 1}
     assert _rel(got_d, contract.spread_tiles_dense_plain(plan, vals, tid, plan.NT)) <= 1e-5
     assert _rel(got_r, contract.spread_tiles_plain(plan, vals)) <= 1e-5
 
@@ -290,7 +292,7 @@ def test_tensor_spread_at_the_cells_geometries(card, rng, cell, C, kernel):
         ref = _f64_spread(plan, vals)
     with _Designs(wrapper) as ran:
         got = run()
-    assert ran.ran == {"contraction": 0, "tensor": 1, "wide": 0}
+    assert ran.ran == {"contraction": 0, "tensor": 1, "wide": 0, "tensor_culled": 0}
     rel_tensor, rel_fp32 = _rel(got, ref), _rel(run(fp32), ref)
     print(f"{cell} C={C} {kernel}: rel-L2 to float64 tensor {rel_tensor:.3e} "
           f"contraction {rel_fp32:.3e}")
@@ -302,6 +304,103 @@ def test_tensor_spread_at_the_cells_geometries(card, rng, cell, C, kernel):
         assert bool((got[~visited] == 0).all())
     else:
         assert bool((got[-1] == 0).all())
+
+
+def _member_plan(rng, dev, n=1 << 17):
+    """A plan at a streamed member's geometry (the batch3d-16x21 cell's):
+    n points in [-1/4, 1/4)^3, N = 256, gaussian m = 4, sigma = 2, T = 32,
+    so M = 512, H = 41: a wide accumulator of 2 x 41^3 floats exceeds
+    shared memory, and (41 / 10)^3 = 68.9 exceeds the ratio limit."""
+    pos = ((rng.random((n, 3)) - 0.5) / 2).astype(np.float32)
+    plan = tp.build_plan_device(pos, None, N=256, m=4, sigma=2.0, batch_size=1,
+                                window="gaussian", T=32, device=dev)
+    assert (plan.M, plan.H, plan.m) == (512, 41, 4)
+    return plan
+
+
+@pytest.mark.parametrize("kernel", ["B1", "B7"])
+def test_culled_tensor_spread_at_the_member_geometry(card, rng, kernel):
+    """B1 and B7 at a streamed member's tiles (H = 41, C = 2, 2^17 points,
+    an empty row appended): the rule takes the tensor design, culled, and
+    launches it once; against a float64 plain spread of the same plan its
+    tiles are no further off than the wide design's; they equal the
+    unculled tensor design's to a float32 ulp; both repeat bit for bit;
+    unvisited tiles and the empty row are exact zeros."""
+    C = 2
+    plan = _with_empty_row(_member_plan(rng, card), card)
+    x = torch.from_numpy(rng.standard_normal((plan.n, C)).astype(np.float32)).to(card)
+    vals = binned.slot_values(plan, x)
+    d = contract.spread_design(3, plan.H, plan.m, C)
+    assert d.name == "tensor" and d.cull
+    wide = contract.spread_design(3, plan.H, plan.m, C, name="wide")
+    unculled = contract.spread_design(3, plan.H, plan.m, C, name="tensor", cull=False)
+    if kernel == "B1":
+        tid = binned.dense_tile_ids(plan)
+        wrapper = contract.spread_tiles_dense
+
+        def run(design=None):
+            return wrapper(plan, vals, tid, plan.NT, design=design)
+
+        ref = _f64_spread(plan, vals, tid, plan.NT)
+    else:
+        wrapper = contract.spread_tiles
+
+        def run(design=None):
+            return wrapper(plan, vals, design=design)
+
+        ref = _f64_spread(plan, vals)
+    with _Designs(wrapper) as ran:
+        got = run()
+    assert ran.ran == {"contraction": 0, "tensor": 1, "wide": 0, "tensor_culled": 1}
+    full = run(unculled)
+    rel_culled, rel_wide, rel_full = _rel(got, ref), _rel(run(wide), ref), _rel(full, ref)
+    print(f"member C={C} {kernel}: rel-L2 to float64 culled {rel_culled:.3e} unculled "
+          f"{rel_full:.3e} wide {rel_wide:.3e}")
+    assert rel_culled <= rel_wide
+    assert _within_an_ulp(got, full)
+    assert torch.equal(run(), got) and torch.equal(run(unculled), full)
+    if kernel == "B1":
+        visited = torch.zeros(plan.NT, dtype=torch.bool, device=card)
+        visited[tid.long()] = True
+        assert bool((got[~visited] == 0).all())
+    else:
+        assert bool((got[-1] == 0).all())
+
+
+@pytest.mark.parametrize("dim,N,m,T,C,blob,kw", [
+    (3, 32, 4, 16, 1, False, dict(warps=4)),  # four column bands
+    (3, 32, 4, 16, 3, True, {}),  # three row bands; many rows a tile
+    (3, 32, 3, 8, 8, False, dict(R=24, warps=4)),
+    (3, 64, 4, 32, 2, False, dict(KC=16)),  # the member's tiles, chunks of 16
+    (2, 64, 3, 32, 2, False, dict(warps=1)),
+])
+def test_culled_tensor_spreads_match_the_unculled(card, rng, dim, N, m, T, C, blob, kw):
+    """Culling forced on small plans (an empty row appended; a band that is
+    a strict part of the tile, other chunk, band and warp sizes): B1 and B7
+    agree with their plain versions to 1e-5 and with the unculled tensor
+    design to a float32 ulp, and repeat bit for bit."""
+    n = 6000 if dim == 3 else 3000
+    pos, batch = points(rng, n, dim, 1)
+    if blob:
+        pos *= 0.1
+    plan = tp.build_plan_device(pos, batch, N=N, m=m, sigma=2.0, batch_size=1, T=T,
+                                window="kb", device=card)
+    plan = _with_empty_row(plan, card)
+    x = torch.from_numpy(rng.standard_normal((plan.n, C)).astype(np.float32)).to(card)
+    vals = binned.slot_values(plan, x)
+    tid = binned.dense_tile_ids(plan)
+    culled = contract.spread_design(dim, plan.H, plan.m, C, name="tensor", cull=True, **kw)
+    full = contract.spread_design(dim, plan.H, plan.m, C, name="tensor", cull=False, **kw)
+    assert culled.cull and not full.cull and culled.row_bands * culled.col_bands > 1
+    for run, plain in (
+            (lambda d: contract.spread_tiles_dense(plan, vals, tid, plan.NT, design=d),
+             lambda: contract.spread_tiles_dense_plain(plan, vals, tid, plan.NT)),
+            (lambda d: contract.spread_tiles(plan, vals, design=d),
+             lambda: contract.spread_tiles_plain(plan, vals))):
+        got = run(culled)
+        assert _rel(got, plain()) <= 1e-5
+        assert _within_an_ulp(got, run(full))
+        assert torch.equal(run(culled), got)
 
 
 def test_tensor_entry_points_match_the_contraction(card, rng, monkeypatch):
@@ -1405,9 +1504,10 @@ def test_streamed_half_spectrum_pair_on_the_card_matches_the_cpu(card, rng, chun
 def test_streamed_half_spectrum_pair_at_the_member_geometry(card):
     """16 members of 2^14 points in [-1/4, 1/4)^3 at N = 256, gaussian
     m = 4, sigma = 2: each member bins at T = 32 (H = 41) on M = 512, as
-    the benchmark's batch3d-16x21 members do. A call launches B1, B2, the
-    fold and the unfold once a member, takes the dense route and the half
-    spectra, and gives the real plane of the streamed adjoint and forward."""
+    the benchmark's batch3d-16x21 members do. A call launches B1 (the
+    culled tensor design), B2, the fold and the unfold once a member, takes
+    the dense route and the half spectra, and gives the real plane of the
+    streamed adjoint and forward."""
     B, per = 16, 1 << 14
     gen = np.random.default_rng(25)
     pos = ((gen.random((B * per, 3), dtype=np.float32) - 0.5) / 2.0).astype(np.float32)
@@ -1424,6 +1524,7 @@ def test_streamed_half_spectrum_pair_at_the_member_geometry(card):
                                   for k in ("fold_tiles_to_grid", "unfold_grid_to_tiles")}}
 
     before = launches()
+    culled = tp.trace.counters()["spread_tiles_dense.tensor_culled"]
     tp.trace.drain()
     tp.trace.enable()
     try:
@@ -1435,6 +1536,7 @@ def test_streamed_half_spectrum_pair_at_the_member_geometry(card):
     ran = {k: v - before[k] for k, v in launches().items()}
     assert ran == {"spread_tiles_dense": B, "gather_points": B, "pos_grad": 0,
                    "spread_tiles": 0, "fold_tiles_to_grid": B, "unfold_grid_to_tiles": B}
+    assert tp.trace.counters()["spread_tiles_dense.tensor_culled"] - culled == B
     pairs = [s for s in spans if s.name == "nfft_pair_planar"]
     assert len(pairs) == B
     for pair in pairs:

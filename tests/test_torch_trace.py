@@ -409,6 +409,26 @@ def test_counters_report_each_spread_design():
             assert f"{name}.{design}" in got
 
 
+@pytest.mark.parametrize("name", ["spread_tiles_dense", "spread_tiles"])
+@pytest.mark.parametrize("H,C,culled", [(41, 2, 1), (25, 1, 0), (13, 1, 0), (25, 8, 0)])
+def test_counters_count_the_culled_launches(monkeypatch, name, H, C, culled):
+    """``<spread>.tensor_culled`` counts the launches that ran the culled
+    tensor design, beside ``<spread>.tensor``, which counts them too: a
+    streamed member's tiles (H = 41, C = 2) cull, the older cells' do not.
+    Counted on the host from the design, with no launch here."""
+    fn = getattr(contract, name)
+    monkeypatch.setattr(fn, "launches", 0)
+    monkeypatch.setattr(fn, "launches_by_design", dict.fromkeys(fn.launches_by_design, 0))
+    m = 4 if H != 13 else 2
+    d = contract.spread_design(3, H, m, C)
+    for _ in range(16):
+        contract._count(fn, d)
+    got = trace.counters()
+    assert got[f"{name}.tensor"] == got[name] == 16
+    assert got[f"{name}.tensor_culled"] == 16 * culled
+    assert got[f"{name}.wide"] == got[f"{name}.contraction"] == 0
+
+
 def test_kernel_builds_counts_a_compile(monkeypatch, tmp_path, recorder):
     """A compile of the host library counts one build; finding it built
     counts none."""

@@ -19,7 +19,7 @@
 //
 // Design of the spreads: three designs, chosen per call by the tile's
 // geometry (ops/contract.py:spread_design).
-//   tensor and contraction (spread_contract_kernel<kPerRow, kMT, kWN>;
+//   tensor and contraction (spread_contract_kernel<kPerRow, kMT, kWN, kCull>;
 //   tnt_*_tensor with kMT = 1 or 2, tnt_*_contract with kMT = 0): the TPU
 //   kernels' dense form. The tile is the matrix OUT[(c,u), (v,w)] =
 //   sum_k x_c A0 (x) (A1 A2), a contraction over the row's points with
@@ -44,7 +44,26 @@
 //   the shared memory a block may use accumulates with atomicAdd straight
 //   in global memory (B7 zeroes its tile first). The float sums follow the
 //   atomics' order, so results agree with the plain version to float32
-//   rounding, not bits, and vary from run to run.
+//   rounding, not bits, and vary from run to run. It runs for 1D and 2D
+//   tiles above the ratio limit, and for 3D tiles above it whose
+//   accumulator, C H^3 floats, fits the shared memory of a block.
+//   culled tensor (kCull; a flag of the tensor launch): a 3D tile above the
+//   ratio limit whose accumulator does not fit would take the wide design
+//   with global atomics (2.6e8 of them a streamed member at H = 41, C = 2).
+//   It takes the tensor design instead, with OUT's rows in (u, c) order so
+//   that a row band covers a run of cells on axis 0 (a column band covers
+//   one on axis 1). Before a chunk's products each warp keeps the points of
+//   its run whose window [o_d, o_d + L) meets the band's cells on axes 0
+//   and 1 (a ballot), the block lists them in slot order (each warp's list
+//   after the lists of the warps before it), and windows, X and the mma
+//   run over the kept points only. A dropped point's products are all
+//   exact zeros (its windows are 0 on every cell of the band), so each
+//   output sums the same nonzero products in the same slot order; only the
+//   groups of 8 that the mma adds together change, and double sums of
+//   exact float products rounded once to float32 then differ from the
+//   unculled design's by at most an ulp. The kept list does not depend on
+//   timing, so the result repeats bit for bit. Culled, a streamed member's
+//   bands keep 28% of the (point, band) pairs.
 // Bound on the H100 at the 3D headline (n = 2^24, N = 256, sigma = 1.625,
 // m = 2, T = 8, K = 1024, 19,860 rows, NT = 52^3 tiles of H^3 = 2197 cells),
 // counting only the n filled slots' values and coordinates (no kernel reads
@@ -145,6 +164,22 @@ __device__ __forceinline__ void point_windows(
   for (int d = 0; d < g.dim; ++d)
     o[d] = axis_window(slot_pos[d * SK + j], origin[s * g.dim + d], M, m,
                        g.L, w, v[d]);
+}
+
+// Offset o of a coordinate's window start inside the row's tile, (floor(M p)
+// - m - org) mod M, and the window argument's fraction frac, rounded as
+// axis_window rounds them.
+__device__ __forceinline__ int tile_offset(float p, int org, int M, int m, float* frac) {
+  const float scaled = __fmul_rn(p, static_cast<float>(M));
+  const float fl = floorf(scaled);
+  *frac = __fsub_rn(scaled, fl);
+  int st = static_cast<int>(fl) - m;  // (floor - m) mod M, (st - origin) mod M
+  if (st < 0) st += M;
+  if (st < 0 || st >= M) st = (st % M + M) % M;
+  int o = st - org;
+  if (o < 0) o += M;
+  if (o < 0 || o >= M) o = (o % M + M) % M;
+  return o;
 }
 
 // The spread of both routes. kPerRow = false (B1): each tile's run of rows
@@ -276,13 +311,14 @@ __device__ __forceinline__ void mma_f64(double* d, const double* a, const double
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
-template <bool kPerRow, int kMT, int kWN>
+template <bool kPerRow, int kMT, int kWN, bool kCull>
 __global__ void __launch_bounds__(kMaxThreadsRT) spread_contract_kernel(
     const float* __restrict__ vals, const float* __restrict__ slot_pos,
     const int* __restrict__ row_count, const int* __restrict__ origin,
     const int* __restrict__ tile_id, float* __restrict__ out, int S, int K,
     int C, int NT, int dim, int H, int M, int m, Window w, Band b) {
   constexpr bool kTensor = kMT > 0;
+  static_assert(kTensor || !kCull, "only the tensor design culls");
   const int first = blockIdx.x;
   int tile = first;
   if (!kPerRow) {
@@ -300,8 +336,12 @@ __global__ void __launch_bounds__(kMaxThreadsRT) spread_contract_kernel(
   const int rq = Rpad / 4, pq = Ppad / 4;
   const int KRS = kTensor ? 0 : Ppad;  // floats a point's row of KR in a buffer
   const size_t SK = static_cast<size_t>(S) * K;
-  // channels the band's rows touch
-  const int c_lo = r0 / H, n_ch = (r0 + Rv - 1) / H - c_lo + 1;
+  // channels the band's rows touch (culled: rows (u, c), every channel)
+  const int c_lo = kCull ? 0 : r0 / H;
+  const int n_ch = kCull ? C : (r0 + Rv - 1) / H - c_lo + 1;
+  // culled: the band's cells on axis 0 (its rows) and axis 1 (its columns)
+  const int u_lo = r0 / C, u_hi = (r0 + Rv - 1) / C;
+  const int v_lo = dim == 3 ? p0 / H : p0, v_hi = dim == 3 ? (p0 + PBv - 1) / H : p0 + PBv - 1;
 
   // the band's row and column tables, then two chunk buffers. A point's
   // windows are ADS >= dim H + 2 floats: dense rows (0 outside its L cells)
@@ -320,10 +360,21 @@ __global__ void __launch_bounds__(kMaxThreadsRT) spread_contract_kernel(
   int* col_i2 = col_i1 + Ppad;
   float* bufs = smem + 2 * (Rpad + Ppad);
   const int buf_floats = b.buf;
+  // culled: after the buffers, the chunk's kept points as the warps listed
+  // them (slots), each warp's count, and each buffer's count
+  int* keep_src = reinterpret_cast<int*>(bufs + 2 * buf_floats);
+  int* warp_kept = keep_src + KC;
+  int* chunk_kept = warp_kept + 32;
   for (int i = threadIdx.x; i < Rpad; i += blockDim.x) {
-    const int r = r0 + i, c = r / H;
-    row_c[i] = i < Rv ? c - c_lo : -1;
-    row_u[i] = r - c * H;
+    const int r = r0 + i;
+    if (kCull) {
+      row_c[i] = i < Rv ? r % C : -1;
+      row_u[i] = i < Rv ? r / C : 0;
+    } else {
+      const int c = r / H;
+      row_c[i] = i < Rv ? c - c_lo : -1;
+      row_u[i] = r - c * H;
+    }
   }
   for (int i = threadIdx.x; i < Ppad; i += blockDim.x) {
     const int p = p0 + i;
@@ -378,22 +429,58 @@ __global__ void __launch_bounds__(kMaxThreadsRT) spread_contract_kernel(
     float* ad = kr + KC * KRS;
     const float* pos_s = ad + KC * ADS;
     const float* val_s = pos_s + KC * dim;
-    const int kend = ch.ka + ch.nr;  // the run's points, then zero operands up to ka + cw
+    const int* org = origin + ch.s * dim;
     cp_async_wait_all();
     __syncwarp();
+    // the warp forms its points q < nf, staged at slot ka + q, at k0 + q, and
+    // zero operands at [z0, z1): its run's points, then up to ka + cw
+    int k0 = ch.ka, nf = ch.nr, z0 = ch.ka + ch.nr, z1 = ch.ka + ch.cw;
+    if constexpr (kCull) {
+      // keep the run's points whose window meets the band on axes 0 and 1,
+      // listed in slot order; after the barrier each warp's list follows
+      // the lists of the warps before it, and the last warp pads the
+      // chunk's kept points with zero operands to the mma's k
+      int cnt = 0;
+      for (int q0 = 0; q0 < ch.nr; q0 += 32) {
+        const int k = ch.ka + q0 + lane;
+        bool keep = false;
+        if (q0 + lane < ch.nr) {
+          float frac;
+          const int o0 = tile_offset(pos_s[k], org[0], M, m, &frac);
+          keep = o0 <= u_hi && o0 + L > u_lo;
+          if (dim > 1) {
+            const int o1 = tile_offset(pos_s[KC + k], org[1], M, m, &frac);
+            keep = keep && o1 <= v_hi && o1 + L > v_lo;
+          }
+        }
+        const unsigned kept = __ballot_sync(0xffffffffu, keep);
+        if (keep) keep_src[ch.ka + cnt + __popc(kept & ((1u << lane) - 1u))] = k;
+        cnt += __popc(kept);
+      }
+      if (lane == 0) warp_kept[warp] = cnt;
+      __syncthreads();
+      int before = 0, total = 0;
+      for (int wi = 0; wi < n_warps; ++wi) {
+        const int n_w = warp_kept[wi];
+        before += wi < warp ? n_w : 0;
+        total += n_w;
+      }
+      if (t == 0) chunk_kept[bi] = total;
+      k0 = before;
+      nf = cnt;
+      z0 = z1 = 0;
+      if (warp == n_warps - 1) {
+        z0 = total;
+        z1 = (total + kMmaK - 1) / kMmaK * kMmaK;
+      }
+    }
+    auto src = [&](int q) { return kCull ? keep_src[ch.ka + q] : ch.ka + q; };
     // dense windows, one (point, axis) a lane
-    for (int e = lane; e < ch.nr * dim; e += 32) {
-      const int q = e / dim, d = e - q * dim, k = ch.ka + q;
-      const float scaled = __fmul_rn(pos_s[d * KC + k], static_cast<float>(M));
-      const float fl = floorf(scaled);
-      const float frac = __fsub_rn(scaled, fl);
-      int st = static_cast<int>(fl) - m;  // (floor - m) mod M, (st - origin) mod M
-      if (st < 0) st += M;
-      if (st < 0 || st >= M) st = (st % M + M) % M;
-      int o = st - origin[ch.s * dim + d];
-      if (o < 0) o += M;
-      if (o < 0 || o >= M) o = (o % M + M) % M;
-      float* a = ad + k * ADS;
+    for (int e = lane; e < nf * dim; e += 32) {
+      const int q = e / dim, d = e - q * dim;
+      float frac;
+      const int o = tile_offset(pos_s[d * KC + src(q)], org[d], M, m, &frac);
+      float* a = ad + (k0 + q) * ADS;
       if (d == 0) {
         a[kZero] = 0.0f;
         a[kOne] = 1.0f;
@@ -407,7 +494,7 @@ __global__ void __launch_bounds__(kMaxThreadsRT) spread_contract_kernel(
     }
     // the tensor design's zero operands: windows of zeros (KR 0, finite)
     if (kTensor)
-      for (int e = lane; e < (ch.cw - ch.nr) * ADS; e += 32) ad[kend * ADS + e] = 0.0f;
+      for (int e = lane; e < (z1 - z0) * ADS; e += 32) ad[z0 * ADS + e] = 0.0f;
     __syncwarp();
     if constexpr (!kTensor) {
       const int4* i1s = reinterpret_cast<const int4*>(col_i1);
@@ -427,9 +514,11 @@ __global__ void __launch_bounds__(kMaxThreadsRT) spread_contract_kernel(
     for (int r = lane; r < x_rows; r += 32) {
       const int ci = row_c[r], u = row_u[r];
 #pragma unroll 8
-      for (int k = ch.ka; k < kend; ++k)
-        xs[k * Rpad + r] = ci >= 0 ? val_s[ci * KC + k] * ad[k * ADS + u] : 0.0f;
-      for (int k = kend; k < ch.ka + ch.cw; ++k) xs[k * Rpad + r] = 0.0f;
+      for (int q = 0; q < nf; ++q) {
+        const int k = k0 + q;
+        xs[k * Rpad + r] = ci >= 0 ? val_s[ci * KC + src(q)] * ad[k * ADS + u] : 0.0f;
+      }
+      for (int k = z0; k < z1; ++k) xs[k * Rpad + r] = 0.0f;
     }
   };
 
@@ -490,7 +579,7 @@ __global__ void __launch_bounds__(kMaxThreadsRT) spread_contract_kernel(
     if constexpr (kTensor) {
       const float* xs = bufs + bi * buf_floats + qt * Rpad + m_lane;
       const float* ws = bufs + bi * buf_floats + KC * Rpad + qt * ADS;
-      const int np = (nk + kMmaK - 1) / kMmaK * kMmaK;
+      const int np = ((kCull ? chunk_kept[bi] : nk) + kMmaK - 1) / kMmaK * kMmaK;
       for (int kb = 0; kb < np; kb += kMmaK) {
         const float* xa = xs + kb * Rpad;
         const float* w0 = ws + kb * ADS;
@@ -581,7 +670,7 @@ __global__ void __launch_bounds__(kMaxThreadsRT) spread_contract_kernel(
   }
   __syncthreads();
   const int count = Rv * PBv;
-  if (PBv == P) {  // the band is one contiguous run of the tile
+  if (PBv == P && (!kCull || C == 1)) {  // the band is one contiguous run of the tile
     const int head = min(count, (4 - shift) & 3);
     const int nvec = (count - head) / 4;
     for (int i = t; i < head; i += blockDim.x) dst[i] = buf[i];
@@ -589,10 +678,12 @@ __global__ void __launch_bounds__(kMaxThreadsRT) spread_contract_kernel(
     const float4* b4 = reinterpret_cast<const float4*>(buf + head);
     for (int i = t; i < nvec; i += blockDim.x) d4[i] = b4[i];
     for (int i = head + 4 * nvec + t; i < count; i += blockDim.x) dst[i] = buf[i];
-  } else {
-    for (int i = t; i < count; i += blockDim.x) {
-      const int r = i / PBv;
-      dst[static_cast<size_t>(r) * P + i - r * PBv] = buf[i];
+  } else {  // a row of the band a warp (culled, row r of OUT is tile row (r % C) H + r / C)
+    float* tdst = out + static_cast<size_t>(tile) * C * g.cells + p0;
+    for (int rl = warp; rl < Rv; rl += n_warps) {
+      const int r = r0 + rl;
+      float* row = tdst + static_cast<size_t>(kCull ? r % C * H + r / C : r) * P;
+      for (int cl = lane; cl < PBv; cl += 32) row[cl] = buf[rl * PBv + cl];
     }
   }
 }
@@ -624,8 +715,9 @@ int launch_spread(const float* vals, const float* slot_pos,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches spread_contract_kernel<kPerRow, kMT> on a grid of (row, band).
-template <bool kPerRow, int kMT, int kWN>
+// Launches spread_contract_kernel<kPerRow, kMT, kWN, kCull> on a grid of
+// (row, band).
+template <bool kPerRow, int kMT, int kWN, bool kCull = false>
 int launch_bands(const float* vals, const float* slot_pos, const int* row_count,
                  const int* origin, const int* tile_id, float* out, int S, int K,
                  int C, int NT, int dim, int H, int M, int m, const Window& w,
@@ -635,11 +727,11 @@ int launch_bands(const float* vals, const float* slot_pos, const int* row_count,
   if (smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > kSmemDefault) {
     const cudaError_t err = cudaFuncSetAttribute(
-        spread_contract_kernel<kPerRow, kMT, kWN>,
+        spread_contract_kernel<kPerRow, kMT, kWN, kCull>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  spread_contract_kernel<kPerRow, kMT, kWN>
+  spread_contract_kernel<kPerRow, kMT, kWN, kCull>
       <<<dim3(S, row_bands * b.col_bands), threads, smem,
          static_cast<cudaStream_t>(stream)>>>(vals, slot_pos, row_count, origin,
                                               tile_id, out, S, K, C, NT, dim, H,
@@ -675,7 +767,8 @@ int launch_spread_contract(const float* vals, const float* slot_pos,
 // The tensor design as ops/contract.py:spread_design laid it out; layout
 // holds the mma's m, n, k, R, PB, KC, MT, WN (m16 and n8 tiles a warp), RG,
 // CG (warp rows and columns), row_bands, col_bands, NCH, RS, PS, ADS, buf,
-// threads, shared bytes.
+// threads, shared bytes, and 1 to cull (rows (u, c), every channel staged;
+// KC + 34 ints after the two buffers), else 0.
 template <bool kPerRow>
 int launch_spread_tensor(const float* vals, const float* slot_pos,
                          const int* row_count, const int* origin,
@@ -687,25 +780,27 @@ int launch_spread_tensor(const float* vals, const float* slot_pos,
   if (err != cudaSuccess || S == 0) return static_cast<int>(err);
   const Band b{layout[3], layout[4], layout[5], layout[8], layout[9], layout[11],
                layout[12], layout[13], layout[14], layout[15], layout[7], layout[16]};
-  const int MT = layout[6], row_bands = layout[10], threads = layout[17];
+  const int MT = layout[6], row_bands = layout[10], threads = layout[17], cull = layout[19];
+  const size_t smem = static_cast<size_t>(layout[18]);
+  const size_t need = 4 * (2 * static_cast<size_t>(b.RS + b.PS) + 2 * static_cast<size_t>(b.buf) +
+                           (cull ? b.KC + 34 : 0));
   if (layout[0] != kMmaM || layout[1] != kMmaN || layout[2] != kMmaK ||
       (MT != 1 && MT != 2) || b.WN < 1 || b.WN > kWarpN[MT] || b.KC < kMmaK ||
       b.KC % kMmaK != 0 || b.RG * MT * kMmaM < b.R || b.CG * b.WN * kMmaN < b.PB ||
       b.RS < (b.R + kMmaM - 1) / kMmaM * kMmaM || b.PS < (b.PB + kMmaN - 1) / kMmaN * kMmaN ||
-      b.RS % 4 != 0 || b.PS % 4 != 0 || b.ADS < dim * H + 2 || b.ADS >= 1 << 16)
+      b.RS % 4 != 0 || b.PS % 4 != 0 || b.ADS < dim * H + 2 || b.ADS >= 1 << 16 ||
+      (cull != 0 && cull != 1) || (cull && b.NCH < C) || smem < need)
     return static_cast<int>(cudaErrorInvalidValue);
   if (threads != 32 * b.RG * b.CG || threads > kMaxThreadsRT)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const Window w{kind, p0, p1, p2};
-  const size_t smem = static_cast<size_t>(layout[18]);
-  return MT == 1 ? launch_bands<kPerRow, 1, kWarpN[1]>(vals, slot_pos, row_count, origin,
-                                                      tile_id, out, S, K, C, NT, dim, H, M,
-                                                      m, w, b, row_bands, threads, smem,
-                                                      stream)
-                 : launch_bands<kPerRow, 2, kWarpN[2]>(vals, slot_pos, row_count, origin,
-                                                      tile_id, out, S, K, C, NT, dim, H, M,
-                                                      m, w, b, row_bands, threads, smem,
-                                                      stream);
+#define TNT_LAUNCH_TENSOR(MT_, CULL_)                                                      \
+  launch_bands<kPerRow, MT_, kWarpN[MT_], CULL_>(vals, slot_pos, row_count, origin, tile_id, \
+                                                  out, S, K, C, NT, dim, H, M, m, w, b,      \
+                                                  row_bands, threads, smem, stream)
+  if (cull) return MT == 1 ? TNT_LAUNCH_TENSOR(1, true) : TNT_LAUNCH_TENSOR(2, true);
+  return MT == 1 ? TNT_LAUNCH_TENSOR(1, false) : TNT_LAUNCH_TENSOR(2, false);
+#undef TNT_LAUNCH_TENSOR
 }
 
 }  // namespace

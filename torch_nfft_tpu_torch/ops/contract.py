@@ -34,18 +34,22 @@ H^dim / L^dim times the sparse work with no atomics, bitwise reproducible,
 its products on the FP64 tensor cores for 3D tiles (``"tensor"``) and in
 FP32 register tiles for 1D and 2D tiles (``"contraction"``), and, where
 that ratio exceeds ``DENSE_RATIO_MAX``'s limit for C, the sparse kernel
-with shared-memory atomics (``"wide"``). The gather and the position gradient launch as
-:func:`points_layout` lays them out: a block a plan row, a thread a point,
-the row's tile staged in shared memory (cell-major at C > 1) where it fits,
-the row's points given to the lanes in the order of their banks; the launch
-refuses a layout that does not fit the call.
+with shared-memory atomics (``"wide"``); a 3D tile above that limit whose
+wide accumulator exceeds shared memory takes the tensor design with each
+block culling the points whose window misses its band (``cull``). The
+gather and the position gradient launch as :func:`points_layout` lays them
+out: a block a plan row, a thread a point, the row's tile staged in shared
+memory (cell-major at C > 1) where it fits, the row's points given to the
+lanes in the order of their banks; the launch refuses a layout that does
+not fit the call.
 
 Each wrapper launches its kernel for CUDA tensors, or raises; it takes the
 plain version only for CPU tensors. On the card the kernels take windows of
 2m + 2 <= ``MAX_L`` cells (m <= 9); :func:`check_window_width` raises
 before any launch beyond that. The plain versions take any m.
 ``launches`` on each wrapper counts the kernel launches; the spreads also
-count them per design in ``launches_by_design``.
+count them per design in ``launches_by_design``, whose ``tensor_culled``
+counts the tensor launches that culled (a part of ``tensor``).
 """
 
 from __future__ import annotations
@@ -94,6 +98,10 @@ MAX_L = 20
 # times the designs on the headline points binned at T = 8-24 (ratios
 # 10.2-112.9) at C = 1, 2, 4, 8: at C <= 2 the FP32 contraction is faster up
 # to 15.6 and not from 22.7; at C = 4 and 8 at every ratio measured.
+# Above the limit, a 3D tile (dims in TENSOR_DIMS) whose wide accumulator,
+# C H^dim floats, exceeds SMEM_MAX would spread by global atomics: it takes
+# the tensor design, culled (phase 10a times the three at a streamed
+# member's tiles, H = 41, C = 2).
 DENSE_RATIO_MAX = {1: 16.0, 4: 113.0}
 # Under that limit, tiles of these dims run the contraction's products on the
 # FP64 tensor cores ("tensor") where the tile matrix has at most
@@ -145,7 +153,10 @@ class SpreadDesign:
     contraction's, ``PS``), column tables of ``PS`` entries, and ``smem``
     bytes of shared memory a block. The contraction: a grid of ``RG`` x
     ``CG`` threads, each holding TM x TN outputs. The tensor design: a grid
-    of ``RG`` x ``CG`` warps, each holding ``MT`` m16 by ``WN`` n8 tiles."""
+    of ``RG`` x ``CG`` warps, each holding ``MT`` m16 by ``WN`` n8 tiles;
+    with ``cull``, OUT's rows are ordered (u, c), a band stages every
+    channel, and each block multiplies only the points whose window meets
+    its band's cells on axes 0 and 1."""
 
     name: str
     dim: int
@@ -168,13 +179,15 @@ class SpreadDesign:
     ADS: int = 0
     MT: int = 0
     WN: int = 0
+    cull: bool = False
 
     @property
     def issued_macs(self) -> int:
         """Multiply-adds the design issues per point: the contraction every
         row and column of its bands' thread tiles, the tensor design every
         m16 x n8 tile of a band's rows and columns padded to 16 and 8; zero
-        padding included."""
+        padding included. Culled, a point issues only in the bands its
+        window meets: this is then the most it issues."""
         if self.name == "tensor":
             rows, P = self.C * self.H, self.H ** (self.dim - 1)
             mm, mn, _ = MMA
@@ -189,28 +202,31 @@ class SpreadDesign:
         if self.name == "tensor":
             return (*MMA, self.R, self.PB, self.KC, self.MT, self.WN, self.RG, self.CG,
                     self.row_bands, self.col_bands, self.NCH, self.RS, self.PS, self.ADS,
-                    self.buf, self.threads, self.smem)
+                    self.buf, self.threads, self.smem, int(self.cull))
         return (TM, TN, self.R, self.PB, self.KC, self.RG, self.CG, self.row_bands,
                 self.col_bands, self.NCH, self.buf, self.threads, self.smem)
 
 
 def _band_memory(dim: int, H: int, C: int, R: int, PB: int, RS: int, PS: int, KC: int,
-                 tensor: bool = False) -> dict:
+                 tensor: bool = False, cull: bool = False) -> dict:
     """Shared memory of a contraction block. The kernel's shared memory: the
     band's row and column tables (2 (RS + PS) ints), then two chunk buffers
     of KC points, each [KC][RS] X, [KC][PS] KR (the contraction's; the
     tensor design forms KR in registers), [KC][ADS] windows (ADS >=
     dim H + 2, the tensor design's padded as RS and PS are), [dim][KC]
-    coordinates and [NCH][KC] values, rounded up to 16 bytes; the band on
-    its way out (R PB floats, shifted by up to 3 for 16-byte stores) reuses
-    it."""
+    coordinates and [NCH][KC] values (culled: every channel), rounded up to
+    16 bytes, and, culled, KC + 34 ints for the kept points' slots and
+    counts; the band on its way out (R PB floats, shifted by up to 3 for
+    16-byte stores) reuses it."""
     rows = C * H
-    NCH = max((min(r0 + R, rows) - 1) // H - r0 // H + 1 for r0 in range(0, rows, R))
+    NCH = C if cull else max((min(r0 + R, rows) - 1) // H - r0 // H + 1
+                             for r0 in range(0, rows, R))
     ADS = _bank_stride(dim * H + 2) if tensor else dim * H + 2
     KRS = 0 if tensor else PS
     buf = -(-KC * (RS + KRS + ADS + dim + NCH) // 4) * 4
+    kept = KC + 34 if cull else 0
     return {"NCH": NCH, "buf": buf, "RS": RS, "PS": PS, "ADS": ADS,
-            "smem": 4 * max(2 * (RS + PS) + 2 * buf, R * PB + 4)}
+            "smem": 4 * max(2 * (RS + PS) + 2 * buf + kept, R * PB + 4)}
 
 
 def _contract_band(dim: int, H: int, C: int, R: int, PB: int, KC: int) -> dict:
@@ -239,28 +255,36 @@ def _default_kc(R: int, band) -> int:
 
 def spread_design(dim: int, H: int, m: int, C: int, *, name: str | None = None,
                   KC: int | None = None, R: int | None = None,
-                  warps: int | None = None) -> SpreadDesign:
+                  warps: int | None = None, cull: bool | None = None) -> SpreadDesign:
     """The spread design for tiles of edge ``H`` and windows of 2m+2 cells
     per axis at ``C`` columns: while (H / L)^dim is at most the
     ``DENSE_RATIO_MAX`` entry for C, the tensor design for dims in
     ``TENSOR_DIMS`` with at most ``TENSOR_ROWS`` rows C H or at least
-    ``TENSOR_COLUMNS`` columns H^{dim-1}, the contraction for the others,
-    else the wide-tile design; ``name`` forces one. ``KC`` and ``R`` fix
-    the contractions' points per chunk and rows per band, ``warps`` the
-    tensor design's most warps a block (None: the defaults above); results
-    do not depend on them (the tensor design's to a float32 ulp)."""
+    ``TENSOR_COLUMNS`` columns H^{dim-1}, the contraction for the others;
+    above it the wide-tile design, but for dims in ``TENSOR_DIMS`` whose
+    wide accumulator, 4 C H^dim bytes, exceeds ``SMEM_MAX``: those take the
+    tensor design, culled. ``name`` forces a design; ``cull`` culls the
+    tensor design or not (None: culled exactly where the rule moves a tile
+    off the wide design). ``KC`` and ``R`` fix the contractions' points per
+    chunk and rows per band, ``warps`` the tensor design's most warps a
+    block (None: the defaults above); results do not depend on them, nor
+    on culling (the tensor design's to a float32 ulp)."""
     L = 2 * m + 2
     ratio = (H / L) ** dim
+    limit = DENSE_RATIO_MAX[max(c for c in DENSE_RATIO_MAX if c <= C)]
+    off_wide = ratio > limit and dim in TENSOR_DIMS and 4 * C * H**dim > SMEM_MAX
     if name is None:
-        limit = DENSE_RATIO_MAX[max(c for c in DENSE_RATIO_MAX if c <= C)]
         tensor = dim in TENSOR_DIMS and (C * H <= TENSOR_ROWS
                                          or H ** (dim - 1) >= TENSOR_COLUMNS)
-        name = "wide" if ratio > limit else "tensor" if tensor else "contraction"
+        name = ("tensor" if off_wide else "wide") if ratio > limit \
+            else "tensor" if tensor else "contraction"
     _require(name in ("contraction", "tensor", "wide"), f"unknown spread design {name!r}")
+    cull = name == "tensor" and off_wide if cull is None else cull
+    _require(name == "tensor" or not cull, "only the tensor design culls")
     if name == "wide":
         return SpreadDesign("wide", dim, H, C, ratio)
     if name == "tensor":
-        return _tensor_design(dim, H, C, ratio, KC, R, warps)
+        return _tensor_design(dim, H, C, ratio, KC, R, warps, cull)
     P, rows = H ** (dim - 1), C * H
     col_bands = -(-P // (TN * MAX_THREADS))
     CG = -(-P // (TN * col_bands))
@@ -284,7 +308,7 @@ def spread_design(dim: int, H: int, m: int, C: int, *, name: str | None = None,
 
 
 def _tensor_design(dim: int, H: int, C: int, ratio: float, KC: int | None,
-                   R: int | None, warps: int | None) -> SpreadDesign:
+                   R: int | None, warps: int | None, cull: bool) -> SpreadDesign:
     """The tensor design's launch: as many n8 tiles across a band as
     ``warps`` warp columns hold (fewer column bands), shared evenly among
     them, then as many warp rows as the rest of the warps allow, the row
@@ -313,7 +337,7 @@ def _tensor_design(dim: int, H: int, C: int, ratio: float, KC: int | None,
     RS, PS = _bank_stride(-(-R // mm) * mm), -(-PB // mn) * mn
 
     def band(kc):
-        return _band_memory(dim, H, C, R, PB, RS, PS, kc, tensor=True)
+        return _band_memory(dim, H, C, R, PB, RS, PS, kc, tensor=True, cull=cull)
 
     if KC is None:
         # the most points a chunk at which shared memory leaves an SM as
@@ -328,7 +352,7 @@ def _tensor_design(dim: int, H: int, C: int, ratio: float, KC: int | None,
              f"KC={KC}, R={R} need {band(KC)['smem']} bytes of shared memory")
     return SpreadDesign("tensor", dim, H, C, ratio, R, PB, KC, RG, CG,
                         row_bands=-(-rows // R), col_bands=col_bands, threads=threads,
-                        MT=MT, WN=WN, **band(KC))
+                        MT=MT, WN=WN, cull=cull, **band(KC))
 
 
 # The launch of the gather and the position gradient
@@ -642,13 +666,19 @@ def spread_tiles(plan, vals: torch.Tensor, design: SpreadDesign | None = None) -
         layout = _layout(d)
         launch = getattr(library(), f"tnt_spread_tiles_{_ENTRY[d.name]}")
         check(launch(*args, ctypes.addressof(layout), device, stream))
-    spread_tiles.launches += 1
-    spread_tiles.launches_by_design[d.name] += 1
+    _count(spread_tiles, d)
     return out
 
 
+def _count(wrapper, d: SpreadDesign) -> None:
+    """One launch of ``wrapper`` under the design ``d``."""
+    wrapper.launches += 1
+    wrapper.launches_by_design[d.name] += 1
+    wrapper.launches_by_design["tensor_culled"] += int(d.cull)
+
+
 spread_tiles.launches = 0
-spread_tiles.launches_by_design = {"contraction": 0, "tensor": 0, "wide": 0}
+spread_tiles.launches_by_design = {"contraction": 0, "tensor": 0, "wide": 0, "tensor_culled": 0}
 
 
 def spread_tiles_dense(plan, vals: torch.Tensor, tile_index: torch.Tensor,
@@ -678,13 +708,13 @@ def spread_tiles_dense(plan, vals: torch.Tensor, tile_index: torch.Tensor,
         layout = _layout(d)
         launch = getattr(library(), f"tnt_spread_tiles_dense_{_ENTRY[d.name]}")
         check(launch(*args, ctypes.addressof(layout), device, stream))
-    spread_tiles_dense.launches += 1
-    spread_tiles_dense.launches_by_design[d.name] += 1
+    _count(spread_tiles_dense, d)
     return out
 
 
 spread_tiles_dense.launches = 0
-spread_tiles_dense.launches_by_design = {"contraction": 0, "tensor": 0, "wide": 0}
+spread_tiles_dense.launches_by_design = {"contraction": 0, "tensor": 0, "wide": 0,
+                                         "tensor_culled": 0}
 
 
 def gather_points(plan, tiles: torch.Tensor, tile_index: torch.Tensor,
