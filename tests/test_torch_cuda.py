@@ -24,6 +24,7 @@ calls run the plan-free engines (the "auto" rule).
 """
 
 import dataclasses
+import math
 import re
 import types
 
@@ -1582,6 +1583,132 @@ def test_padded_member_plan_matches_the_unpadded_plan(card, rng):
     d_u = contract.pos_grad(plan, t_u, vals_u, row_tile_ids(plan))
     d_p = contract.pos_grad(padded, t_u, vals_p, row_tile_ids(padded))
     assert torch.equal(d_p[: plan.S], d_u) and float(d_p[plan.S:].abs().max()) == 0.0
+
+
+# The streamed pair's training step at the benchmark's batch3d-16x21 member
+# geometry: members of ~2^17 points uniform in [-1/4, 1/4)^3, N = 256,
+# gaussian m = 4, sigma = 2 (M = 512, T = 32, H = 41), C = 2.
+MEMBER_COUNTS = (130995, 131512, 131599, 130743)
+MEMBER_KW = dict(N=256, m=4, sigma=2.0, window="gaussian")
+# The benchmark cell's limits (nfft_bench/limits/
+# batch3d-16x21-grad.streamed-step-c2.json): the float32 step reads 7.0-7.9e-5
+# in x.grad and 0.83-0.99e-3 in pos.grad against the float64 sums at 256 rows.
+STEP_XGRAD_BAR, STEP_POSGRAD_BAR = 1.3e-4, 2.5e-3
+
+
+def _member_batch(counts, seed=27):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = sum(counts)
+    pos = torch.rand((n, 3), generator=gen, device="cuda") * 0.5 - 0.25
+    batch = np.repeat(np.arange(len(counts), dtype=np.int32), counts)
+    x = torch.randn((n, 2), generator=gen, device="cuda")
+    w = torch.randn((n, 2), generator=gen, device="cuda")
+    return pos, batch, x, w
+
+
+def _dirichlet_step(pos, x, w, rows, N, chunk=1 << 14):
+    """x.grad and pos.grad at ``rows`` of L = <z, w>, z the pair, by the
+    direct sums over every point with the real, even kernel
+    K(u) = cos(pi sum_d u_d) prod_d sin(pi N u_d) / sin(pi u_d), float64
+    (the benchmark's plain reference, nfft_bench/references/dirichlet_pair.py)."""
+    s, X, W = pos.double(), x.double(), w.double()
+    t, R, C, dim = s[rows], len(rows), x.shape[1], pos.shape[1]
+    c2 = math.pi**2 * N * (N * N - 1) / 6.0
+    accK = torch.zeros((R, C), dtype=torch.float64, device=pos.device)
+    accGX = torch.zeros((dim, R, C), dtype=torch.float64, device=pos.device)
+    accGW = torch.zeros_like(accGX)
+    for c0 in range(0, s.shape[0], chunk):
+        u = t[:, None, :] - s[None, c0:c0 + chunk, :]
+        a = math.pi * u
+        near = u.abs() < 1e-7
+        S = torch.where(near, N - c2 * u * u, torch.sin(N * a) / torch.sin(a))
+        dS = torch.where(near, -2.0 * c2 * u, math.pi * (N * torch.cos(N * a) * torch.sin(a)
+                                                          - torch.cos(a) * torch.sin(N * a))
+                         / torch.sin(a) ** 2)
+        ang = math.pi * u.sum(-1)
+        prodS = S.prod(-1)
+        accK += (torch.cos(ang) * prodS) @ W[c0:c0 + chunk]
+        for d in range(dim):
+            others = torch.cat([S[..., :d], S[..., d + 1:]], -1).prod(-1)
+            G = -math.pi * torch.sin(ang) * prodS + torch.cos(ang) * dS[..., d] * others
+            accGX[d] += G @ X[c0:c0 + chunk]
+            accGW[d] += G @ W[c0:c0 + chunk]
+    pg = ((X[rows][None] * accGW).sum(-1) + (W[rows][None] * accGX).sum(-1)).T
+    return accK, pg
+
+
+def test_streamed_step_at_the_member_geometry_matches_float64(card):
+    """x.grad and pos.grad of two members' step against the float64 sums at
+    sampled rows of each member; B5 and B2 run once for each member and
+    pass (two B5 a member), each member's forward pass once more."""
+    counts = MEMBER_COUNTS[:2]
+    pos, batch, x, w = _member_batch(counts)
+    layout = tp.make_streamed_layout(pos, batch, batch_size=len(counts), **MEMBER_KW)
+    plan = layout.member_plan(0)
+    assert (plan.M, plan.T, plan.H) == (512, 32, 41)
+    p = pos.clone().requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    (tp.nfft_pair_streamed(xg, layout, pos=p) * w).sum().backward()  # builds the kernels
+    torch.cuda.synchronize()
+    xg.grad = p.grad = None
+    before, counters = _launches(), tp.trace.counters()
+    (tp.nfft_pair_streamed(xg, layout, pos=p) * w).sum().backward()
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in _launches().items()}
+    assert ran == {"spread_tiles_dense": 6, "gather_points": 4, "pos_grad": 4,
+                   "spread_tiles": 0}
+    after = tp.trace.counters()
+    assert after["streamed_backward_members"] - counters["streamed_backward_members"] == 2
+    assert after["streamed_recompute_passes"] - counters["streamed_recompute_passes"] == 2
+    gen = np.random.default_rng(5)
+    lo = 0
+    for count in counts:
+        rows = torch.as_tensor(np.sort(gen.choice(count, 128, replace=False)) + lo,
+                               device=card)
+        sl = slice(lo, lo + count)
+        gx, gp = _dirichlet_step(pos[sl], x[sl], w[sl], rows - lo, MEMBER_KW["N"])
+        assert _rel(xg.grad[rows], gx) <= STEP_XGRAD_BAR
+        assert _rel(p.grad[rows], gp) <= STEP_POSGRAD_BAR
+        lo += count
+
+
+def test_streamed_step_peak_memory_does_not_grow_with_the_batch(card):
+    """The step's peak (layout, inputs and the step) at B = 16 within 10% of
+    B = 4's: the backward holds one member's pipeline at a time."""
+    peaks = {}
+    for B in (4, 16):
+        counts = (MEMBER_COUNTS * 4)[:B]
+        pos, batch, x, w = _member_batch(counts)
+        layout = tp.make_streamed_layout(pos, batch, batch_size=B, **MEMBER_KW)
+        p = pos.clone().requires_grad_(True)
+        xg = x.clone().requires_grad_(True)
+        (tp.nfft_pair_streamed(xg, layout, pos=p) * w).sum().backward()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(card)
+        xg.grad = p.grad = None
+        (tp.nfft_pair_streamed(xg, layout, pos=p) * w).sum().backward()
+        torch.cuda.synchronize()
+        peaks[B] = torch.cuda.max_memory_allocated(card)
+        assert p.grad is not None and xg.grad is not None
+        del layout, p, xg, pos, x, w
+        torch.cuda.empty_cache()
+    assert peaks[16] <= 1.1 * peaks[4], peaks
+
+
+def test_pos_grad_at_the_member_geometry_matches_plain(card):
+    """B5 at H = 41, C = 2 (the tile, 551 KB, read from global memory)
+    against its plain version, and bit for bit across two launches."""
+    pos, _, x, _ = _member_batch((1 << 14,))
+    plan = tp.build_plan(pos.cpu().numpy(), None, N=256, m=4, sigma=2.0,
+                         window="gaussian")
+    assert (plan.H, plan.T) == (41, 32)
+    assert not contract.points_layout("pos_grad", 3, plan.H, 2, plan.K).staged
+    g = torch.randn((1, 2) + (plan.M,) * 3, device=card)
+    tiles, tid = unfold_grid_to_tiles(g, plan), row_tile_ids(plan)
+    w = binned.slot_values(plan, x)
+    got = contract.pos_grad(plan, tiles, w, tid)
+    assert _rel(got, contract.pos_grad_plain(plan, tiles, w, tid)) <= 1e-5
+    assert torch.equal(contract.pos_grad(plan, tiles, w, tid), got)
 
 
 def test_load_plan_defaults_to_the_card(card, rng, tmp_path, monkeypatch):

@@ -7,7 +7,16 @@ and on the JAX layout carried across (``convert.layout_from_numpy``), and
 with the port's all-at-once batched transforms within 1e-5 (block-diagonal
 independence: each member is a transform of its own). ``pack`` and
 ``unpack`` are inverses; the entry points refuse a stacked plan.
+
+The streamed pair's training step (``nfft_pair_streamed(x, layout,
+pos=pos)``, L = <z, w>): x.grad and pos.grad against float64 sums over
+each member's points and against autograd through each member's
+``nfft_pair_planar``; without ``pos`` only x.grad; other points raise;
+with nothing that requires grad the call is the member loop, bit for bit
+and launch for launch.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -261,3 +270,188 @@ def test_pair_streamed_3d_trailing_columns(rng):
     ref = tp.nfft_pair_planar(x.reshape(-1, 4), pos, batch, batch_size=B, N=N, m=m,
                               strategy="binned", device="cpu")
     assert rel_l2(got.reshape(-1, 4).numpy(), ref.numpy()) <= BATCHED_TOL
+
+
+# The streamed pair's training step: 3D, N = 16, gaussian m = 4, C = 2, three
+# members of uneven counts, one of them empty.
+STEP_COUNTS, STEP_N, STEP_M, STEP_C = (300, 0, 420), 16, 4, 2
+# The step's error is the pair's window error at gaussian m = 4, sigma = 2
+# (~1e-4 rel-L2 at this size); the position gradient runs the window's
+# derivative, ~5x less accurate (~5e-4 here). Each bar is ~3x the reading.
+STEP_XGRAD_TOL, STEP_POSGRAD_TOL = 3e-4, 2e-3
+
+
+def _step_case(rng):
+    pos, batch = _batched_points(rng, STEP_COUNTS, 3)
+    n = pos.shape[0]
+    layout = tp.make_streamed_layout(pos, batch, batch_size=len(STEP_COUNTS), N=STEP_N,
+                                     m=STEP_M, window="gaussian", device="cpu")
+    x = torch.from_numpy(rng.standard_normal((n, STEP_C)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((n, STEP_C)).astype(np.float32))
+    return pos, layout, x, w
+
+
+def _step(layout, x, w, pos=None, **kw):
+    """(z, x.grad, pos.grad) of L = <nfft_pair_streamed(x, layout, pos=pos), w>."""
+    x = x.clone().requires_grad_(True)
+    z = tp.nfft_pair_streamed(x, layout, pos=pos, **kw)
+    (z * w).sum().backward()
+    return z.detach(), x.grad, None if pos is None else pos.grad
+
+
+def _member_bounds():
+    return np.concatenate([[0], np.cumsum(STEP_COUNTS)])
+
+
+def _float64_step(pos, x, w, N):
+    """z, x.grad and pos.grad of L = <z, w>, z = Re forward(adjoint(x)) by
+    the dense sums over one member's points, in float64."""
+    pos = torch.as_tensor(pos, dtype=torch.float64).clone().requires_grad_(True)
+    x = x.double().clone().requires_grad_(True)
+    dim = pos.shape[1]
+    k = torch.stack(torch.meshgrid(*[torch.arange(-N // 2, N // 2, dtype=torch.float64)] * dim,
+                                   indexing="ij"), -1).reshape(-1, dim)
+    E = torch.exp(2j * math.pi * (pos @ k.T))
+    z = (E.conj() @ (E.T @ x.to(torch.complex128))).real
+    gx, gp = torch.autograd.grad((z * w.double()).sum(), (x, pos))
+    return z.detach(), gx, gp
+
+
+@pytest.mark.parametrize("chunk", [None, 1])
+def test_pair_streamed_step_matches_float64(rng, chunk):
+    pos, layout, x, w = _step_case(rng)
+    p = torch.from_numpy(pos).requires_grad_(True)
+    z, xg, pg = _step(layout, x, w, p, column_chunk=chunk)
+    assert xg.shape == x.shape and pg.shape == p.shape and pg.dtype == torch.float32
+    b = _member_bounds()
+    for lo, hi in zip(b[:-1], b[1:]):
+        if hi == lo:
+            continue
+        zr, gx, gp = _float64_step(pos[lo:hi], x[lo:hi], w[lo:hi], STEP_N)
+        assert rel_l2(z[lo:hi].numpy(), zr.numpy()) <= STEP_XGRAD_TOL
+        assert rel_l2(xg[lo:hi].numpy(), gx.numpy()) <= STEP_XGRAD_TOL
+        assert rel_l2(pg[lo:hi].numpy(), gp.numpy()) <= STEP_POSGRAD_TOL
+
+
+@pytest.mark.parametrize("chunk", [None, 1])
+def test_pair_streamed_step_matches_member_autograd(rng, chunk):
+    """Autograd through each member's ``nfft_pair_planar`` on its own plan
+    runs the same kernels in another order: within 1e-5."""
+    pos, layout, x, w = _step_case(rng)
+    p = torch.from_numpy(pos).requires_grad_(True)
+    z, xg, pg = _step(layout, x, w, p, column_chunk=chunk)
+    b = _member_bounds()
+    for i, (lo, hi) in enumerate(zip(b[:-1], b[1:])):
+        if hi == lo:
+            assert xg[lo:hi].numel() == 0
+            continue
+        xi = x[lo:hi].clone().requires_grad_(True)
+        pi = torch.from_numpy(pos[lo:hi]).requires_grad_(True)
+        zi = tp.nfft_pair_planar(xi, pi, None, batch_size=1, N=STEP_N, m=STEP_M,
+                                 window="gaussian", strategy="binned", device="cpu")
+        (zi * w[lo:hi]).sum().backward()
+        assert rel_l2(z[lo:hi].numpy(), zi.detach().numpy()) <= BATCHED_TOL
+        assert rel_l2(xg[lo:hi].numpy(), xi.grad.numpy()) <= BATCHED_TOL
+        assert rel_l2(pg[lo:hi].numpy(), pi.grad.numpy()) <= BATCHED_TOL
+
+
+@pytest.mark.parametrize("pos_dtype", [None, torch.float32, torch.float64])
+def test_pair_streamed_step_gives_the_gradients_asked_for(rng, pos_dtype):
+    """Without ``pos`` only x.grad, and no recomputed pass; ``pos`` that
+    requires grad in float64 gets its gradient in float64; ``pos`` given
+    alone (x not requiring grad) gets pos.grad and x none."""
+    pos, layout, x, w = _step_case(rng)
+    before = tp.trace.counters()
+    if pos_dtype is None:
+        _, xg, _ = _step(layout, x, w)
+        after = tp.trace.counters()
+        assert after["streamed_recompute_passes"] == before["streamed_recompute_passes"]
+        assert after["streamed_backward_members"] - before["streamed_backward_members"] == 3
+        _, want, _ = _step(layout, x, w, torch.from_numpy(pos).requires_grad_(True))
+        assert torch.equal(xg, want)
+        return
+    p = torch.from_numpy(pos).to(pos_dtype).requires_grad_(True)
+    z = tp.nfft_pair_streamed(x, layout, pos=p)
+    (z * w).sum().backward()
+    assert p.grad.dtype == pos_dtype and p.grad.shape == p.shape
+    assert tp.trace.counters()["streamed_recompute_passes"] - \
+        before["streamed_recompute_passes"] == 3
+    _, _, want = _step(layout, x, w, torch.from_numpy(pos).requires_grad_(True))
+    assert torch.equal(p.grad.float(), want)
+
+
+@pytest.mark.parametrize("other", ["shape", "moved", "dropped"])
+def test_pair_streamed_refuses_other_points(rng, other):
+    pos, layout, x, _ = _step_case(rng)
+    p = torch.from_numpy(pos)
+    if other == "shape":
+        p = p[:, :2]
+    elif other == "moved":
+        p = p.clone()
+        p[5, 1] += 1e-3
+    else:
+        p, x = p[1:], x[1:]
+    with pytest.raises(ValueError, match="pos"):
+        tp.nfft_pair_streamed(x, layout, pos=p.requires_grad_(True))
+
+
+@pytest.mark.parametrize("case", ["no grad", "grad mode off", "pos without grad",
+                                  "grad forward"])
+def test_pair_streamed_without_grad_is_the_member_loop(rng, monkeypatch, case):
+    """With nothing that requires grad the call is the member loop (each
+    member's ``nfft_pair_planar`` on its plan): the same bits, the same
+    kernel calls, nothing saved; the differentiable forward gives the
+    same bits too."""
+    from torch_nfft_tpu_torch.ops import binned, tilefold
+
+    pos, layout, x, _ = _step_case(rng)
+    calls = {}
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapper(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+
+        monkeypatch.setattr(mod, name, wrapper)
+
+    for name in ("spread_tiles_dense", "gather_points", "pos_grad", "slot_values",
+                 "unslot_values"):
+        counted(binned, name)
+    counted(tilefold, "fold_tiles_to_grid")
+    counted(tilefold, "unfold_grid_to_tiles")
+    want = torch.zeros_like(x)
+    b = _member_bounds()
+    for i, (lo, hi) in enumerate(zip(b[:-1], b[1:])):
+        xi = torch.zeros((layout.n_max, STEP_C))
+        xi[: hi - lo] = x[lo:hi]
+        zi = tp.nfft_pair_planar(xi, layout.pos_stack[i], None, layout.member_plan(i),
+                                 batch_size=1, N=STEP_N, m=STEP_M, window="gaussian",
+                                 device="cpu")
+        want[lo:hi] = zi[: hi - lo]
+    loop, calls = calls, {}
+    if case == "no grad":
+        z = tp.nfft_pair_streamed(x, layout)
+    elif case == "grad mode off":
+        with torch.no_grad():
+            z = tp.nfft_pair_streamed(x.clone().requires_grad_(True), layout,
+                                      pos=torch.from_numpy(pos).requires_grad_(True))
+    elif case == "pos without grad":
+        z = tp.nfft_pair_streamed(x, layout, pos=torch.from_numpy(pos))
+    else:
+        z = tp.nfft_pair_streamed(x.clone().requires_grad_(True), layout,
+                                  pos=torch.from_numpy(pos).requires_grad_(True))
+    assert torch.equal(z.detach(), want)
+    assert calls == loop and loop["spread_tiles_dense"] == len(STEP_COUNTS)
+    assert (z.grad_fn is None) == (case != "grad forward")
+
+
+def test_pair_streamed_step_needs_member_plans(rng):
+    pos, batch = _batched_points(rng, (40, 60), 3)
+    layout = tp.make_streamed_layout(pos, batch, batch_size=2, N=8, m=2, plan=False,
+                                     device="cpu")
+    x = torch.ones((100, 1), requires_grad=True)
+    with pytest.raises(ValueError, match="plan=True"):
+        tp.nfft_pair_streamed(x, layout)
+    assert tp.nfft_pair_streamed(x.detach(), layout).shape == (100, 1)

@@ -2,7 +2,8 @@
 sites, on the CPU: nothing recorded and no clock read while it is off;
 names, parents and roots while it is on, through the autograd backward;
 one span per stage of every route and none inside a chunk loop; the
-streamed transforms' pack, member and unpack spans and their counters;
+streamed transforms' pack, member and unpack spans and their counters, and
+the streamed pair's backward > member spans and its two counters;
 two or more threads recording at once; one snapshot of the launch
 counters."""
 
@@ -249,6 +250,82 @@ def test_streamed_counters_count_with_the_recorder_on_and_off(monkeypatch, strea
         B * max(STREAMED_COUNTS) - n == layout.pad_points
 
 
+# a member pass of the streamed pair's backward: w and x to slot order, x's
+# pass to its tiles and pos_grad with w there, w's pass to its tiles, the
+# gather of x.grad and pos_grad with x there
+STREAMED_BACKWARD_MEMBER = ["slot_values", "slot_values", "spread kernel", "fold", "rfftn",
+                            "irfftn", "unfold", "pos_grad", "unslot_values", "spread kernel",
+                            "fold", "rfftn", "irfftn", "unfold", "gather kernel",
+                            "unslot_values", "pos_grad", "unslot_values"]
+
+
+def _streamed_step(x, layout, with_pos):
+    """L = <nfft_pair_streamed(x, layout, pos=...), w>, L.backward()."""
+    pos = None
+    if with_pos:
+        pos = layout.unpack(layout.pos_stack).clone().requires_grad_(True)
+    x = x.clone().requires_grad_(True)
+    z = tp.nfft_pair_streamed(x, layout, pos=pos)
+    (z * torch.ones_like(z)).sum().backward()
+    return x.grad, None if pos is None else pos.grad
+
+
+def test_streamed_backward_spans_nest_member_by_member(streamed, recorder):
+    """backward > pack (w), pack (x), member x B > the stages, unpack
+    (x.grad), unpack (pos.grad), after the forward's root."""
+    x, layout = streamed
+    x = x.clone().requires_grad_(True)
+    pos = layout.unpack(layout.pos_stack).clone().requires_grad_(True)
+    recorder.drain()  # the unpack of the points records too
+    z = tp.nfft_pair_streamed(x, layout, pos=pos)
+    (z * torch.ones_like(z)).sum().backward()
+    spans = sorted(recorder.drain(), key=lambda s: (s.start_ns, s.id))
+    roots = [s for s in spans if s.parent is None]
+    assert [s.name for s in roots] == ["nfft_pair_streamed", "backward"]
+    B = len(STREAMED_COUNTS)
+    forward = [s.name for s in spans if s.parent == roots[0].id]
+    assert forward == ["pack"] + ["member"] * B + ["unpack"]
+    children = [s for s in spans if s.parent == roots[1].id]
+    assert [s.name for s in children] == ["pack", "pack"] + ["member"] * B + ["unpack"] * 2
+    for member in (s for s in children if s.name == "member"):
+        inner = [s.name for s in spans if s.parent == member.id]
+        assert inner == STREAMED_BACKWARD_MEMBER
+    assert all(s.root == roots[1].id for s in spans if s.start_ns >= roots[1].start_ns)
+    assert roots[0].end_ns <= roots[1].start_ns
+    assert x.grad is not None and pos.grad is not None
+
+
+@pytest.mark.parametrize("with_pos", [False, True])
+@pytest.mark.parametrize("on", [False, True])
+def test_streamed_backward_counters_count_with_the_recorder_on_and_off(
+        monkeypatch, streamed, on, with_pos):
+    """A step counts B backward member passes, and B recomputed forward
+    passes where it gives a position gradient, with the recorder off too."""
+    x, layout = streamed
+    trace.disable()
+    trace.drain()
+    if on:
+        trace.enable()
+    else:
+        def no_clock():
+            raise AssertionError("the recorder read the clock while off")
+
+        monkeypatch.setattr(trace, "time", types.SimpleNamespace(time_ns=no_clock))
+    try:
+        before = trace.counters()
+        xg, pg = _streamed_step(x, layout, with_pos)
+        after = trace.counters()
+    finally:
+        trace.disable()
+    assert bool(trace.drain()) == on
+    B = len(STREAMED_COUNTS)
+    ran = {k: after[k] - before[k] for k in streaming.streamed_counters}
+    assert ran == {"streamed_members": B, "streamed_pad_points": layout.pad_points,
+                   "streamed_backward_members": B,
+                   "streamed_recompute_passes": B if with_pos else 0}
+    assert xg is not None and (pg is not None) == with_pos
+
+
 def _stage_cases():
     return [("spread", "dense"), ("gather", "dense"), ("spread", "flat"), ("gather", "flat")]
 
@@ -387,12 +464,14 @@ def test_counters_equal_the_wrappers_attributes(monkeypatch):
                                               "ring_shift": 9})
     monkeypatch.setattr(nfft, "fastsum_routes", {"half": 5, "c2c": 6})
     monkeypatch.setattr(streaming, "streamed_counters",
-                        {"streamed_members": 3, "streamed_pad_points": 4})
+                        {"streamed_members": 3, "streamed_pad_points": 4,
+                         "streamed_backward_members": 5, "streamed_recompute_passes": 6})
     got = trace.counters()
     want = {"kernel_builds": trace._REC.builds, "sent_bytes.all_reduce": 7,
             "sent_bytes.all_gather": 8, "sent_bytes.ring_shift": 9,
             "fastsum_route.half": 5, "fastsum_route.c2c": 6,
-            "streamed_members": 3, "streamed_pad_points": 4}
+            "streamed_members": 3, "streamed_pad_points": 4,
+            "streamed_backward_members": 5, "streamed_recompute_passes": 6}
     for mod, name in WRAPPERS:
         fn = getattr(mod, name)
         want[name] = fn.launches

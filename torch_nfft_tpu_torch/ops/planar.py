@@ -64,7 +64,8 @@ from .tilefold import FOLD_BUDGET
 from .window import DEFAULT_SIGMA, DEFAULT_WINDOW
 
 __all__ = ["nfft_adjoint_planar", "nfft_forward_planar", "nfft_pair_planar",
-           "nfft_fastsum_real", "pair_stages", "fastsum_spectral_stages",
+           "nfft_fastsum_real", "pair_stages", "pair_spectral_stages",
+           "fastsum_spectral_stages",
            "fastsum_stages", "slot_io_ok", "grad_pos", "setup_plan", "shape_of",
            "check_strategy", "points_route", "no_columns"]
 
@@ -286,11 +287,13 @@ def nfft_forward_planar(xr, xi, pos, batch=None, plan=None, *, batch_size: int,
     return y[:, :C], y[:, C:]
 
 
-def _spectral_stages(*, dim: int, N: int, M: int, m: int, sigma: float,
-                     window: str, device) -> tuple:
+def pair_spectral_stages(*, dim: int, N: int, M: int, m: int, sigma: float,
+                         window: str, device) -> tuple:
     """The pair's spectral stages: the adjoint's half spectrum (``rfftn``)
     and, through the band's Hermitian filter, the real grid of the
-    real-output forward (``irfftn``)."""
+    real-output forward (``irfftn``). The grid operator they make is
+    symmetric (the pair's kernel is real and even), so the same stages
+    carry a cotangent's grid back (``ops/streaming.py``'s backward)."""
     w = band_filter_half(dim, N, device)
 
     def forward(h):
@@ -311,8 +314,8 @@ def pair_stages(plan: BinnedPlan, *, N: int, m: int, sigma: float,
     their autograd Functions); chip_smoke.py times them one by one."""
     route = tile_route(plan, C)
     return (route.spreading
-            + _spectral_stages(dim=plan.dim, N=N, M=plan.M, m=m, sigma=sigma, window=window,
-                               device=plan.device)
+            + pair_spectral_stages(dim=plan.dim, N=N, M=plan.M, m=m, sigma=sigma,
+                                   window=window, device=plan.device)
             + route.gathering)
 
 
@@ -330,8 +333,8 @@ def nfft_pair_planar(x, pos, batch=None, plan=None, *, batch_size: int, N: int,
                               N=N, m=m, sigma=sigma, window=window, device=device,
                               C=shape_of(x)[1])
     g = route.spread(_real(x, dev))
-    y = run_stages(_spectral_stages(dim=route.dim, N=N, M=route.M, m=m, sigma=sigma,
-                                    window=window, device=dev), g)
+    y = run_stages(pair_spectral_stages(dim=route.dim, N=N, M=route.M, m=m, sigma=sigma,
+                                        window=window, device=dev), g)
     return route.gather(y)
 
 

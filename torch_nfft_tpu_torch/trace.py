@@ -30,7 +30,10 @@ each kind of collective (``parallel/_comm.py``, ``sent_bytes.<kind>``),
 the ``nfft_fastsum`` calls by spectral route (``ops/nfft.py``,
 ``fastsum_route.half`` and ``fastsum_route.c2c``), the streamed
 transforms' member passes and padded rows (``ops/streaming.py``,
-``streamed_members`` and ``streamed_pad_points``) and ``kernel_builds``,
+``streamed_members`` and ``streamed_pad_points``), the streamed pair's
+backward member passes and the forward passes they recompute
+(``streamed_backward_members``, ``streamed_recompute_passes``) and
+``kernel_builds``,
 the compiles this process ran (``_build.build``,
 ``_native.build_native``), in one snapshot. The counters count whether
 the recorder is on or off, and read no clock.
@@ -211,7 +214,8 @@ def counters() -> dict:
     ``launches`` under its name, a spread's ``launches_by_design`` as
     ``<name>.<design>``, the collectives' ``sent_bytes.<kind>``, the
     fastsum's ``fastsum_route.<route>``, the streamed transforms'
-    ``streamed_members`` and ``streamed_pad_points``, and
+    ``streamed_members``, ``streamed_pad_points``,
+    ``streamed_backward_members`` and ``streamed_recompute_passes``, and
     ``kernel_builds``."""
     from .ops import benes, bitonic, contract, nfft, ragged, streaming, tilefold
 
