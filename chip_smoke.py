@@ -165,6 +165,7 @@ import torch
 import torch_nfft_tpu_torch as tp
 from torch_nfft_tpu_torch import _build, _native
 from torch_nfft_tpu_torch.ops import benes, binned, bitonic, contract, ragged
+from torch_nfft_tpu_torch.ops import fft as pfft
 from torch_nfft_tpu_torch.ops import nfft as pnfft
 from torch_nfft_tpu_torch.ops.binned import (
     dense_tile_ids,
@@ -227,6 +228,7 @@ POS_GRAD_CU = "torch_nfft_tpu_torch/csrc/pos_grad.cu"
 PERMUTE_CU = "torch_nfft_tpu_torch/csrc/permute.cu"
 BITONIC_CU = "torch_nfft_tpu_torch/csrc/bitonic.cu"
 TILEFOLD_CU = "torch_nfft_tpu_torch/csrc/tilefold.cu"
+SPECTRAL_CU = "torch_nfft_tpu_torch/csrc/spectral.cu"
 JAX_BITONIC = "torch_nfft_tpu/ops/pallas/bitonic.py"
 KERNELS = {
     "spread_tiles_dense": (contract, "torch_nfft_tpu/ops/pallas/contract.py:369", CONTRACT_CU),
@@ -255,6 +257,10 @@ KERNELS = {
                            "code", TILEFOLD_CU),
     "unfold_slab_to_tiles": (tilefold, "none: torch_nfft_tpu/parallel/grid_sharded.py is XLA "
                              "code", TILEFOLD_CU),
+    # the half spectrum's turn of the band-pruned spectral stages above
+    # TURN_KERNEL_ABOVE points a line (the grid-sharded slab)
+    "turn_half": (pfft, "none: the JAX package's spectral stage is pruned DFT matmuls",
+                  SPECTRAL_CU),
 }
 SORT_PATH = ("spread_tiles_dense", "gather_points", "pos_grad")
 BENES_PATH = SORT_PATH + ("expand_rows", "compact_rows", "benes_outer", "benes_local")
@@ -1169,7 +1175,6 @@ def spectral_and_strategy_phases(dev, gen, coeffs: torch.Tensor) -> None:
     """Phases 9d-9e: the half-spectrum stages against the C2C formulation
     at the headline and the Gram geometry, and the plan-free engines
     against the NDFT gates, the binned engine and the dense Gaussian."""
-    from torch_nfft_tpu_torch.ops import fft as pfft
     from torch_nfft_tpu_torch.ops.planar import fastsum_spectral_stages
 
     with Phase("9d half-spectrum stages vs C2C"):
@@ -1368,7 +1373,6 @@ def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
     ``validate_inputs`` on the headline points ``head_pos``. Adds each
     kernel's launches per streamed pair and per reference run to
     ``report``."""
-    from torch_nfft_tpu_torch.ops import fft as pfft
     from torch_nfft_tpu_torch.ops import window as pwindow
     from torch_nfft_tpu_torch.utils.debug import debug_enabled, validate_inputs
 
@@ -1475,6 +1479,10 @@ def batched_phases(dev, gen, report: list, head_pos: torch.Tensor,
             print("at member 0: ", end="")
             key = "batched_member" if C == BATCH_C else "batched_member_2c"
             entry[name][key] = tile_move_check(name, plan0, C, dev, gen)
+        # beside them the member's spectral stages, band-pruned (cuFFT's
+        # turned layouts: no turn kernel at M = 512)
+        entry["turn_half"]["member_stages"] = member_spectral_check(
+            dev, gen, DIM, BATCH_N, plan0.M, BATCH_C, m=BATCH_M, sigma=2.0, window="gaussian")
         # one member's pass by stage: what nfft_pair_streamed runs for it
         # (nfft_pair_planar's stages: half spectra, the band filter inside
         # irfftn), and what the composition's nfft_adjoint_planar and
@@ -2264,6 +2272,97 @@ def tile_move_check(name: str, plan, C: int, dev, gen) -> dict:
             "library_ms": None, "rel_l2": err, "max_abs_err": mx}
 
 
+def member_spectral_check(dev, gen, dim: int, N: int, M: int, C: int, **sk) -> dict:
+    """A streamed member's spectral stages (``ops/fft.py``, band-pruned):
+    the pair's round trip through the band filter against the C2C chain
+    (rel-L2 1e-6), each stage's CUDA-event ms (mean of 10) beside the C2C
+    chain's, the C2C lines one round trip runs and skips, and no turn
+    kernel launched."""
+    g = torch.randn((1, C) + (M,) * dim, device=dev, generator=gen)
+    w = pfft.band_filter_half(dim, N, dev)
+    before = dict(pfft.spectral_lines)
+    turns = pfft.turn_half.launches
+    half = pfft.spectral_adjoint_half(g, dim, N, **sk)
+    got = pfft.spectral_forward_half(half * w, dim, N, M, **sk)
+    run = pfft.spectral_lines["run"] - before["run"]
+    skipped = pfft.spectral_lines["skipped"] - before["skipped"]
+    assert pfft.turn_half.launches == turns, "the member's stages launched the turn kernel"
+    want = pfft.spectral_forward(pfft.spectral_adjoint(g, dim, N, **sk), dim, M, **sk).real
+    err = rel_l2(got, want)
+    del got, want
+    t_adj = time_ms(lambda: pfft.spectral_adjoint_half(g, dim, N, **sk), 10)
+    t_fwd = time_ms(lambda: pfft.spectral_forward_half(half, dim, N, M, **sk), 10)
+    t_c2c = time_ms(lambda: pfft.spectral_forward(pfft.spectral_adjoint(g, dim, N, **sk), dim,
+                                                  M, **sk), 10)
+    print(f"spectral stages C={C} (M={M} N={N}, band-pruned): adjoint {t_adj:.4f} ms, forward "
+          f"{t_fwd:.4f} ms (C2C chain {t_c2c:.3f} ms); C2C lines a round trip {run} run, "
+          f"{skipped} skipped ({skipped / (run + skipped):.2%}); rel_l2 against C2C "
+          f"{err:.3e}", flush=True)
+    assert err <= 1e-6, f"pruned spectral stages against C2C: {err:.3e}"
+    return {"adjoint_ms": t_adj, "forward_ms": t_fwd, "c2c_chain_ms": t_c2c,
+            "lines_run": run, "lines_skipped": skipped, "rel_l2": err}
+
+
+# the grid-sharded pair's slab stage at grid3d-n26 (3D N = 1024, sigma = 2,
+# four slabs): axes 1 and 2 of a slab of L0 = 512 rows, as a 2D stage of
+# N = 1024, M = 2048 on 512 leading slices (the turn kernel's geometry)
+SLAB_SPECTRAL = (1024, 2048, 512)
+
+
+def slab_spectral_check(dev, gen, N: int, M: int, L0: int) -> dict:
+    """The slab's spectral round trip (``ops/fft.py``, 2D, band-pruned, the
+    turn kernel's layout): the turn kernel (``csrc/spectral.cu``) at its
+    R2C layout (R = L0 M lines of K = M / 2 + 1, n2 = N / 2 + 1 kept), both
+    ways, bit for bit against its plain version and timed (mean of 10)
+    beside it and the byte bound; then one adjoint and one forward stage
+    on a random slab with the launch counts set to 0 just before, which
+    must launch the turn twice and no other kernel, the round trip through
+    the band filter on 8 of its rows held to the C2C chain (rel-L2 1e-6),
+    and each stage timed (mean of 3). Returns the turn's report fields."""
+    R, K, n2 = L0 * M, M // 2 + 1, N // 2 + 1
+    lines = torch.randn((R, K), dtype=torch.complex64, device=dev, generator=gen)
+    rows = pfft.turn_half(lines, R, K, n2, True)
+    assert torch.equal(rows, pfft.turn_half_plain(lines, R, K, n2, True)), "turn to rows"
+    back = pfft.turn_half(rows, R, K, n2, False)
+    assert torch.equal(back, pfft.turn_half_plain(rows, R, K, n2, False)), "turn to lines"
+    del back
+    out = {}
+    for way, src, to_rows, nbytes in (("to_rows", lines, True, 2 * n2 * R),
+                                      ("to_lines", rows, False, (n2 + K) * R)):
+        ms = time_ms(lambda: pfft.turn_half(src, R, K, n2, to_rows), 10)
+        plain_ms = time_ms(lambda: pfft.turn_half_plain(src, R, K, n2, to_rows), 3)
+        bound_ms = 8.0 * nbytes / PEAK_BYTES_PER_S * 1e3
+        print(f"turn_half {way} (R={R} K={K} n2={n2}): {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms by bytes, {bound_ms / ms:.1%} of bound); bitwise equal "
+              f"to plain", flush=True)
+        out[way] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes"}
+    del lines, rows, src
+    torch.cuda.empty_cache()
+    sk = dict(m=4, sigma=2.0, window="gaussian")
+    g = torch.randn((1, 1, L0, M, M), device=dev, generator=gen)
+    w = pfft.band_filter_half(2, N, dev)
+    reset_launches()
+    half = pfft.spectral_adjoint_half(g, 2, N, **sk)
+    got = pfft.spectral_forward_half(half * w, 2, N, M, **sk)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    assert launches == {k: 2 if k == "turn_half" else 0 for k in KERNELS}, \
+        f"the slab's round trip launched {launches}"
+    rows_g = g[0, :, :8].reshape(1, 8, M, M)  # channel-first, as the C2C chain reads it
+    want = pfft.spectral_forward(pfft.spectral_adjoint(rows_g, 2, N, **sk), 2, M, **sk).real
+    err = rel_l2(got[0, :, :8].reshape(1, 8, M, M), want)
+    del got, want, rows_g
+    t_adj = time_ms(lambda: pfft.spectral_adjoint_half(g, 2, N, **sk), 3)
+    t_fwd = time_ms(lambda: pfft.spectral_forward_half(half, 2, N, M, **sk), 3)
+    print(f"slab spectral stages ({L0} rows, M={M} N={N}, band-pruned, turned): adjoint "
+          f"{t_adj:.3f} ms, forward {t_fwd:.3f} ms; launches a round trip {launches['turn_half']} "
+          f"turn_half and no other kernel; rel_l2 against C2C on 8 rows {err:.3e}", flush=True)
+    assert err <= 1e-6, f"the slab's pruned spectral stages against C2C: {err:.3e}"
+    out["slab_stages"] = {"adjoint_ms": t_adj, "forward_ms": t_fwd, "rel_l2": err,
+                          "launches_turn_half": launches["turn_half"]}
+    return out
+
+
 def slab_move_check(dev, gen, M: int, T: int, H: int, nb0: int) -> dict:
     """A grid slab's fold and unfold (one column, 3D) against their plain
     versions: the fold to rel-L2 1e-5 and bit for bit across two launches,
@@ -2314,7 +2413,8 @@ def tilefold_phase(dev, report: list) -> None:
     Gram and the headline geometry; the headline's numbers are each
     kernel's entry in ``report``, the Gram's its ``gram`` sub-entry. Then
     the slab fold and unfold at the slab of ``grid3d-n26``
-    (:func:`slab_move_check`)."""
+    (:func:`slab_move_check`) and its spectral stages with the turn kernel
+    (:func:`slab_spectral_check`)."""
     entry = {r["name"]: r for r in report}
     gen = torch.Generator(device=dev).manual_seed(61)
     for geo, (M, T, H) in TILEFOLD_GEOMETRIES.items():
@@ -2327,9 +2427,11 @@ def tilefold_phase(dev, report: list) -> None:
                 else:
                     entry[name][geo] = res
             torch.cuda.empty_cache()
-    with Phase("13b slab fold and unfold, 3D N = 1024 on four slabs"):
+    with Phase("13b slab fold, unfold and spectral stages, 3D N = 1024 on four slabs"):
         for name, res in slab_move_check(dev, gen, *SLAB_GEOMETRY).items():
             entry[name].update(res)
+        torch.cuda.empty_cache()
+        entry["turn_half"].update(slab_spectral_check(dev, gen, *SLAB_SPECTRAL))
         torch.cuda.empty_cache()
 
 
@@ -3271,10 +3373,10 @@ def single_device_phases(dev) -> tuple:
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             })
         # the fold and the unfold are held and timed in phases 10a and 13,
-        # the slab's in 13b
+        # the slab's and the turn in 13b
         report += [{"name": name, "route": "cuda", "source": KERNELS[name][2],
                     "replaces": KERNELS[name][1], **path_launches(name)}
-                   for name in TILE_MOVES + SLAB_MOVES]
+                   for name in TILE_MOVES + SLAB_MOVES + ("turn_half",)]
         # the ragged passes at C_WIDE columns in the layouts of slot_values
         # and unslot_values, bitwise against their plain versions
         stream_r, rows_r, ext_er, ext_cr, bnd_r = ragged_in[C_WIDE]

@@ -1,5 +1,9 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
-package: seeded inputs as numpy arrays, and a JAX plan carried across."""
+package: seeded inputs as numpy arrays, a JAX plan carried across, and the
+whole-grid formulation of the half-spectrum stages that the band-pruned
+ones replaced (no JAX: the card tests use it too)."""
+
+import itertools
 
 import numpy as np
 import torch
@@ -51,3 +55,33 @@ def rel_l2(a, b) -> float:
     a = np.asarray(a, dtype=np.complex128)
     b = np.asarray(b, dtype=np.complex128)
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _half_blocks(dim, N, M):
+    """(half-spectrum slices, grid slices) pairs, one per sign pattern of
+    the leading axes (k in [-h, 0) at M - h.., k in [0, h] at 0..)."""
+    h = N // 2
+    neg = (slice(0, h), slice(M - h, M))
+    pos = (slice(h, 2 * h + 1), slice(0, h + 1))
+    for signs in itertools.product((neg, pos), repeat=dim - 1):
+        yield (tuple(s[0] for s in signs) + (slice(0, h + 1),),
+               tuple(s[1] for s in signs) + (slice(0, h + 1),))
+
+
+def whole_adjoint(g, dim, N, phi):
+    """``rfftn`` of the whole grid, cropped to the half spectrum, conj, phi."""
+    R = torch.fft.rfftn(g, dim=tuple(range(-dim, 0)))
+    h = N // 2
+    out = R.new_zeros(R.shape[:R.ndim - dim] + (2 * h + 1,) * (dim - 1) + (h + 1,))
+    for dst, src in _half_blocks(dim, N, g.shape[-1]):
+        out[(Ellipsis,) + dst] = R[(Ellipsis,) + src]
+    return out.conj() * phi
+
+
+def whole_forward(H, dim, N, M, phi):
+    """conj(H) phi embedded in a zeroed M x ... x (M // 2 + 1) array, ``irfftn``."""
+    X = H.conj() * phi
+    out = X.new_zeros(X.shape[:X.ndim - dim] + (M,) * (dim - 1) + (M // 2 + 1,))
+    for src, dst in _half_blocks(dim, N, M):
+        out[(Ellipsis,) + dst] = X[(Ellipsis,) + src]
+    return torch.fft.irfftn(out, s=(M,) * dim, dim=tuple(range(-dim, 0)), norm="forward")

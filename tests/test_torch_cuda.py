@@ -1447,6 +1447,88 @@ def test_half_spectrum_stages_on_the_card_match_c2c(card, rng, dim, N):
     assert _rel(pfft.half_spectrum_to_full(half, dim, N), full) <= 1e-6
 
 
+def _share(got, ref):
+    """max |got - ref| as a share of max |ref|."""
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+# dim, N, M, leading shape, m, sigma, window
+PRUNED_GEOMETRIES = {
+    "member": (3, 256, 512, (1, 2), 4, 2.0, "gaussian"),
+    "headline": (3, 256, 416, (1, 1), 2, 1.625, "es"),
+    "slab rows": (2, 1024, 2048, (1, 1, 8), 4, 2.0, "gaussian"),
+}
+
+
+@pytest.mark.parametrize("turn", [False, True])
+@pytest.mark.parametrize("geometry", list(PRUNED_GEOMETRIES))
+def test_pruned_half_stages_match_the_whole_grid(card, monkeypatch, geometry, turn):
+    """The band-pruned stages against the whole-grid formulation they
+    replaced (``rfftn`` cropped; ``irfftn`` of the zero-padded embed) at a
+    streamed member (3D N = 256, M = 512, C = 2), at the headline (M = 416,
+    C = 1) and on rows of the grid-sharded pair's slab (2D N = 1024,
+    M = 2048): both stages to 1e-6 of the largest entry, through cuFFT's
+    turned layouts and through ``turn_half`` (its launches counted)."""
+    from _torch_port import whole_adjoint, whole_forward
+
+    from torch_nfft_tpu_torch.ops import fft as pfft
+
+    dim, N, M, lead, m, sigma, window = PRUNED_GEOMETRIES[geometry]
+    monkeypatch.setattr(pfft, "TURN_KERNEL_ABOVE", 0 if turn else 1 << 30)
+    g = torch.randn(lead + (M,) * dim, device=card,
+                    generator=torch.Generator(device=card).manual_seed(3))
+    phi = pfft._phi_half(dim, N, m, sigma, window, card)
+    before = pfft.turn_half.launches
+    half = pfft.spectral_adjoint_half(g, dim, N, m, sigma, window)
+    assert _share(half, whole_adjoint(g, dim, N, phi)) <= 1e-6
+    got = pfft.spectral_forward_half(half, dim, N, M, m, sigma, window)
+    assert _share(got, whole_forward(half, dim, N, M, phi)) <= 1e-6
+    torch.cuda.synchronize()
+    assert pfft.turn_half.launches - before == (2 if turn else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("R,K,n2", [(1000, 257, 129), (4099, 1025, 513), (37, 9, 9)])
+def test_turn_half_kernel_matches_plain(card, R, K, n2, dtype):
+    """turn_half's kernel against its plain version, bit for bit (a
+    copy), both ways, ragged tiles included."""
+    from torch_nfft_tpu_torch.ops import fft as pfft
+
+    gen = torch.Generator(device=card).manual_seed(R)
+    src = torch.randn((R, K), dtype=dtype, device=card, generator=gen)
+    rows = pfft.turn_half(src, R, K, n2, True)
+    assert torch.equal(rows.cpu(), pfft.turn_half_plain(src.cpu(), R, K, n2, True))
+    back = pfft.turn_half(rows, R, K, n2, False)
+    assert torch.equal(back.cpu(), pfft.turn_half_plain(rows.cpu(), R, K, n2, False))
+
+
+def test_pair_spectral_stages_gradient_at_the_member_geometry(card):
+    """``pair_spectral_stages`` under autograd at a streamed member (3D
+    N = 256, M = 512, C = 2): the pair's grid and the grid's gradient of
+    <stages(g), r> against autograd through the whole-grid formulation,
+    1e-6 of the largest entry."""
+    from _torch_port import whole_adjoint, whole_forward
+
+    from torch_nfft_tpu_torch.ops import fft as pfft
+    from torch_nfft_tpu_torch.ops.planar import pair_spectral_stages
+
+    dim, N, M, lead, m, sigma, window = PRUNED_GEOMETRIES["member"]
+    gen = torch.Generator(device=card).manual_seed(9)
+    g = torch.randn(lead + (M,) * dim, device=card, generator=gen, requires_grad=True)
+    r = torch.randn(lead + (M,) * dim, device=card, generator=gen)
+    out = g
+    for _, fn in pair_spectral_stages(dim=dim, N=N, M=M, m=m, sigma=sigma, window=window,
+                                      device=card):
+        out = fn(out)
+    got, = torch.autograd.grad((out * r).sum(), g)
+    phi = pfft._phi_half(dim, N, m, sigma, window, card)
+    whole = whole_forward(whole_adjoint(g, dim, N, phi) * pfft.band_filter_half(dim, N, card),
+                          dim, N, M, phi)
+    ref, = torch.autograd.grad((whole * r).sum(), g)
+    assert _share(out.detach(), whole.detach()) <= 1e-6
+    assert _share(got, ref) <= 1e-6
+
+
 # ---------------------------------------------------------------------------
 # Saved plans, plan stacks and the streamed transforms: no kernel of their
 # own; each member runs B1 and B2 (B5 under autograd) on a padded plan.

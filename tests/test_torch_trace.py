@@ -18,7 +18,7 @@ from _torch_port import points
 
 import torch_nfft_tpu_torch as tp
 from torch_nfft_tpu_torch import _native, trace
-from torch_nfft_tpu_torch.ops import (benes, binned, bitonic, contract, nfft, ragged,
+from torch_nfft_tpu_torch.ops import (benes, binned, bitonic, contract, fft, nfft, ragged,
                                       streaming, tilefold)
 from torch_nfft_tpu_torch.parallel import _comm
 
@@ -450,7 +450,7 @@ WRAPPERS = [(contract, "spread_tiles_dense"), (contract, "spread_tiles"),
             (bitonic, "bitonic_local_sort"), (bitonic, "bitonic_cross_round"),
             (bitonic, "bitonic_local_merge"), (tilefold, "fold_tiles_to_grid"),
             (tilefold, "unfold_grid_to_tiles"), (tilefold, "fold_tiles_to_slab"),
-            (tilefold, "unfold_slab_to_tiles")]
+            (tilefold, "unfold_slab_to_tiles"), (fft, "turn_half")]
 
 
 def test_counters_equal_the_wrappers_attributes(monkeypatch):
@@ -463,6 +463,7 @@ def test_counters_equal_the_wrappers_attributes(monkeypatch):
     monkeypatch.setattr(_comm, "sent_bytes", {"all_reduce": 7, "all_gather": 8,
                                               "ring_shift": 9})
     monkeypatch.setattr(nfft, "fastsum_routes", {"half": 5, "c2c": 6})
+    monkeypatch.setattr(fft, "spectral_lines", {"run": 7, "skipped": 8})
     monkeypatch.setattr(streaming, "streamed_counters",
                         {"streamed_members": 3, "streamed_pad_points": 4,
                          "streamed_backward_members": 5, "streamed_recompute_passes": 6})
@@ -470,6 +471,7 @@ def test_counters_equal_the_wrappers_attributes(monkeypatch):
     want = {"kernel_builds": trace._REC.builds, "sent_bytes.all_reduce": 7,
             "sent_bytes.all_gather": 8, "sent_bytes.ring_shift": 9,
             "fastsum_route.half": 5, "fastsum_route.c2c": 6,
+            "spectral_lines.run": 7, "spectral_lines.skipped": 8,
             "streamed_members": 3, "streamed_pad_points": 4,
             "streamed_backward_members": 5, "streamed_recompute_passes": 6}
     for mod, name in WRAPPERS:
@@ -478,6 +480,44 @@ def test_counters_equal_the_wrappers_attributes(monkeypatch):
         for design, n in getattr(fn, "launches_by_design", {}).items():
             want[f"{name}.{design}"] = n
     assert got == want
+
+
+@pytest.mark.parametrize("dim,N,M,lead", [(1, 16, 32, (2, 1)), (2, 16, 26, (1, 3)),
+                                          (3, 8, 16, (1, 2))])
+def test_spectral_lines_count_the_pruned_passes(dim, N, M, lead):
+    """spectral_lines against a hand count of each stage's C2C lines: 1D
+    runs none; 2D (N = 16, M = 26: h = 8, 14 values on the last axis) runs
+    9 of axis 0's 14 lines a slice; 3D (N = 8, M = 16: h = 4, 9 values)
+    runs 16 x 5 = 80 of axis -2's 144 lines and 9 x 5 = 45 of axis 0's 144
+    a slice. The same counts, call after call, with the recorder off."""
+    L = lead[0] * lead[1]
+    run, skipped = {1: (0, 0), 2: (9, 5), 3: (80 + 45, 64 + 99)}[dim]
+    g = torch.randn(lead + (M,) * dim)
+    trace.disable()
+    for _ in range(2):
+        before = trace.counters()
+        half = fft.spectral_adjoint_half(g, dim, N, M_CUT, M / N)
+        fft.spectral_forward_half(half, dim, N, M, M_CUT, M / N)
+        after = trace.counters()
+        assert (after["spectral_lines.run"] - before["spectral_lines.run"],
+                after["spectral_lines.skipped"] - before["spectral_lines.skipped"]) == \
+            (2 * L * run, 2 * L * skipped)
+
+
+def test_spectral_lines_stay_at_zero_on_the_complex_route(setup):
+    """The complex-to-complex stages and the fastsum of a complex x (its
+    C2C route) transform no half spectrum: the counters do not move."""
+    pos, pos_t, x, plan = setup
+    g = torch.randn((1, 2) + (16,) * 3)
+    before = trace.counters()
+    y = fft.spectral_adjoint(g, 3, N // 2, M_CUT, 2.0)
+    fft.spectral_forward(y, 3, 16, M_CUT, 2.0)
+    tp.nfft_fastsum(torch.complex(x, x.flip(0)), _coeffs(), pos_t, m=M_CUT, source_plan=plan,
+                    strategy="binned", device="cpu")
+    after = trace.counters()
+    assert after["fastsum_route.c2c"] == before["fastsum_route.c2c"] + 1
+    for name in ("spectral_lines.run", "spectral_lines.skipped"):
+        assert after[name] == before[name]
 
 
 def test_counters_report_each_spread_design():

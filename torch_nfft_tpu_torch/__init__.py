@@ -15,7 +15,7 @@ positions. It imports neither JAX nor the JAX package.
 Without a plan, small problems run the scatter or the one-hot matmul
 engine (``strategy=``, the JAX package's four strategies and its
 ``"auto"`` rule); real inputs and outputs run the spectral stage on half
-spectra (``rfftn``/``irfftn``).
+spectra (stages ``rfftn``/``irfftn``, pruned to the band).
 
 The kernel-matrix layer sits on the fastsum: ``GaussianKernel`` and the
 radial kernels (``RadialKernel`` for any profile, ``LaplaceKernel``,

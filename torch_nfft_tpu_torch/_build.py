@@ -78,6 +78,8 @@ _FUNCTIONS = {
     # slab and halo in, tiles out, C, dim, M, T, H, nb, axis 0's tiles, the
     # slab's 4 strides, the halo's 2, H's divisor, device, stream
     "tnt_unfold_slab": [_P] * 3 + [_I] * 7 + [_L] * 6 + [_U, _I, _I, _P],
+    # src, dst, R, K, n2, to_rows, is_double, device, stream
+    "tnt_turn_half": [_P] * 2 + [_L] + [_I] * 5 + [_P],
 }
 
 

@@ -6,8 +6,8 @@ Counterparts of ``nfft_adjoint_planar``, ``nfft_forward_planar``,
 spectra (batch_size, (N,)*dim, C) as two real planes. They run the binned
 engine (ops/binned.py), or without a plan the scatter or the one-hot
 matmul engine (ops/spread_gather.py), around the ``torch.fft`` spectral
-stage (ops/fft.py): its Hermitian formulation on ``rfftn``/``irfftn``
-wherever the grid or the output is real (the adjoint of real samples, the
+stage (ops/fft.py): its Hermitian formulation (the stages ``rfftn`` and
+``irfftn``, pruned to the band) wherever the grid or the output is real (the adjoint of real samples, the
 pair, the real-output forward and the real fastsum, as the JAX package's
 planar pipelines carry half spectra), complex to complex for the
 two-plane forward.

@@ -258,10 +258,11 @@ def spectral_adjoint_pruned_dft_sharded0(gr, gi, dim, N, m, sigma, group, M, cel
                                          window="gaussian"):
     """Adjoint spectral stage of this rank's slab (B, C, L0/P, M1, ...) of
     a channel-first grid sharded on axis 0 over ``group`` (gi may be None).
-    Per real plane: the half spectrum of axes 1.. (``rfftn``, crop, rolloff;
-    :func:`ops.fft.spectral_adjoint_half`), then the slab's row block of the
-    axis-0 pruned DFT matrix over the half spectrum's leading range, then
-    one all-reduce of the half spectrum, expanded to the band. Returns the
+    Per real plane: the half spectrum of axes 1.. (the R2C of the last
+    axis, the other axes' C2C on the band's lines only, the rolloff;
+    :func:`ops.fft.spectral_adjoint_half`), then the slab's row block of
+    the axis-0 pruned DFT matrix over the half spectrum's leading range,
+    then one all-reduce of the half spectrum, expanded to the band. Returns the
     replicated spectrum planes (B, C, (N,)*dim)."""
     spec = _cells_spec(dim, M, cells)
     off0, L0 = spec[0]
@@ -288,9 +289,10 @@ def spectral_forward_pruned_dft_sharded0(xr, xi, dim, M, m, sigma, group, n_shar
     """Forward spectral stage producing this rank's axis-0 slab
     (B, C, L0/P, M1, ...) from the replicated spectrum planes xr/xi
     (B, C, (N,)*dim), with no collective: the slab's columns of the axis-0
-    pruned DFT matrix as one complex matmul, then axes 1.. by ``irfftn`` of
-    the half spectrum of the Hermitian part (the real plane) and of the
-    Hermitian part of -i times it (the imaginary plane;
+    pruned DFT matrix as one complex matmul, then axes 1.. (the band's
+    lines' C2C, the last axis's C2R) from the half spectrum of the
+    Hermitian part (the real plane) and of the Hermitian part of -i times
+    it (the imaginary plane;
     :func:`ops.fft.full_to_half`, :func:`ops.fft.spectral_forward_half`).
     ``real_only`` returns (real plane, None)."""
     N = xr.shape[2]

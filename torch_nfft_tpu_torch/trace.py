@@ -25,18 +25,20 @@ its ``backward``. The spans stay in memory until :func:`drain`.
 
 :func:`counters` reads every kernel wrapper's launch counter
 (``ops/contract.py``, ``ops/ragged.py``, ``ops/benes.py``,
-``ops/bitonic.py``, ``ops/tilefold.py``), the bytes this rank handed to
-each kind of collective (``parallel/_comm.py``, ``sent_bytes.<kind>``),
-the ``nfft_fastsum`` calls by spectral route (``ops/nfft.py``,
-``fastsum_route.half`` and ``fastsum_route.c2c``), the streamed
-transforms' member passes and padded rows (``ops/streaming.py``,
-``streamed_members`` and ``streamed_pad_points``), the streamed pair's
-backward member passes and the forward passes they recompute
-(``streamed_backward_members``, ``streamed_recompute_passes``) and
-``kernel_builds``,
-the compiles this process ran (``_build.build``,
-``_native.build_native``), in one snapshot. The counters count whether
-the recorder is on or off, and read no clock.
+``ops/bitonic.py``, ``ops/tilefold.py``, ``ops/fft.py``), the bytes this
+rank handed to each kind of collective (``parallel/_comm.py``,
+``sent_bytes.<kind>``), the ``nfft_fastsum`` calls by spectral route
+(``ops/nfft.py``, ``fastsum_route.half`` and ``fastsum_route.c2c``), the
+C2C lines the Hermitian spectral stages ran and the lines the band let
+them skip (``ops/fft.py``, ``spectral_lines.run`` and
+``spectral_lines.skipped``), the streamed transforms' member passes and
+padded rows (``ops/streaming.py``, ``streamed_members`` and
+``streamed_pad_points``), the streamed pair's backward member passes and
+the forward passes they recompute (``streamed_backward_members``,
+``streamed_recompute_passes``) and ``kernel_builds``, the compiles this
+process ran (``_build.build``, ``_native.build_native``), in one
+snapshot. The counters count whether the recorder is on or off, and read
+no clock.
 """
 
 from __future__ import annotations
@@ -213,11 +215,12 @@ def counters() -> dict:
     """One snapshot of the program's counters: each kernel wrapper's
     ``launches`` under its name, a spread's ``launches_by_design`` as
     ``<name>.<design>``, the collectives' ``sent_bytes.<kind>``, the
-    fastsum's ``fastsum_route.<route>``, the streamed transforms'
-    ``streamed_members``, ``streamed_pad_points``,
+    fastsum's ``fastsum_route.<route>``, the Hermitian spectral stages'
+    ``spectral_lines.run`` and ``spectral_lines.skipped``, the streamed
+    transforms' ``streamed_members``, ``streamed_pad_points``,
     ``streamed_backward_members`` and ``streamed_recompute_passes``, and
     ``kernel_builds``."""
-    from .ops import benes, bitonic, contract, nfft, ragged, streaming, tilefold
+    from .ops import benes, bitonic, contract, fft, nfft, ragged, streaming, tilefold
 
     out = {}
     for mod, names in ((contract, ("spread_tiles_dense", "spread_tiles", "gather_points",
@@ -227,7 +230,8 @@ def counters() -> dict:
                        (bitonic, ("bitonic_local_sort", "bitonic_cross_round",
                                   "bitonic_local_merge")),
                        (tilefold, ("fold_tiles_to_grid", "unfold_grid_to_tiles",
-                                   "fold_tiles_to_slab", "unfold_slab_to_tiles"))):
+                                   "fold_tiles_to_slab", "unfold_slab_to_tiles")),
+                       (fft, ("turn_half",))):
         for name in names:
             fn = getattr(mod, name)
             out[name] = getattr(fn, "launches", 0)
@@ -239,6 +243,8 @@ def counters() -> dict:
         out[f"sent_bytes.{name}"] = n
     for name, n in nfft.fastsum_routes.items():
         out[f"fastsum_route.{name}"] = n
+    for name, n in fft.spectral_lines.items():
+        out[f"spectral_lines.{name}"] = n
     out.update(streaming.streamed_counters)
     out["kernel_builds"] = _REC.builds
     return out
